@@ -12,26 +12,42 @@ torch version on the same inputs. Phases, each printed on its own line:
 2. model: compile seconds and the table bytes on the card;
 3. kernel vs plain: full and serve epilogues on a seeded (8192, 256)
    batch, exact equality (tolerance 0: all values are int32), on (4, 20000)
-   rows whose working set exceeds shared memory, and on three small models (type trie, a 1000-char dictionary word, the
+   rows whose working set exceeds shared memory, on the launch geometry's
+   edges (row lengths 0-2, 31-33, 255, 256 in one batch; batches that do
+   not fill the last block or every SM; packed 512-wide rows with
+   separators; a model whose hot tables exceed the staging budget), and
+   on three small models (type trie, a 1000-char dictionary word, the
    reference's golden sentence);
 4. lean serving: ``LeanServer.run`` over 50 000+ seeded mixed lines, whose
    bytes must equal the port's general path; the kernel's launch count
    during the run must be > 0 and cover every dispatch;
-5. timing at (8192, 256) with CUDA events, kernel and plain version, and
-   the byte bound at 3.35 TB/s;
+5. timing with CUDA events, kernel and plain version, at the three serve
+   shapes ``LeanServer`` dispatches ((8192, 256) unpacked, (4096, 512)
+   packed, (8192, 128)) and the full epilogue at (8192, 256); each with
+   its launch geometry and occupancy, its bound, and what the inputs make
+   the kernel do (live positions, walk steps, matches, weight-chunk rows,
+   in-line gaps);
 6. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
 printing any result.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--timing-only | --sweep VARIANTS_JSON]
+
+``--timing-only`` runs phases 1, 2 and 5 and ends with a ``{"timing":
+...}`` line instead; it reads only the package's entry points, so a copy
+of this script placed in an earlier tree times that tree's kernel the same
+way (an A/B on one card). ``--sweep`` builds variants of the kernel's
+batch widths, staging budget and skipped phases and times them
+(:func:`sweep`), ending with a ``{"sweep": ...}`` line.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -40,6 +56,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core peak (no int32 rate is published)
 B_FULL, L_FULL = 8192, 256
+#: the serve shapes LeanServer dispatches: unpacked lines of 65-256 chars,
+#: packed short lines (PACK_L = 512, at most PACK_TARGET_ROWS = 4096 rows),
+#: a group of short lines that cannot pack (bucket 128)
+SERVE_SHAPES = ((8192, 256, False), (4096, 512, True), (8192, 128, False))
 
 
 def log(*parts) -> None:
@@ -139,6 +159,32 @@ def small_model(seed: int, type_window: int, long_word: int = 0):
                  dict_model, int(rng.integers(-5, 6)), 3, type_window), words
 
 
+def wide_model(seed: int = 9, n_chars: int = 7000):
+    """A seeded model over ``n_chars`` distinct kanji: its hash projection
+    (16 384 slots, 128 KB) and root-child records exceed the kernel's
+    staging budget, so the kernel reads them from global memory."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.models.model import (Model, NgramData,
+                                                  WordWeightRecord)
+
+    rng = np.random.default_rng(seed)
+    chars = [chr(0x4E00 + i) for i in range(n_chars)]
+    ngrams = {c: [int(x) for x in rng.integers(-50, 51, 6)] for c in chars}
+    for _ in range(2000):
+        g = "".join(rng.choice(chars, 2))
+        ngrams[g] = [int(x) for x in rng.integers(-50, 51, 5)]
+    words = sorted({"".join(rng.choice(chars, int(rng.integers(2, 6))))
+                    for _ in range(2000)})
+    return Model(
+        [NgramData(n, w) for n, w in ngrams.items()],
+        [NgramData(bytes([5]), [1, -2, 3, 4])],
+        [WordWeightRecord(w, [int(x) for x in rng.integers(-50, 51,
+                                                           len(w) + 1)])
+         for w in words if w not in ngrams],
+        -3, 3, 3), words
+
+
 # ----------------------------------------------------------------------
 # inputs (seeded)
 # ----------------------------------------------------------------------
@@ -155,14 +201,10 @@ def text_pool():
     ]).astype(np.int64)
 
 
-def random_batch(B, L, seed, words=()):
-    """(cps int32, cts int32, lengths int32) with ragged lengths, some
-    empty rows, and dictionary words spliced in."""
+def _random_text(rng, B, L, words):
+    """(B, L) int32 pool chars with dictionary words spliced in."""
     import numpy as np
 
-    from vaporetto_tpu_torch.sentence import char_types_of_codepoints
-
-    rng = np.random.default_rng(seed)
     pool = text_pool()
     cps = pool[rng.integers(0, len(pool), (B, L))].astype(np.int32)
     words = list(words)
@@ -171,14 +213,78 @@ def random_batch(B, L, seed, words=()):
         b, t = int(rng.integers(0, B)), int(rng.integers(0, L))
         n = min(len(w), L - t)
         cps[b, t:t + n] = [ord(c) for c in w[:n]]
-    lengths = rng.integers(1, L + 1, B).astype(np.int32)
-    lengths[rng.random(B) < 0.05] = 0  # padding rows
-    lengths[: max(1, B // 8)] = L
-    t_idx = np.arange(L)[None, :]
-    cps = np.where(t_idx < lengths[:, None], cps, 0).astype(np.int32)
+    return cps
+
+
+def _with_types(cps, keep, lengths):
+    """Zero the codepoints outside ``keep``; (cps, cts, lengths) int32."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.sentence import char_types_of_codepoints
+
+    cps = np.where(keep, cps, 0).astype(np.int32)
     cts = char_types_of_codepoints(cps).astype(np.int32)
     cts[cps == 0] = 0
-    return cps, cts, lengths
+    return cps, cts, np.asarray(lengths, dtype=np.int32)
+
+
+def random_batch(B, L, seed, words=(), lengths=None):
+    """(cps int32, cts int32, lengths int32) with ragged lengths, some
+    empty rows, and dictionary words spliced in; ``lengths`` (B,) fixes
+    the row lengths instead."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cps = _random_text(rng, B, L, words)
+    if lengths is None:
+        lengths = rng.integers(1, L + 1, B).astype(np.int32)
+        lengths[rng.random(B) < 0.05] = 0  # padding rows
+        lengths[: max(1, B // 8)] = L
+    lengths = np.asarray(lengths, dtype=np.int32)
+    return _with_types(cps, np.arange(L)[None, :] < lengths[:, None],
+                       lengths)
+
+
+def packed_batch(B, seed, words, sep, L=512, max_line=64):
+    """Rows in ``LeanServer``'s packed layout: lines of 0..``max_line``
+    chars one after another, ``sep`` codepoint-0 separators after each,
+    until a row's fill passes PACK_L - max_line - sep; the rest of the
+    row is 0 and every row's length is L."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cps = _random_text(rng, B, L, words)
+    cap = L - max_line - sep
+    t_idx = np.arange(L)[None, :]
+    keep = np.zeros((B, L), dtype=bool)
+    pos = np.zeros((B, 1), dtype=np.int64)
+    while (pos < cap).any():
+        n = rng.integers(0, max_line + 1, (B, 1))
+        live = pos < cap
+        keep |= live & (t_idx >= pos) & (t_idx < pos + n)
+        pos = np.where(live, pos + n + sep, pos)
+    return _with_types(cps, keep, np.full(B, L))
+
+
+#: row lengths at the kernel's edges: empty, one char, one gap, a warp's
+#: width and its neighbours, a full row
+EDGE_LENGTHS = (0, 1, 2, 31, 32, 33, 255, 256)
+
+
+def geometry_batches(words, sep):
+    """name -> (cps, cts, lengths) at the edges of the launch geometry
+    (csrc/boundary.cu: a warp per row, persistent blocks of up to 32
+    warps, rows taken from a counter)."""
+    import numpy as np
+
+    return {
+        "edge lengths (67, 256)": random_batch(
+            67, 256, 11, words, np.resize(EDGE_LENGTHS, 67)),
+        "ragged last block (1001, 256)": random_batch(1001, 256, 12, words),
+        "fewer rows than SMs (50, 256)": random_batch(50, 256, 13, words),
+        "packed rows with separators (256, 512)": packed_batch(
+            256, 14, words, sep),
+    }
 
 
 def stream_lines(seed, words):
@@ -238,8 +344,67 @@ def build_all():
     if errors:
         raise errors[0]
     with open(paths["nvcc"] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "smem" in ln]
+        ptxas = [ln.strip() for ln in f
+                 if any(k in ln for k in ("registers", "smem", "spill"))]
     return secs, ptxas
+
+
+def ptxas_summary(lines):
+    """Most registers and spill bytes over the kernel's instantiations."""
+    import re
+
+    def most(pattern):
+        return max((int(m) for ln in lines for m in re.findall(pattern, ln)),
+                   default=0)
+
+    return {"registers": most(r"Used (\d+) registers"),
+            "spill_store_bytes": most(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": most(r"(\d+) bytes spill loads")}
+
+
+def kernel_work(tabs, cps, cts, lengths):
+    """What a batch makes the kernel do, counted in plain torch on the
+    card from the plain version's outputs and the same tables: live
+    positions (chars before each row's length), walk steps (alive
+    transitions of the forward walks from every live start, the first
+    step included), matched end positions, weight-chunk rows added,
+    in-line gaps (type window lookups), for the char side."""
+    import torch
+
+    from vaporetto_tpu_torch.ops.boundary import boundary_scores_plain
+    from vaporetto_tpu_torch.ops.match import hash_project_fused
+
+    _, cm, _ = boundary_scores_plain(tabs, cps, cts, lengths)
+    L = cps.shape[1]
+    ln = lengths.long()[:, None]
+    t_idx = torch.arange(L, device=cps.device)[None, :]
+    m = tabs.char
+    syms = hash_project_fused(cps, tabs.hash_mul, tabs.hash_shift,
+                              tabs.hash2)
+    live = t_idx < ln
+    node = torch.where(live, 0, -1)
+    nbase = torch.full_like(node, m.root_base)
+    steps = 0
+    for j in range(min(m.max_len, L)):
+        ok = (node >= 0) & (t_idx + j < ln)
+        if not bool(ok.any()):
+            break
+        nxt = torch.nn.functional.pad(syms[:, j:], (0, j))
+        cand = (nbase + nxt).clamp(0, m.walk.shape[0] - 1).long()
+        row = m.walk[cand]
+        ok = ok & (row[..., 0] == node)
+        steps += int(ok.sum())
+        node = torch.where(ok, cand.int(), -1)
+        nbase = row[..., 1]
+    matched = cm[cm >= 0].long()
+    return {
+        "live positions": int(live.sum()),
+        "walk steps": steps,
+        "matched end positions": int(matched.numel()),
+        "weight-chunk rows": int(m.rows_cnt[matched].sum())
+        if matched.numel() else 0,
+        "in-line gaps": int((lengths.long() - 1).clamp(min=0).sum()),
+    }
 
 
 def compare_kernel(tabs, cps, cts, lengths, ws_types_list=((),)):
@@ -307,37 +472,262 @@ def general_path(pred, lines, batch=4096):
     return ("\n".join(out) + "\n").encode("utf-8") if out else b""
 
 
-def cuda_ms(fn, inputs, iters):
-    """Mean ms per call over ``iters`` calls cycling through ``inputs``
-    (several batches, more than the 50 MB L2 holds), after a warm-up."""
+def cuda_ms(fn, inputs, iters, reps=5, hold=True):
+    """Device ms per call: the median over ``reps`` runs of the mean over
+    ``iters`` calls cycling through ``inputs`` (several batches, more than
+    the 50 MB L2 holds), after a warm-up. A kernel of tens of us runs as
+    fast as the host can launch it, so before each run the stream is held
+    busy (``torch.cuda._sleep``) for longer than the host takes to enqueue
+    the calls: the events then time the calls back to back on the device.
+    A run the host outlasted is repeated with a longer hold. ``hold=False``
+    times back to back without it, for the plain version, whose calls wait
+    on the device inside."""
+    import statistics
+
     import torch
 
     for x in inputs:
         fn(*x)
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(*inputs[i % len(inputs)])
-    end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    hold_ev, start, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+    cycles = int(3 * host_s * 2e9) + 1_000_000  # 3x at <= 2 GHz
+    times = []
+    while len(times) < reps:
+        torch.cuda.synchronize()
+        hold_ev.record()
+        if hold:
+            torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if not hold or hold_ev.elapsed_time(start) >= enqueue_ms:
+            times.append(start.elapsed_time(end) / iters)
+        elif cycles > 2e10:  # 10 s
+            raise RuntimeError(f"host enqueue {enqueue_ms:.3f} ms outlasted "
+                               f"the hold {hold_ev.elapsed_time(start):.3f} "
+                               "ms")
+        else:  # the host was slower than in the warm-up: hold longer
+            cycles *= 2
+    return statistics.median(times)
 
 
-def main() -> int:
+def time_kernel(pred, words, sep):
+    """Phase 5: CUDA-event times of the kernel and its plain version at the
+    serve shapes and of the full epilogue at (B_FULL, L_FULL), with each
+    shape's bound, its launch geometry where the package reports one, and
+    what the first batch makes the kernel do. Returns (shapes, full). It
+    reads only the package's entry points, so it times an earlier tree's
+    kernel too (``--timing-only``)."""
     import torch
 
+    from vaporetto_tpu_torch.ops import boundary as bmod
+    from vaporetto_tpu_torch.ops.boundary import (boundary,
+                                                  boundary_scores_plain,
+                                                  serve_bits_plain)
+
+    tabs = pred._tables()
+    dev = tabs.device
+    geometry = getattr(bmod, "launch_geometry", None)
+    shapes, full = [], {}
+    for B, L, packed in SERVE_SHAPES:
+        batches = []
+        # more serve input than the 50 MB L2 holds (10 batches of
+        # (8192, 256) are PR 1's timing batches, seeds 100-109)
+        for seed in range(max(10, -(-60_000_000 // (3 * B * L)))):
+            c, t, ln = (packed_batch(B, 200 + seed, words[:5000], sep, L)
+                        if packed else
+                        random_batch(B, L, 100 + seed, words[:5000]))
+            batches.append(tuple(torch.from_numpy(x).to(dev) for x in (
+                c.astype("uint16"), t.astype("uint8"), ln, c, t)))
+        serve_in = [b[:3] for b in batches]
+        full_in = [(b[3], b[4], b[2]) for b in batches]
+        serve_ms = cuda_ms(
+            lambda c, t, ln: boundary(tabs, c, t, ln, serve=True),
+            serve_in, 50)
+        serve_plain_ms = cuda_ms(
+            lambda c, t, ln: serve_bits_plain(tabs, c, t, ln), serve_in[:2],
+            4, hold=False)
+        work = kernel_work(tabs, *full_in[0])
+        W8 = -(-(L - 1) // 8)
+        # least bytes: each input read once, each output written once. The
+        # model tables (tens of MB at most) are not counted: they stay in
+        # the 50 MB L2 from one launch to the next
+        serve_bytes = B * L * (2 + 1) + B * 4 + B * W8
+        # least operations this data needs: the adds of every matched
+        # weight chunk lane and the type window shifts of every in-line gap
+        ops = (8 * work["weight-chunk rows"]
+               + 2 * 2 * tabs.type_window * work["in-line gaps"])
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        bytes_ms = serve_bytes / HBM_BYTES_PER_S * 1e3
+        shape = {
+            "shape": [B, L], "packed": packed, "ms": serve_ms,
+            "plain_ms": serve_plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "work": work,
+        }
+        shapes.append(shape)
+        if geometry is not None:
+            g = geometry(tabs, B, L)
+            shape.update(warps_per_block=g.warps, blocks=g.blocks,
+                         blocks_per_sm=g.blocks_per_sm,
+                         occupancy=g.occupancy, smem=g.smem,
+                         staged=g.staged)
+            log(f"[5] geometry ({B}, {L}){' packed' if packed else ''}: "
+                f"{g.warps} warps per block, {g.blocks} blocks, "
+                f"{g.blocks_per_sm} per SM, occupancy {g.occupancy:.3f} of "
+                f"{g.max_warps_per_sm} warps, {g.smem} B shared memory, hot "
+                f"tables {'staged' if g.staged else 'global'}, rows in "
+                f"{'global scratch' if g.scratch else 'shared memory'}")
+        log(f"[5] work ({B}, {L}), first batch: " + ", ".join(
+            f"{k} {v}" for k, v in work.items()) + f" (of {B * L} positions)")
+        if (B, L) != (B_FULL, L_FULL):
+            log(f"[5] timing ({B}, {L}){' packed' if packed else ''}: serve "
+                f"kernel {serve_ms:.4f} ms, plain {serve_plain_ms:.3f} ms, "
+                f"bound {shape['bound_ms']:.5f} ms ({serve_bytes} B at "
+                f"3.35 TB/s; ops bound {ops_ms:.5f} ms, {ops} ops)")
+            continue
+        S = tabs.pad_left + L - 1 + tabs.pad_right
+        full_bytes = B * L * (4 + 4) + B * 4 + B * S * 4 + B * L * 4
+        full = {
+            "ms": cuda_ms(lambda c, t, ln: boundary(tabs, c, t, ln), full_in,
+                          50),
+            "plain_ms": cuda_ms(
+                lambda c, t, ln: boundary_scores_plain(tabs, c, t, ln),
+                full_in[:2], 4, hold=False),
+            "bound_ms": max(full_bytes / HBM_BYTES_PER_S * 1e3, ops_ms),
+        }
+        log(f"[5] timing ({B}, {L}): serve kernel {serve_ms:.4f} ms, plain "
+            f"{serve_plain_ms:.3f} ms, bound {shape['bound_ms']:.5f} ms "
+            f"({serve_bytes} B at 3.35 TB/s); full kernel {full['ms']:.4f} "
+            f"ms, plain {full['plain_ms']:.3f} ms, bound "
+            f"{full['bound_ms']:.5f} ms ({full_bytes} B); ops bound "
+            f"{ops_ms:.5f} ms ({ops} ops)")
+    return shapes, full
+
+
+#: --sweep: the kernel's compile-time batch widths (csrc/boundary.cu) a
+#: variant may set, and the phases it may skip to time the rest (a variant
+#: that skips one is not exact, and is not compared with the plain version)
+TUNABLES = ("MAX_THREADS", "WALKS", "ADDS", "ADD_LOADS", "TEXT")
+#: (skipping the walks skips the type-window lookups that ride on them)
+SKIPS = {
+    "walks": ("      walk_row<STAGED, true>(",
+              "      if (a.B < 0) walk_row<STAGED, true>("),
+    "adds": ("      add_matches(best, len, lane, sc, S, pad_left, a.c_ids,",
+             "      if (a.B < 0) add_matches(best, len, lane, sc, S, pad_left,"
+             " a.c_ids,"),
+}
+
+
+def sweep(pred, words, sep, variants):
+    """``--sweep``: build each variant of csrc/boundary.cu (``{name:
+    {"WALKS": 4, ..., "skip": ["adds"], "stage_budget": 0}}``) in parallel
+    and time its serve epilogue at the serve shapes, at (1056, 256) and
+    (16384, 256), and its full epilogue, in the order given and then in
+    reverse. Returns {name: {"ptxas": ..., "runs": [...]}}."""
+    import re
+
+    import torch
+
+    from vaporetto_tpu_torch._build import BUILD_DIR, build_shared
+    from vaporetto_tpu_torch.ops import boundary as bmod
+
+    tabs = pred._tables()
+    with open(bmod._SRC) as f:
+        src = f.read()
+    budget0, paths, errors = bmod.STAGE_BUDGET, {}, []
+
+    def build(name, v):
+        s = src
+        for k in v.get("skip", ()):
+            if s.count(SKIPS[k][0]) != 1:
+                raise ValueError(f"skip {k}: source not found")
+            s = s.replace(*SKIPS[k])
+        for k in TUNABLES:
+            if k in v:
+                s, n = re.subn(rf"constexpr int {k} = \d+;",
+                              f"constexpr int {k} = {int(v[k])};", s)
+                if n != 1:
+                    raise ValueError(f"{k}: constant not found")
+        os.makedirs(os.path.join(BUILD_DIR, "sweep"), exist_ok=True)
+        cu = os.path.join(BUILD_DIR, "sweep", f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(s)
+        try:
+            paths[name] = build_shared(f"vt_boundary_{name}", [cu],
+                                       bmod.build_command())
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=a)
+               for a in variants.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    data = {}
+    for B, L, packed in SERVE_SHAPES + ((1056, 256, False),
+                                        (16384, 256, False)):
+        data[(B, L)] = [tuple(torch.from_numpy(x).to(tabs.device) for x in (
+            c.astype("uint16"), t.astype("uint8"), ln, c, t))
+            for c, t, ln in (
+                packed_batch(B, 200 + i, words[:5000], sep, L) if packed
+                else random_batch(B, L, 100 + i, words[:5000])
+                for i in range(max(3, -(-60_000_000 // (3 * B * L)))))]
+    want = {k: bmod.serve_bits_plain(tabs, *v[0][:3]) for k, v in data.items()}
+    out = {}
+    for name in list(variants) + list(variants)[::-1]:
+        v = variants[name]
+        bmod.STAGE_BUDGET = v.get("stage_budget", budget0)
+        bmod.use_library(paths[name])
+        run = {}
+        for (B, L), batches in data.items():
+            got = bmod.boundary(tabs, *batches[0][:3], serve=True)
+            if not v.get("skip") and not torch.equal(got, want[(B, L)]):
+                raise AssertionError(f"{name}: serve bits differ at {B, L}")
+            run[f"{B}x{L}"] = cuda_ms(
+                lambda c, t, ln: bmod.boundary(tabs, c, t, ln, serve=True),
+                [b[:3] for b in batches], 40)
+        run["full"] = cuda_ms(lambda c, t, ln: bmod.boundary(tabs, c, t, ln),
+                              [(b[3], b[4], b[2]) for b in data[(8192, 256)]],
+                              40)
+        with open(paths[name] + ".log") as f:
+            ptxas = ptxas_summary([ln for ln in f if "spill" in ln
+                                   or "registers" in ln])
+        out.setdefault(name, {"ptxas": ptxas, "runs": []})["runs"].append(run)
+        log(f"[sweep] {name}: {ptxas} " + ", ".join(
+            f"{k} {ms:.4f}" for k, ms in run.items()))
+    bmod.STAGE_BUDGET = budget0
+    bmod.use_library(bmod.build())
+    return out
+
+
+def main(argv) -> int:
+    import torch
+
+    timing_only = "--timing-only" in argv
+    variants = (json.loads(argv[argv.index("--sweep") + 1])
+                if "--sweep" in argv else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 1
     import numpy as np
 
-    from vaporetto_tpu_torch import LeanServer, Predictor, Sentence
-    from vaporetto_tpu_torch.ops.boundary import (boundary,
-                                                  boundary_scores_plain,
-                                                  serve_bits_plain)
+    from vaporetto_tpu_torch import Predictor
+    from vaporetto_tpu_torch.serving import pack_separator
 
     # ---- 1. device and build ------------------------------------------
     smi = subprocess.run(
@@ -354,6 +744,7 @@ def main() -> int:
         f"nvcc {secs['nvcc']:.2f}")
     for ln in ptxas:
         log(f"[1] ptxas: {ln}")
+    log(f"[1] ptxas summary: {ptxas_summary(ptxas)}")
 
     # ---- 2. model -----------------------------------------------------
     t0 = time.perf_counter()
@@ -371,6 +762,17 @@ def main() -> int:
         f"pad {pred.compiled.pad_left}/{pred.compiled.pad_right}; "
         f"tables on card {tabs.nbytes()} bytes")
     words = [w.word for w in model.dict_model]
+    sep = pack_separator(pred.compiled)
+    if timing_only:
+        shapes, full = time_kernel(pred, words, sep)
+        log(json.dumps({"timing": {"serve_shapes": shapes, "full": full}}))
+        return 0
+    if variants is not None:
+        log(json.dumps({"sweep": sweep(pred, words, sep, variants)}))
+        return 0
+    from vaporetto_tpu_torch import LeanServer, Sentence
+    from vaporetto_tpu_torch.ops.boundary import (STAGE_BUDGET, boundary,
+                                                  launch_geometry)
 
     # ---- 3. kernel vs plain -------------------------------------------
     kanji_digit = (5, 1)
@@ -382,6 +784,20 @@ def main() -> int:
     err = max(err, compare_kernel(tabs, c, t, ln))
     log("[3] 50k model (4, 20000): rows beyond shared memory (global "
         "scratch) equal to plain")
+    for name, (c, t, ln) in geometry_batches(words[:5000], sep).items():
+        err = max(err, compare_kernel(tabs, c, t, ln, ((), kanji_digit)))
+        g = launch_geometry(tabs, len(ln), c.shape[1])
+        log(f"[3] 50k model, {name}: equal to plain; {g.warps} warps per "
+            f"block, {g.blocks} blocks")
+    wm, wwords = wide_model()
+    wt = Predictor(wm)._tables()
+    if launch_geometry(wt, 64, 128).staged:
+        raise AssertionError("the wide model's hot tables are staged")
+    c, t, ln = random_batch(64, 128, 15, wwords)
+    err = max(err, compare_kernel(wt, c, t, ln, ((), kanji_digit)))
+    log(f"[3] wide model ({wt.hash2.shape[0]} hash slots, "
+        f"{wt.stage_bytes()} B of hot tables > budget {STAGE_BUDGET} B): "
+        f"tables read from global memory, equal to plain at (64, 128)")
     for name, (m, mwords) in (
         ("type trie (window 4)", small_model(3, 4)),
         ("1000-char dictionary word", small_model(4, 3, long_word=1000)),
@@ -438,55 +854,14 @@ def main() -> int:
         f"({st['readback_bytes']} B), detok {st['t_detok_s']:.3f}, general "
         f"path {st['t_fallback_s']:.3f}; bytes equal to the general path")
 
-    # ---- 5. timing at (8192, 256) -------------------------------------
-    dev = tabs.device
-    batches = []
-    for seed in range(10):  # 10 x 6.3 MB of serve input > 50 MB L2
-        c, t, ln = random_batch(B_FULL, L_FULL, 100 + seed, words[:5000])
-        batches.append((torch.from_numpy(c).to(dev),
-                        torch.from_numpy(t).to(dev),
-                        torch.from_numpy(ln).to(dev),
-                        torch.from_numpy(c.astype("uint16")).to(dev),
-                        torch.from_numpy(t.astype("uint8")).to(dev)))
-    serve_in = [(b[3], b[4], b[2]) for b in batches]
-    full_in = [(b[0], b[1], b[2]) for b in batches]
+    # ---- 5. timing ----------------------------------------------------
     n_before = boundary.launches
-    serve_ms = cuda_ms(lambda c, t, ln: boundary(tabs, c, t, ln, serve=True),
-                       serve_in, 50)
-    full_ms = cuda_ms(lambda c, t, ln: boundary(tabs, c, t, ln), full_in, 50)
-    serve_plain_ms = cuda_ms(
-        lambda c, t, ln: serve_bits_plain(tabs, c, t, ln), serve_in[:2], 4)
-    full_plain_ms = cuda_ms(
-        lambda c, t, ln: boundary_scores_plain(tabs, c, t, ln), full_in[:2], 4)
+    log(f"[5] ptxas: {ptxas_summary(ptxas)}")
+    shapes, full = time_kernel(pred, words, sep)
     boundary.launches = n_before  # timing launches are not the main path's
-    B, L = B_FULL, L_FULL
-    S = pred.compiled.pad_left + L - 1 + pred.compiled.pad_right
-    W8 = -(-(L - 1) // 8)
-    # least bytes: each input read once, each output written once. The
-    # model tables (6.4 MB) are not counted: they stay in the 50 MB L2
-    # from one launch to the next, so a launch need not read them from HBM
-    serve_bytes = B * L * (2 + 1) + B * 4 + B * W8
-    full_bytes = B * L * (4 + 4) + B * 4 + B * S * 4 + B * L * 4
-    # least operations this data needs: the adds of every matched weight
-    # chunk lane and the type window shifts of every in-line gap
-    c0, t0_, ln0 = full_in[0]
-    _, cm0, _ = boundary_scores_plain(tabs, c0, t0_, ln0)
-    m = cm0[cm0 >= 0].long()
-    chunks = int(tabs.char.rows_cnt[m].sum()) if m.numel() else 0
-    gaps = int((ln0 - 1).clamp(min=0).sum())
-    ops = 8 * chunks + 2 * 2 * tabs.type_window * gaps
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    serve_bound = max(serve_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
-    full_bound = max(full_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
-    bound_by = "bytes" if serve_bytes / HBM_BYTES_PER_S * 1e3 >= ops_ms \
-        else "operations"
-    log(f"[5] timing ({B}, {L}): serve kernel {serve_ms:.4f} ms, plain "
-        f"{serve_plain_ms:.3f} ms, bound {serve_bound:.5f} ms "
-        f"({serve_bytes} B at 3.35 TB/s); full kernel {full_ms:.4f} ms, "
-        f"plain {full_plain_ms:.3f} ms, bound {full_bound:.5f} ms "
-        f"({full_bytes} B); ops bound {ops_ms:.5f} ms ({ops} ops)")
 
     # ---- 6. kernels ---------------------------------------------------
+    main_shape = shapes[0]
     log(json.dumps({"kernels": [{
         "name": "boundary",
         "route": "cuda",
@@ -495,15 +870,18 @@ def main() -> int:
         "launches": launches,
         "matches_plain": True,
         "max_abs_err": err,
-        "ms": serve_ms,
-        "plain_ms": serve_plain_ms,
-        "bound_ms": serve_bound,
-        "bound_by": bound_by,
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
         "library_ms": None,
-        "shape": [B, L],
-        "full_ms": full_ms,
-        "full_plain_ms": full_plain_ms,
-        "full_bound_ms": full_bound,
+        "shape": main_shape["shape"],
+        "full_ms": full["ms"],
+        "full_plain_ms": full["plain_ms"],
+        "full_bound_ms": full["bound_ms"],
+        "occupancy": main_shape["occupancy"],
+        "ptxas": ptxas_summary(ptxas),
+        "serve_shapes": shapes,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -511,4 +889,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

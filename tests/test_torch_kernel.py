@@ -16,7 +16,8 @@ import torch
 
 import chip_smoke
 from vaporetto_tpu_torch import Predictor
-from vaporetto_tpu_torch.ops.boundary import boundary
+from vaporetto_tpu_torch.ops.boundary import boundary, launch_geometry
+from vaporetto_tpu_torch.serving import pack_separator
 
 KANJI_DIGIT = (5, 1)
 
@@ -34,6 +35,48 @@ CASES = {
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
+
+
+@pytest.fixture(scope="module")
+def mid_model():
+    """The 50k model's generator at 5 000 words: (tables, words, pack
+    separator) on the card."""
+    _card()
+    model = chip_smoke.big_model(5000, 500)
+    pred = Predictor(model)
+    return (pred._tables(), [w.word for w in model.dict_model],
+            pack_separator(pred.compiled))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge lengths (67, 256)",
+                                  "ragged last block (1001, 256)",
+                                  "fewer rows than SMs (50, 256)",
+                                  "packed rows with separators (256, 512)"])
+def test_launch_geometry_edges_match_plain(case, mid_model):
+    _card()
+    tabs, words, sep = mid_model
+    cps, cts, lengths = chip_smoke.geometry_batches(words, sep)[case]
+    g = launch_geometry(tabs, *cps.shape)
+    assert g.staged and not g.scratch
+    if case.startswith("ragged"):
+        assert len(lengths) % g.warps
+    if case.startswith("fewer"):
+        props = torch.cuda.get_device_properties(tabs.device)
+        assert len(lengths) < props.multi_processor_count
+    assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
+
+
+@pytest.mark.cuda
+def test_hot_tables_over_budget_read_from_global():
+    _card()
+    model, words = chip_smoke.wide_model()
+    tabs = Predictor(model)._tables()
+    assert not launch_geometry(tabs, 64, 128).staged
+    cps, cts, lengths = chip_smoke.random_batch(64, 128, 15, words)
+    assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
 
 
 @pytest.mark.cuda
