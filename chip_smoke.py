@@ -23,31 +23,29 @@ torch version on the same inputs. Phases, each printed on its own line:
    during the run must be > 0 and cover every dispatch;
 5. timing with CUDA events, kernel and plain version, at the three serve
    shapes ``LeanServer`` dispatches ((8192, 256) unpacked, (4096, 512)
-   packed, (8192, 128)) and the full epilogue at (8192, 256); each with
-   its launch geometry and occupancy, its bound, and what the inputs make
-   the kernel do (live positions, walk steps, matches, weight-chunk rows,
-   in-line gaps);
+   packed, (8192, 128)) and the full epilogue at (8192, 256), each shape's
+   kernel first held to the plain version on its first batch (tolerance
+   0); each with its launch geometry and occupancy, its bound, and what
+   the inputs make the kernel do (live positions, walk steps, matches,
+   weight-chunk rows, in-line gaps);
 6. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
 printing any result.
 
-Usage: python3 chip_smoke.py [--timing-only | --sweep VARIANTS_JSON]
+Usage: python3 chip_smoke.py [--timing-only]
 
 ``--timing-only`` runs phases 1, 2 and 5 and ends with a ``{"timing":
 ...}`` line instead; it reads only the package's entry points, so a copy
 of this script placed in an earlier tree times that tree's kernel the same
-way (an A/B on one card). ``--sweep`` builds variants of the kernel's
-batch widths, staging budget and skipped phases and times them
-(:func:`sweep`), ending with a ``{"sweep": ...}`` line.
+way (an A/B on one card).
 """
 
 from __future__ import annotations
 
 import io
 import json
-import os
 import subprocess
 import sys
 import threading
@@ -60,6 +58,8 @@ B_FULL, L_FULL = 8192, 256
 #: packed short lines (PACK_L = 512, at most PACK_TARGET_ROWS = 4096 rows),
 #: a group of short lines that cannot pack (bucket 128)
 SERVE_SHAPES = ((8192, 256, False), (4096, 512, True), (8192, 128, False))
+#: wsconst on kanji and digits: the ``ws_types`` the comparisons also run
+KANJI_DIGIT = (5, 1)
 
 
 def log(*parts) -> None:
@@ -525,9 +525,12 @@ def time_kernel(pred, words, sep):
     """Phase 5: CUDA-event times of the kernel and its plain version at the
     serve shapes and of the full epilogue at (B_FULL, L_FULL), with each
     shape's bound, its launch geometry where the package reports one, and
-    what the first batch makes the kernel do. Returns (shapes, full). It
-    reads only the package's entry points, so it times an earlier tree's
-    kernel too (``--timing-only``)."""
+    what the first batch makes the kernel do. Before timing a shape, the
+    kernel is held to the plain version on its first batch (both
+    epilogues, host and in-kernel types, wsconst none and KANJI+DIGIT).
+    Returns (shapes, full, max |difference|). It reads only the package's
+    entry points, so it times an earlier tree's kernel too
+    (``--timing-only``)."""
     import torch
 
     from vaporetto_tpu_torch.ops import boundary as bmod
@@ -538,7 +541,7 @@ def time_kernel(pred, words, sep):
     tabs = pred._tables()
     dev = tabs.device
     geometry = getattr(bmod, "launch_geometry", None)
-    shapes, full = [], {}
+    shapes, full, err = [], {}, 0
     for B, L, packed in SERVE_SHAPES:
         batches = []
         # more serve input than the 50 MB L2 holds (10 batches of
@@ -547,8 +550,13 @@ def time_kernel(pred, words, sep):
             c, t, ln = (packed_batch(B, 200 + seed, words[:5000], sep, L)
                         if packed else
                         random_batch(B, L, 100 + seed, words[:5000]))
+            if seed == 0:
+                err = max(err, compare_kernel(tabs, c, t, ln,
+                                              ((), KANJI_DIGIT)))
             batches.append(tuple(torch.from_numpy(x).to(dev) for x in (
                 c.astype("uint16"), t.astype("uint8"), ln, c, t)))
+        log(f"[5] ({B}, {L}){' packed' if packed else ''}, first timing "
+            "batch: full and serve epilogues equal to plain")
         serve_in = [b[:3] for b in batches]
         full_in = [(b[3], b[4], b[2]) for b in batches]
         serve_ms = cuda_ms(
@@ -559,10 +567,14 @@ def time_kernel(pred, words, sep):
             4, hold=False)
         work = kernel_work(tabs, *full_in[0])
         W8 = -(-(L - 1) // 8)
-        # least bytes: each input read once, each output written once. The
+        # least bytes: each input the function needs read once, each output
+        # written once. Chars at or past a row's length are 0 by the
+        # wrapper's contract and need no read, so the inputs are the live
+        # chars (the mean over the timed batches) and the row lengths. The
         # model tables (tens of MB at most) are not counted: they stay in
         # the 50 MB L2 from one launch to the next
-        serve_bytes = B * L * (2 + 1) + B * 4 + B * W8
+        live = sum(int(b[2].sum()) for b in batches) / len(batches)
+        serve_bytes = live * (2 + 1) + B * 4 + B * W8
         # least operations this data needs: the adds of every matched
         # weight chunk lane and the type window shifts of every in-line gap
         ops = (8 * work["weight-chunk rows"]
@@ -573,7 +585,7 @@ def time_kernel(pred, words, sep):
             "shape": [B, L], "packed": packed, "ms": serve_ms,
             "plain_ms": serve_plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "work": work,
+            "live_positions_mean": live, "work": work,
         }
         shapes.append(shape)
         if geometry is not None:
@@ -593,11 +605,14 @@ def time_kernel(pred, words, sep):
         if (B, L) != (B_FULL, L_FULL):
             log(f"[5] timing ({B}, {L}){' packed' if packed else ''}: serve "
                 f"kernel {serve_ms:.4f} ms, plain {serve_plain_ms:.3f} ms, "
-                f"bound {shape['bound_ms']:.5f} ms ({serve_bytes} B at "
+                f"bound {shape['bound_ms']:.5f} ms ({serve_bytes:.0f} B at "
                 f"3.35 TB/s; ops bound {ops_ms:.5f} ms, {ops} ops)")
             continue
         S = tabs.pad_left + L - 1 + tabs.pad_right
-        full_bytes = B * L * (4 + 4) + B * 4 + B * S * 4 + B * L * 4
+        n_match = (tabs.char is not None) + (tabs.type_trie is not None)
+        # int32 codepoints and types of the live chars and the lengths in;
+        # the whole score row and match id rows out
+        full_bytes = live * (4 + 4) + B * 4 + B * S * 4 + n_match * B * L * 4
         full = {
             "ms": cuda_ms(lambda c, t, ln: boundary(tabs, c, t, ln), full_in,
                           50),
@@ -608,118 +623,17 @@ def time_kernel(pred, words, sep):
         }
         log(f"[5] timing ({B}, {L}): serve kernel {serve_ms:.4f} ms, plain "
             f"{serve_plain_ms:.3f} ms, bound {shape['bound_ms']:.5f} ms "
-            f"({serve_bytes} B at 3.35 TB/s); full kernel {full['ms']:.4f} "
-            f"ms, plain {full['plain_ms']:.3f} ms, bound "
-            f"{full['bound_ms']:.5f} ms ({full_bytes} B); ops bound "
+            f"({serve_bytes:.0f} B at 3.35 TB/s); full kernel "
+            f"{full['ms']:.4f} ms, plain {full['plain_ms']:.3f} ms, bound "
+            f"{full['bound_ms']:.5f} ms ({full_bytes:.0f} B); ops bound "
             f"{ops_ms:.5f} ms ({ops} ops)")
-    return shapes, full
-
-
-#: --sweep: the kernel's compile-time batch widths (csrc/boundary.cu) a
-#: variant may set, and the phases it may skip to time the rest (a variant
-#: that skips one is not exact, and is not compared with the plain version)
-TUNABLES = ("MAX_THREADS", "WALKS", "ADDS", "ADD_LOADS", "TEXT")
-#: (skipping the walks skips the type-window lookups that ride on them)
-SKIPS = {
-    "walks": ("      walk_row<STAGED, true>(",
-              "      if (a.B < 0) walk_row<STAGED, true>("),
-    "adds": ("      add_matches(best, len, lane, sc, S, pad_left, a.c_ids,",
-             "      if (a.B < 0) add_matches(best, len, lane, sc, S, pad_left,"
-             " a.c_ids,"),
-}
-
-
-def sweep(pred, words, sep, variants):
-    """``--sweep``: build each variant of csrc/boundary.cu (``{name:
-    {"WALKS": 4, ..., "skip": ["adds"], "stage_budget": 0}}``) in parallel
-    and time its serve epilogue at the serve shapes, at (1056, 256) and
-    (16384, 256), and its full epilogue, in the order given and then in
-    reverse. Returns {name: {"ptxas": ..., "runs": [...]}}."""
-    import re
-
-    import torch
-
-    from vaporetto_tpu_torch._build import BUILD_DIR, build_shared
-    from vaporetto_tpu_torch.ops import boundary as bmod
-
-    tabs = pred._tables()
-    with open(bmod._SRC) as f:
-        src = f.read()
-    budget0, paths, errors = bmod.STAGE_BUDGET, {}, []
-
-    def build(name, v):
-        s = src
-        for k in v.get("skip", ()):
-            if s.count(SKIPS[k][0]) != 1:
-                raise ValueError(f"skip {k}: source not found")
-            s = s.replace(*SKIPS[k])
-        for k in TUNABLES:
-            if k in v:
-                s, n = re.subn(rf"constexpr int {k} = \d+;",
-                              f"constexpr int {k} = {int(v[k])};", s)
-                if n != 1:
-                    raise ValueError(f"{k}: constant not found")
-        os.makedirs(os.path.join(BUILD_DIR, "sweep"), exist_ok=True)
-        cu = os.path.join(BUILD_DIR, "sweep", f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(s)
-        try:
-            paths[name] = build_shared(f"vt_boundary_{name}", [cu],
-                                       bmod.build_command())
-        except BaseException as e:  # re-raised below, in the main thread
-            errors.append(e)
-
-    threads = [threading.Thread(target=build, args=a)
-               for a in variants.items()]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    data = {}
-    for B, L, packed in SERVE_SHAPES + ((1056, 256, False),
-                                        (16384, 256, False)):
-        data[(B, L)] = [tuple(torch.from_numpy(x).to(tabs.device) for x in (
-            c.astype("uint16"), t.astype("uint8"), ln, c, t))
-            for c, t, ln in (
-                packed_batch(B, 200 + i, words[:5000], sep, L) if packed
-                else random_batch(B, L, 100 + i, words[:5000])
-                for i in range(max(3, -(-60_000_000 // (3 * B * L)))))]
-    want = {k: bmod.serve_bits_plain(tabs, *v[0][:3]) for k, v in data.items()}
-    out = {}
-    for name in list(variants) + list(variants)[::-1]:
-        v = variants[name]
-        bmod.STAGE_BUDGET = v.get("stage_budget", budget0)
-        bmod.use_library(paths[name])
-        run = {}
-        for (B, L), batches in data.items():
-            got = bmod.boundary(tabs, *batches[0][:3], serve=True)
-            if not v.get("skip") and not torch.equal(got, want[(B, L)]):
-                raise AssertionError(f"{name}: serve bits differ at {B, L}")
-            run[f"{B}x{L}"] = cuda_ms(
-                lambda c, t, ln: bmod.boundary(tabs, c, t, ln, serve=True),
-                [b[:3] for b in batches], 40)
-        run["full"] = cuda_ms(lambda c, t, ln: bmod.boundary(tabs, c, t, ln),
-                              [(b[3], b[4], b[2]) for b in data[(8192, 256)]],
-                              40)
-        with open(paths[name] + ".log") as f:
-            ptxas = ptxas_summary([ln for ln in f if "spill" in ln
-                                   or "registers" in ln])
-        out.setdefault(name, {"ptxas": ptxas, "runs": []})["runs"].append(run)
-        log(f"[sweep] {name}: {ptxas} " + ", ".join(
-            f"{k} {ms:.4f}" for k, ms in run.items()))
-    bmod.STAGE_BUDGET = budget0
-    bmod.use_library(bmod.build())
-    return out
+    return shapes, full, err
 
 
 def main(argv) -> int:
     import torch
 
     timing_only = "--timing-only" in argv
-    variants = (json.loads(argv[argv.index("--sweep") + 1])
-                if "--sweep" in argv else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
@@ -764,20 +678,16 @@ def main(argv) -> int:
     words = [w.word for w in model.dict_model]
     sep = pack_separator(pred.compiled)
     if timing_only:
-        shapes, full = time_kernel(pred, words, sep)
+        shapes, full, _ = time_kernel(pred, words, sep)
         log(json.dumps({"timing": {"serve_shapes": shapes, "full": full}}))
-        return 0
-    if variants is not None:
-        log(json.dumps({"sweep": sweep(pred, words, sep, variants)}))
         return 0
     from vaporetto_tpu_torch import LeanServer, Sentence
     from vaporetto_tpu_torch.ops.boundary import (STAGE_BUDGET, boundary,
                                                   launch_geometry)
 
     # ---- 3. kernel vs plain -------------------------------------------
-    kanji_digit = (5, 1)
     cps, cts, lengths = random_batch(B_FULL, L_FULL, 1, words[:5000])
-    err = compare_kernel(tabs, cps, cts, lengths, ((), kanji_digit))
+    err = compare_kernel(tabs, cps, cts, lengths, ((), KANJI_DIGIT))
     log(f"[3] 50k model ({B_FULL}, {L_FULL}): full and serve epilogues "
         f"equal to plain (tolerance 0), wsconst none and KANJI+DIGIT")
     c, t, ln = random_batch(4, 20000, 2, words[:5000])
@@ -785,7 +695,7 @@ def main(argv) -> int:
     log("[3] 50k model (4, 20000): rows beyond shared memory (global "
         "scratch) equal to plain")
     for name, (c, t, ln) in geometry_batches(words[:5000], sep).items():
-        err = max(err, compare_kernel(tabs, c, t, ln, ((), kanji_digit)))
+        err = max(err, compare_kernel(tabs, c, t, ln, ((), KANJI_DIGIT)))
         g = launch_geometry(tabs, len(ln), c.shape[1])
         log(f"[3] 50k model, {name}: equal to plain; {g.warps} warps per "
             f"block, {g.blocks} blocks")
@@ -794,7 +704,7 @@ def main(argv) -> int:
     if launch_geometry(wt, 64, 128).staged:
         raise AssertionError("the wide model's hot tables are staged")
     c, t, ln = random_batch(64, 128, 15, wwords)
-    err = max(err, compare_kernel(wt, c, t, ln, ((), kanji_digit)))
+    err = max(err, compare_kernel(wt, c, t, ln, ((), KANJI_DIGIT)))
     log(f"[3] wide model ({wt.hash2.shape[0]} hash slots, "
         f"{wt.stage_bytes()} B of hot tables > budget {STAGE_BUDGET} B): "
         f"tables read from global memory, equal to plain at (64, 128)")
@@ -806,7 +716,7 @@ def main(argv) -> int:
         L = 1280 if "1000" in name else 96
         c, t, ln = random_batch(64, L, 5, [w for w in mwords if w])
         err = max(err, compare_kernel(p._tables(), c, t, ln,
-                                      ((), kanji_digit)))
+                                      ((), KANJI_DIGIT)))
         log(f"[3] {name}: equal to plain at (64, {L}); "
             f"max_len {p.compiled.char_matcher.max_len}, "
             f"type trie {p.compiled.type_matcher is not None}")
@@ -857,7 +767,8 @@ def main(argv) -> int:
     # ---- 5. timing ----------------------------------------------------
     n_before = boundary.launches
     log(f"[5] ptxas: {ptxas_summary(ptxas)}")
-    shapes, full = time_kernel(pred, words, sep)
+    shapes, full, timing_err = time_kernel(pred, words, sep)
+    err = max(err, timing_err)
     boundary.launches = n_before  # timing launches are not the main path's
 
     # ---- 6. kernels ---------------------------------------------------

@@ -89,6 +89,7 @@
 // scores accumulate with int32 atomicAdd, exact and independent of order
 // for wrapping integers.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -557,6 +558,29 @@ const void* pick(int cps_u16, int staged, int scratch) {
                 : kernel_of<int32_t, false>(scratch);
 }
 
+// Lets an instantiation take the device's whole opt-in dynamic shared
+// memory, once per instantiation and device: later launches and occupancy
+// queries then make no cudaFuncSetAttribute call. (The attribute is only a
+// ceiling; each launch still asks for its own smem_bytes.)
+constexpr int MAX_DEVICES = 64;
+std::atomic<bool> smem_allowed[8][MAX_DEVICES];
+
+cudaError_t allow_smem(int cps_u16, int staged, int scratch, int device) {
+  const int k = (cps_u16 ? 4 : 0) + (staged ? 2 : 0) + (scratch ? 1 : 0);
+  const bool cached = device >= 0 && device < MAX_DEVICES;
+  if (cached && smem_allowed[k][device].load(std::memory_order_acquire))
+    return cudaSuccess;
+  int limit = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(pick(cps_u16, staged, scratch),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (e == cudaSuccess && cached)
+    smem_allowed[k][device].store(true, std::memory_order_release);
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -570,11 +594,11 @@ int vt_boundary(const VtBoundaryArgs* a, int staged, int blocks, int threads,
                 int64_t smem_bytes, void* stream, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const void* kern = pick(static_cast<int>(a->cps_u16), staged,
-                          a->scratch != nullptr);
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem_bytes));
+  const int cps_u16 = static_cast<int>(a->cps_u16);
+  const int scratch = a->scratch != nullptr;
+  e = allow_smem(cps_u16, staged, scratch, device);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const void* kern = pick(cps_u16, staged, scratch);
   void* params[] = {const_cast<VtBoundaryArgs*>(a)};
   e = cudaLaunchKernel(kern, dim3(blocks), dim3(threads), params,
                        static_cast<size_t>(smem_bytes),
@@ -599,13 +623,12 @@ int vt_boundary_occupancy(int cps_u16, int staged, int scratch, int threads,
                           int64_t smem_bytes, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  const void* kern = pick(cps_u16, staged, scratch);
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem_bytes));
+  e = allow_smem(cps_u16, staged, scratch, device);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, kern, threads, static_cast<size_t>(smem_bytes));
+      &n, pick(cps_u16, staged, scratch), threads,
+      static_cast<size_t>(smem_bytes));
   if (e != cudaSuccess) return -static_cast<int>(e);
   return n;
 }

@@ -327,34 +327,18 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_command() -> list:
-    """nvcc and its flags for the kernel (the sources and -o follow)."""
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
-            "-fPIC"]
-
-
 def build() -> str:
     """Compile csrc/boundary.cu for sm_90a if needed; returns the path."""
-    return build_shared("vt_boundary", [_SRC], build_command())
+    return build_shared("vt_boundary", [_SRC], [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"])
 
 
-def use_library(path: str) -> None:
-    """Load the kernel from ``path``, a build of csrc/boundary.cu or of a
-    variant of it (chip_smoke.py --sweep), in place of the current one."""
-    global _lib
-    with _lib_lock:
-        _lib = None
-    _smem_limit.cache_clear()
-    _blocks_per_sm.cache_clear()
-    _load(path)
-
-
-def _load(path: Optional[str] = None) -> ctypes.CDLL:
+def _load() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(path or build())
+            lib = ctypes.CDLL(build())
             c_int = ctypes.c_int
             lib.vt_boundary.restype = c_int
             lib.vt_boundary.argtypes = [
@@ -372,23 +356,18 @@ def _load(path: Optional[str] = None) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_limit(device_index: int) -> int:
-    limit = _load().vt_boundary_smem_limit(device_index)
+def _device_limits(device_index: int):
+    """(SM count, most warps an SM holds, most dynamic shared memory a
+    block may opt into, the kernel's most warps per block) on a device."""
+    lib = _load()
+    limit = lib.vt_boundary_smem_limit(device_index)
     if limit < 0:
         raise RuntimeError(
             f"cannot query shared memory of cuda:{device_index}")
-    return limit
-
-
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(cps_u16: int, staged: int, scratch: int, threads: int,
-                   smem: int, device_index: int) -> int:
-    n = _load().vt_boundary_occupancy(cps_u16, staged, scratch, threads,
-                                      smem, device_index)
-    if n < 1:
-        raise RuntimeError(f"boundary kernel cannot run {threads} threads "
-                           f"with {smem} B of shared memory (code {n})")
-    return n
+    props = torch.cuda.get_device_properties(device_index)
+    return (props.multi_processor_count,
+            props.max_threads_per_multi_processor // 32, limit,
+            lib.vt_boundary_max_threads() // 32)
 
 
 def row_bytes(L: int, S: int) -> int:
@@ -426,29 +405,36 @@ def launch_geometry(tabs: BoundaryTables, B: int, L: int,
     most the kernel's 32), but no more than it takes to spread the batch
     over every SM; rows wider than the shared memory left run on a global
     scratch slice per warp. Blocks: as many as are resident at once on
-    the card, or fewer when the batch has fewer rows."""
-    lib = _load()
-    dev = tabs.device
-    props = torch.cuda.get_device_properties(dev)
-    n_sm = props.multi_processor_count
-    S = tabs.pad_left + (L - 1) + tabs.pad_right
-    rb = row_bytes(L, S)
-    stage = tabs.stage_bytes()
+    the card, or fewer when the batch has fewer rows. Cached per shape,
+    so a launch at a shape seen before makes no device queries."""
+    return _geometry(tabs.stage_bytes(), tabs.pad_left + tabs.pad_right,
+                     B, L, bool(cps_u16), tabs.device.index)
+
+
+@functools.lru_cache(maxsize=4096)
+def _geometry(stage: int, pad: int, B: int, L: int, cps_u16: bool,
+              device_index: int) -> Geometry:
+    n_sm, max_warps_per_sm, smem_limit, max_warps = _device_limits(
+        device_index)
+    rb = row_bytes(L, pad + L - 1)
     staged = 0 < stage <= STAGE_BUDGET
     fixed = stage if staged else 0
-    fit = (_smem_limit(dev.index) - fixed) // rb
+    fit = (smem_limit - fixed) // rb
     scratch = fit < 1
-    warps = min(lib.vt_boundary_max_threads() // 32, -(-B // n_sm))
+    warps = min(max_warps, -(-B // n_sm))
     if not scratch:
         warps = min(warps, fit)
     warps = max(warps, 1)
     smem = fixed + (0 if scratch else warps * rb)
-    per_sm = _blocks_per_sm(int(cps_u16), int(staged), int(scratch),
-                            32 * warps, smem, dev.index)
+    per_sm = _load().vt_boundary_occupancy(int(cps_u16), int(staged),
+                                           int(scratch), 32 * warps, smem,
+                                           device_index)
+    if per_sm < 1:
+        raise RuntimeError(f"boundary kernel cannot run {32 * warps} threads "
+                           f"with {smem} B of shared memory (code {per_sm})")
     return Geometry(
         warps=warps, blocks=min(-(-B // warps), n_sm * per_sm),
-        blocks_per_sm=per_sm,
-        max_warps_per_sm=props.max_threads_per_multi_processor // 32,
+        blocks_per_sm=per_sm, max_warps_per_sm=max_warps_per_sm,
         smem=smem, staged=staged, row_bytes=rb, scratch=scratch)
 
 
@@ -474,6 +460,13 @@ def boundary(tabs: BoundaryTables, cps: torch.Tensor,
     (padding) and at packed separators; ``cts``: uint8 or int32 char type
     codes 0-6 (padding 0), or None to classify the codepoints;
     ``lengths``: int32 (B,), each in [0, L].
+
+    The zero padding is a precondition, not a convenience: the kernel
+    reads nothing at or past a row's length, while the plain version
+    reads the whole row, so the two agree only on zero-padded batches.
+    Every batch builder of the package zero-fills the tail
+    (``native.tensorize16_native``, ``utils.batch.tensorize``,
+    ``parallel.chunking.predict_long``; tests/test_torch_padding.py).
 
     Full epilogue (``serve=False``): returns (scores (B, S) int32,
     char_match (B, L) int32 or None, type_match (B, L) int32 or None).
