@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (vaporetto_tpu_torch).
 
-Drives the port's main path — lean boundary serving, bytes in to tokenized
-bytes out — on one CUDA card, at the full size of the largest model the
-repo can build from its own code (the synthetic 50k-word dictionary model,
-seed 17), and holds the hand-written boundary kernel against its plain
-torch version on the same inputs. Phases, each printed on its own line:
+Drives the port's main paths — lean boundary serving and lean
+``--predict-tags`` serving, bytes in to tokenized (and tagged) bytes out —
+on one CUDA card, at the full size of the largest model the repo can build
+from its own code (the synthetic 50k-word dictionary model, seed 17; for
+tags the same model with 3 000 KyTea-style tag models, seed 23), and holds
+the hand-written boundary and tag kernels against their plain torch
+versions on the same inputs. Phases, each printed on its own line:
 
-1. device and build: the card's name and power limit, the g++ and nvcc
-   build seconds (both built in parallel, from the sources in the tree);
-2. model: compile seconds and the table bytes on the card;
+1. device and build: the card's name and power limit, the g++ and two nvcc
+   build seconds (all three built in parallel, from the sources in the
+   tree), each kernel's ptxas report;
+2. model: compile seconds and the table bytes on the card, for the 50k
+   model and the tagged 50k model (tokens, classes, slots, probe tables);
 3. kernel vs plain: full and serve epilogues on a seeded (8192, 256)
    batch, exact equality (tolerance 0: all values are int32), on (4, 20000)
    rows whose working set exceeds shared memory, on the launch geometry's
@@ -17,17 +21,28 @@ torch version on the same inputs. Phases, each printed on its own line:
    not fill the last block or every SM; packed 512-wide rows with
    separators; a model whose hot tables exceed the staging budget), and
    on three small models (type trie, a 1000-char dictionary word, the
-   reference's golden sentence);
+   reference's golden sentence); then the tag kernel against its plain
+   version over the boundary kernel's full epilogue (itself held to plain:
+   the tagged model's type side is a trie), tolerance 0, at the three
+   serve shapes with wsconst none and KANJI+DIGIT, on an edge batch (row
+   lengths 0-2 and L), on rows of tokens only whose gap scores mark their
+   edges (every span a token), and on two small tagged models (the fused
+   uint16 word layout, and more than 32 classes: the w_rows route);
 4. lean serving: ``LeanServer.run`` over 50 000+ seeded mixed lines, whose
    bytes must equal the port's general path; the kernel's launch count
    during the run must be > 0 and cover every dispatch;
+4t. lean tag serving: ``LeanServer(tags=True).run`` over the same stream
+   on the tagged model, whose bytes must equal the port's general path
+   with tags; each dispatch is one boundary and one tag launch;
 5. timing with CUDA events, kernel and plain version, at the three serve
    shapes ``LeanServer`` dispatches ((8192, 256) unpacked, (4096, 512)
    packed, (8192, 128)) and the full epilogue at (8192, 256), each shape's
    kernel first held to the plain version on its first batch (tolerance
    0); each with its launch geometry and occupancy, its bound, and what
    the inputs make the kernel do (live positions, walk steps, matches,
-   weight-chunk rows, in-line gaps);
+   weight-chunk rows, in-line gaps); then the tag kernel at the same
+   shapes on the tagged model, and at (8192, 256) on rows of tokens only,
+   with its plain version's time, its byte bound and the tokens it finds;
 6. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
@@ -38,8 +53,9 @@ Usage: python3 chip_smoke.py [--timing-only]
 
 ``--timing-only`` runs phases 1, 2 and 5 and ends with a ``{"timing":
 ...}`` line instead; it reads only the package's entry points, so a copy
-of this script placed in an earlier tree times that tree's kernel the same
-way (an A/B on one card).
+of this script placed in an earlier tree times that tree's kernels the
+same way (an A/B on one card; a tree without the tag kernel times the
+boundary kernel only).
 """
 
 from __future__ import annotations
@@ -71,6 +87,18 @@ def log(*parts) -> None:
 # ----------------------------------------------------------------------
 
 
+def word_pool():
+    """The codepoints of the 50k model's words: hiragana, katakana, and
+    2 496 kanji."""
+    import numpy as np
+
+    return np.concatenate([
+        np.arange(0x3041, 0x3097),
+        np.arange(0x30A1, 0x30FB),
+        np.arange(0x4E00, 0x5800),
+    ]).astype(np.int64)
+
+
 def big_model(n_words: int = 50_000, n_ngrams: int = 3_000):
     """The repo's synthetic scale model (benchmarks/big_model_bench.py,
     seed 17): 50k dictionary words of length 2-7, 3k char n-grams and six
@@ -81,11 +109,7 @@ def big_model(n_words: int = 50_000, n_ngrams: int = 3_000):
                                                   WordWeightRecord)
 
     rng = np.random.default_rng(17)
-    pools = np.concatenate([
-        np.arange(0x3041, 0x3097),
-        np.arange(0x30A1, 0x30FB),
-        np.arange(0x4E00, 0x5800),
-    ]).astype(np.int64)
+    pools = word_pool()
 
     def rand_str(n):
         return "".join(chr(c) for c in pools[rng.integers(0, len(pools), n)])
@@ -185,6 +209,80 @@ def wide_model(seed: int = 9, n_chars: int = 7000):
         -3, 3, 3), words
 
 
+def tag_models(tokens, rng, pool, n_classes=(8, 4), n_char=10, n_type=3,
+               max_rel=3, context=2):
+    """KyTea-style tag models, one per token (the shape of
+    benchmarks/tag_bench.py:22-72): slots of ``n_classes`` candidates
+    (8 POS and 4 readings: 12 classes), ``n_char`` char tag n-grams (the
+    whole token with 0-``context`` chars of context on each side) and
+    ``n_type`` type tag n-grams of 1-3 types, each at a rel of 0-
+    ``max_rel``, weights in [-20, 20], bias in [-10, 10]."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.models.model import (TagModel, TagNgramData,
+                                                  TagWeight)
+
+    C = sum(n_classes)
+    slots = [[f"{'PR'[i % 2]}{i}.{j}" for j in range(n)]
+             for i, n in enumerate(n_classes)]
+
+    def ctx():
+        return "".join(chr(int(c)) for c in pool[rng.integers(
+            0, len(pool), int(rng.integers(0, context + 1)))])
+
+    def weights(lo, hi):
+        return [TagWeight(int(rng.integers(0, max_rel + 1)),
+                          [int(x) for x in rng.integers(lo, hi + 1, C)])]
+
+    return [TagModel(
+        tok, [list(c) for c in slots],
+        [TagNgramData(ctx() + tok + ctx(), weights(-20, 20))
+         for _ in range(n_char)],
+        [TagNgramData(bytes(int(t) for t in rng.integers(
+            1, 7, int(rng.integers(1, 4)))), weights(-20, 20))
+         for _ in range(n_type)],
+        [int(x) for x in rng.integers(-10, 11, C)]) for tok in tokens]
+
+
+def tagged_big_model(n_tokens: int = 3_000):
+    """The 50k model with tag models for ``n_tokens`` of its dictionary
+    words (seed 23, a seeded permutation of the sorted words; all 2-7
+    chars): 12 classes, 2 slots, inline weight rows, int16 token ids."""
+    import numpy as np
+
+    model = big_model()
+    words = [w.word for w in model.dict_model]
+    rng = np.random.default_rng(23)
+    tokens = [words[int(i)] for i in rng.permutation(len(words))[:n_tokens]]
+    model.tag_models = tag_models(tokens, rng, word_pool())
+    return model, words, tokens
+
+
+def small_tagged_model(n_tokens: int = 100, seed: int = 5,
+                       n_classes=(8, 4)):
+    """A seeded small tagged model over hiragana (the shape of
+    benchmarks/tag_bench.py's ``build_tagged_model``): at most 100 tokens
+    with 8 + 4 candidates take the fused uint16 word output;
+    ``n_classes`` (36, 3) makes 39 classes (the w_rows probe route)."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.models.model import Model, NgramData
+
+    rng = np.random.default_rng(seed)
+    pool = np.arange(0x3041, 0x3093)
+
+    def word(lo, hi):
+        return "".join(chr(int(c)) for c in pool[rng.integers(
+            0, len(pool), int(rng.integers(lo, hi)))])
+
+    tokens = sorted({word(1, 5) for _ in range(n_tokens)})
+    ngrams = [NgramData(word(1, 4), [int(x) for x in rng.integers(-9, 10, 5)])
+              for _ in range(200)]
+    return Model(ngrams, [NgramData(bytes([1]), [2, -3, 4, 1, 2])], [], 1, 3,
+                 2, tag_models=tag_models(tokens, rng, pool, n_classes,
+                                          max_rel=2)), tokens
+
+
 # ----------------------------------------------------------------------
 # inputs (seeded)
 # ----------------------------------------------------------------------
@@ -266,6 +364,33 @@ def packed_batch(B, seed, words, sep, L=512, max_line=64):
     return _with_types(cps, keep, np.full(B, L))
 
 
+def token_batch(B, L, seed, tokens):
+    """Rows made of tag tokens back to back, to a seeded length in [L/2,
+    L]: (cps, cts, lengths, edges) with ``edges`` (B, L - 1) True at each
+    gap between two tokens. With gap scores positive exactly there, every
+    span is a token, as in text whose words the tag dictionary covers."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cps = np.zeros((B, L), dtype=np.int32)
+    edges = np.zeros((B, L - 1), dtype=bool)
+    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    for b in range(B):
+        c = 0
+        for i in rng.integers(0, len(tokens), L):
+            w = tokens[int(i)]
+            if c + len(w) > lengths[b]:
+                break
+            cps[b, c:c + len(w)] = [ord(x) for x in w]
+            c += len(w)
+            if c < L:
+                edges[b, c - 1] = True
+        lengths[b] = c
+        edges[b, max(c - 1, 0):] = False  # no gap after the row's last token
+    cps, cts, lengths = _with_types(cps, cps != 0, lengths)
+    return cps, cts, lengths, edges
+
+
 #: row lengths at the kernel's edges: empty, one char, one gap, a warp's
 #: width and its neighbours, a full row
 EDGE_LENGTHS = (0, 1, 2, 31, 32, 33, 255, 256)
@@ -320,11 +445,18 @@ def stream_lines(seed, words):
 
 
 def build_all():
-    """Build the host library (g++) and the kernel (nvcc) in parallel;
-    returns {name: seconds} and the kernel's ptxas report."""
+    """Build the host library (g++) and the kernels (nvcc) in parallel;
+    returns {name: seconds} and {kernel: its ptxas report lines}. A tree
+    without the tag kernel (``--timing-only`` in an earlier tree) builds
+    the boundary kernel only."""
     from vaporetto_tpu_torch import native
     from vaporetto_tpu_torch.ops import boundary as bmod
 
+    builds = [("g++", native.build), ("boundary", bmod.build)]
+    if has_tags():
+        from vaporetto_tpu_torch.ops import tags as tmod
+
+        builds.append(("tags", tmod.build))
     secs, errors, paths = {}, [], {}
 
     def run(name, fn):
@@ -335,18 +467,27 @@ def build_all():
             errors.append(e)
         secs[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=run, args=a) for a in
-               (("g++", native.build), ("nvcc", bmod.build))]
+    threads = [threading.Thread(target=run, args=a) for a in builds]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    with open(paths["nvcc"] + ".log") as f:
-        ptxas = [ln.strip() for ln in f
-                 if any(k in ln for k in ("registers", "smem", "spill"))]
+    ptxas = {}
+    for name, _ in builds[1:]:
+        with open(paths[name] + ".log") as f:
+            ptxas[name] = [ln.strip() for ln in f if any(
+                k in ln for k in ("registers", "smem", "spill"))]
     return secs, ptxas
+
+
+def has_tags() -> bool:
+    """Whether the tree has the tag path (an earlier tree, timed with
+    ``--timing-only``, may not)."""
+    import importlib.util
+
+    return importlib.util.find_spec("vaporetto_tpu_torch.ops.tags") is not None
 
 
 def ptxas_summary(lines):
@@ -444,10 +585,11 @@ def compare_kernel(tabs, cps, cts, lengths, ws_types_list=((),)):
     return err
 
 
-def general_path(pred, lines, batch=4096):
+def general_path(pred, lines, batch=4096, tags=False):
     """The reference CLI's per-line loop on the port (fullwidth filter ->
-    Sentence -> predict on the card -> boundaries onto the original text
-    -> write_tokenized_text), as bytes."""
+    Sentence -> predict on the card (with ``tags``, then the native tag
+    scorer, ``predict_tags_batch``) -> boundaries (and tags) onto the
+    original text -> write_tokenized_text), as bytes."""
     from vaporetto_tpu_torch.rules.string_filters import KyteaFullwidthFilter
     from vaporetto_tpu_torch.sentence import Sentence
 
@@ -461,6 +603,8 @@ def general_path(pred, lines, batch=4096):
     ok = [s for s in sents if s is not None]
     for i in range(0, len(ok), batch):
         pred.predict_batch(ok[i:i + batch])
+        if tags:
+            pred.predict_tags_batch(ok[i:i + batch])
     out = []
     for line, s in zip(lines, sents):
         if s is None:
@@ -468,8 +612,67 @@ def general_path(pred, lines, batch=4096):
             continue
         orig = Sentence.from_raw(line)
         orig.boundaries = s.boundaries
+        if tags:
+            orig.reset_tags(s.n_tags)
+            orig.tags = list(s.tags)
         out.append(orig.write_tokenized_text())
     return ("\n".join(out) + "\n").encode("utf-8") if out else b""
+
+
+def tag_inputs(pred, cps, cts, lengths, edges=None):
+    """The tag kernel's inputs on the card: uint16 codepoints, uint8 types,
+    lengths, and the boundary kernel's full epilogue over them (scores,
+    char and type match ids), that epilogue held to its plain version.
+    ``edges`` (B, L - 1): gap scores set to 1 there and -1 elsewhere."""
+    import torch
+
+    from vaporetto_tpu_torch.ops.boundary import (boundary,
+                                                  boundary_scores_plain)
+
+    tabs = pred._tables()
+    dev = tabs.device
+    c16 = torch.from_numpy(cps.astype("uint16")).to(dev)
+    t8 = torch.from_numpy(cts.astype("uint8")).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    full = boundary(tabs, c16, t8, ln)
+    for g, w, name in zip(full, boundary_scores_plain(tabs, c16, t8, ln),
+                          ("scores", "char_match", "type_match")):
+        if (g is None) != (w is None) or (g is not None
+                                          and not torch.equal(g, w)):
+            raise AssertionError(f"full epilogue {name} differs from plain")
+    if edges is not None:
+        g = slice(tabs.pad_left, tabs.pad_left + cps.shape[1] - 1)
+        full[0][:, g] = torch.from_numpy(edges).to(dev).to(torch.int32) * 2 - 1
+    return (c16, t8, ln) + tuple(full)
+
+
+def compare_tags(pred, cps, cts, lengths, ws_types_list=((),), edges=None):
+    """The tag kernel vs its plain version on the card, over the boundary
+    kernel's full epilogue (host types; in-kernel typing with the last
+    wsconst set; ``edges`` as :func:`tag_inputs` takes it). Returns (max
+    |difference| (must be 0), tokens found)."""
+    import torch
+
+    from vaporetto_tpu_torch.ops.tags import serve_tags_plain, tags
+
+    tt = pred._tag_tables()
+    c16, t8, ln, sc, cm, tm = tag_inputs(pred, cps, cts, lengths, edges)
+    runs = [(ws, t8) for ws in ws_types_list] + [(ws_types_list[-1], None)]
+    n_tok = 0
+    for ws, ct_in in runs:
+        got = tags(tt, c16, ct_in, ln, sc, cm, tm, ws_types=ws)
+        want = serve_tags_plain(tt, c16, ct_in, ln, sc, cm, tm, ws)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(
+                    f"tag kernel differs from plain (wsconst {ws}, "
+                    f"{'host' if ct_in is not None else 'kernel'} types, "
+                    f"{w.dtype})")
+        tid = want[1].to(torch.int32) & 0x7F if tt.packed_tc else \
+            want[1].to(torch.int32) + 1
+        n_tok = max(n_tok, int((tid > 0).sum()))
+    torch.cuda.synchronize()
+    return 0, n_tok
 
 
 def cuda_ms(fn, inputs, iters, reps=5, hold=True):
@@ -630,6 +833,75 @@ def time_kernel(pred, words, sep):
     return shapes, full, err
 
 
+def time_tags(pred, tokens, sep):
+    """Phase 5 for the tag kernel: CUDA-event times of the kernel (held
+    stream) and its plain version at the serve shapes on the tagged model,
+    over the boundary kernel's full epilogue of each batch, with each
+    shape's bound and the tokens its first batch holds. Before timing a
+    shape the kernel is held to plain on its first batch (wsconst none and
+    KANJI+DIGIT). Returns (shapes, max |difference|)."""
+    from vaporetto_tpu_torch.ops.tags import (occupancy, serve_tags_plain,
+                                              tag_output_dtype, tags,
+                                              threads_per_block)
+
+    tt = pred._tag_tables()
+    shapes, err = [], 0
+    # the serve shapes, then (B_FULL, L_FULL) rows of tokens only, every
+    # span a token (token_batch)
+    for B, L, packed, dense in [s + (False,) for s in SERVE_SHAPES] + [
+            (B_FULL, L_FULL, False, True)]:
+        batches = []
+        # text and full epilogue are about 15 B a position: more input
+        # than the 50 MB L2 holds
+        for seed in range(max(3, -(-60_000_000 // (15 * B * L)))):
+            edges = None
+            if dense:
+                c, t, ln, edges = token_batch(B, L, 500 + seed, tokens)
+            elif packed:
+                c, t, ln = packed_batch(B, 300 + seed, tokens, sep, L)
+            else:
+                c, t, ln = random_batch(B, L, 400 + seed, tokens)
+            if seed == 0:
+                e, n_tok = compare_tags(pred, c, t, ln, ((), KANJI_DIGIT),
+                                        edges)
+                err = max(err, e)
+            batches.append(tag_inputs(pred, c, t, ln, edges))
+        ms = cuda_ms(lambda *x: tags(tt, *x), batches, 50)
+        plain_ms = cuda_ms(lambda *x: serve_tags_plain(tt, *x), batches[:2],
+                           2, hold=False)
+        live = sum(int(b[2].sum()) for b in batches) / len(batches)
+        n_match = (batches[0][4] is not None) + (batches[0][5] is not None)
+        W8 = -(-(L - 1) // 8)
+        # least bytes: each live position's gap score, codepoint, type and
+        # match ids read once, the lengths, and every output written once
+        out_per_pos = 2 if tt.packed_tc else (
+            tag_output_dtype(tt.n_tokens).itemsize + tt.S)
+        tag_bytes = live * (4 + 2 + 1 + 4 * n_match) + B * 4 + B * W8 \
+            + B * L * out_per_pos
+        # least operations: one add and one compare per class of each
+        # token the first batch holds
+        ops = 2 * tt.C * n_tok
+        bytes_ms = tag_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        shape = {"shape": [B, L], "packed": packed, "tokens_only": dense,
+                 "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "live_positions_mean": live, "tokens_first_batch": n_tok,
+                 "threads_per_block": threads_per_block(L),
+                 "occupancy": occupancy(L, tt.device)}
+        shapes.append(shape)
+        log(f"[5] tags ({B}, {L}){' packed' if packed else ''}"
+            f"{', tokens only' if dense else ''}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{shape['bound_ms']:.5f} ms ({tag_bytes:.0f} B at 3.35 TB/s; "
+            f"ops bound {ops_ms:.6f} ms); first batch equal to plain, "
+            f"{n_tok} tokens of {B * L} positions ({live:.0f} live); "
+            f"{shape['threads_per_block']} threads per block, occupancy "
+            f"{shape['occupancy']:.3f}")
+    return shapes, err
+
+
 def main(argv) -> int:
     import torch
 
@@ -654,11 +926,12 @@ def main(argv) -> int:
     log(f"[1] device: {kind}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     secs, ptxas = build_all()
-    log(f"[1] build seconds (parallel): g++ {secs['g++']:.2f}, "
-        f"nvcc {secs['nvcc']:.2f}")
-    for ln in ptxas:
-        log(f"[1] ptxas: {ln}")
-    log(f"[1] ptxas summary: {ptxas_summary(ptxas)}")
+    log("[1] build seconds (parallel): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
+    for name, lines in ptxas.items():
+        for ln in lines:
+            log(f"[1] ptxas {name}: {ln}")
+        log(f"[1] ptxas summary {name}: {ptxas_summary(lines)}")
 
     # ---- 2. model -----------------------------------------------------
     t0 = time.perf_counter()
@@ -677,13 +950,41 @@ def main(argv) -> int:
         f"tables on card {tabs.nbytes()} bytes")
     words = [w.word for w in model.dict_model]
     sep = pack_separator(pred.compiled)
+    tpred = None
+    if has_tags():
+        t0 = time.perf_counter()
+        tmodel, _, tokens = tagged_big_model()
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tpred = Predictor(tmodel, True)
+        tt = tpred._tag_tables()
+        ttabs = tpred._tables()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        tsep = pack_separator(tpred.compiled, tt.max_rel())
+        tm_ = tpred.compiled.type_matcher
+        log(f"[2] tagged model: generated {gen_s:.2f}s, compiled (tags, "
+            f"device tables, upload) {compile_s:.2f}s; n_tokens "
+            f"{tt.n_tokens}, C {tt.C}, S {tt.S}, max_tok_len "
+            f"{tt.max_tok_len}, probe tables {len(tt.tabs)} (char "
+            f"{len(tt.side_tabs(0))}, type {len(tt.side_tabs(1))}, "
+            f"{'inline weight rows' if tt.inline else 'w_rows'}), output "
+            f"{'uint16 word' if tt.packed_tc else 'tid + choice'}, "
+            f"rev trie slots {tt.rev_walk.shape[0]}; type trie "
+            f"{len(tm_.base)} slots, max_len {tm_.max_len}; packing "
+            f"separator {tsep}; tag tables on card {tt.nbytes()} bytes, "
+            f"boundary tables {ttabs.nbytes()} bytes")
     if timing_only:
         shapes, full, _ = time_kernel(pred, words, sep)
-        log(json.dumps({"timing": {"serve_shapes": shapes, "full": full}}))
+        timing = {"serve_shapes": shapes, "full": full}
+        if tpred is not None:
+            timing["tags"] = time_tags(tpred, tokens, tsep)[0]
+        log(json.dumps({"timing": timing}))
         return 0
     from vaporetto_tpu_torch import LeanServer, Sentence
     from vaporetto_tpu_torch.ops.boundary import (STAGE_BUDGET, boundary,
                                                   launch_geometry)
+    from vaporetto_tpu_torch.ops.tags import tags as tag_kernel
 
     # ---- 3. kernel vs plain -------------------------------------------
     cps, cts, lengths = random_batch(B_FULL, L_FULL, 1, words[:5000])
@@ -731,6 +1032,44 @@ def main(argv) -> int:
     err = max(err, compare_kernel(gp._tables(), c, t, ln))
     log(f"[3] golden model: scores {want} and boundaries reproduced; "
         f"batch equal to plain")
+    # the tag kernel over the boundary kernel's full epilogue
+    tag_err = 0
+    for B, L, packed in SERVE_SHAPES:
+        c, t, ln = (packed_batch(B, 21, tokens, tsep, L) if packed
+                    else random_batch(B, L, 22, tokens))
+        e, n_tok = compare_tags(tpred, c, t, ln, ((), KANJI_DIGIT))
+        tag_err = max(tag_err, e)
+        log(f"[3] tagged 50k model ({B}, {L}){' packed' if packed else ''}: "
+            f"full epilogue (type trie) and tag kernel equal to plain "
+            f"(tolerance 0), wsconst none and KANJI+DIGIT, host and kernel "
+            f"types; {n_tok} tokens")
+    c, t, ln = random_batch(67, 256, 23, tokens,
+                            np.resize((0, 1, 2, 256), 67))
+    tag_err = max(tag_err, compare_tags(tpred, c, t, ln,
+                                        ((), KANJI_DIGIT))[0])
+    log("[3] tagged 50k model, row lengths 0, 1, 2 and 256 (67, 256): tag "
+        "kernel equal to plain")
+    c, t, ln, edges = token_batch(1024, 256, 25, tokens)
+    e, n_tok = compare_tags(tpred, c, t, ln, ((), KANJI_DIGIT), edges)
+    tag_err = max(tag_err, e)
+    log(f"[3] tagged 50k model, tokens only, gaps at their edges (1024, "
+        f"256): tag kernel equal to plain; {n_tok} tokens of "
+        f"{int(ln.sum())} chars")
+    for name, (m, mtok), want_word in (
+        ("<= 100 tokens, 12 classes", small_tagged_model(), True),
+        ("39 classes", small_tagged_model(40, 8, (36, 3)), False),
+    ):
+        p = Predictor(m, True)
+        ptt = p._tag_tables()
+        if ptt.packed_tc != want_word or ptt.inline == (ptt.C > 32):
+            raise AssertionError(f"{name}: unexpected layout")
+        c, t, ln = random_batch(256, 64, 24, mtok)
+        e, n_tok = compare_tags(p, c, t, ln, ((), KANJI_DIGIT))
+        tag_err = max(tag_err, e)
+        log(f"[3] tagged model, {name} ({ptt.n_tokens} tokens, C {ptt.C}, "
+            f"{'uint16 word' if ptt.packed_tc else 'tid + choice'}, "
+            f"{'inline rows' if ptt.inline else 'w_rows'}): tag kernel "
+            f"equal to plain at (256, 64); {n_tok} tokens")
 
     # ---- 4. lean serving ----------------------------------------------
     lines = stream_lines(7, words)
@@ -764,15 +1103,59 @@ def main(argv) -> int:
         f"({st['readback_bytes']} B), detok {st['t_detok_s']:.3f}, general "
         f"path {st['t_fallback_s']:.3f}; bytes equal to the general path")
 
+    # ---- 4t. lean tag serving -----------------------------------------
+    tsink = io.BytesIO()
+
+    def tfallback(raw):
+        tsink.write(general_path(tpred, [b.decode("utf-8") for b in raw],
+                                 tags=True))
+
+    tserver = LeanServer(tpred, fallback=tfallback, tags=True)
+    torch.cuda.synchronize()
+    boundary.launches = tag_kernel.launches = 0
+    t0 = time.perf_counter()
+    tserver.run(io.BytesIO(blob), tsink)
+    torch.cuda.synchronize()
+    trun_s = time.perf_counter() - t0
+    t_launches, tb_launches = tag_kernel.launches, boundary.launches
+    tst = tserver.stats
+    t0 = time.perf_counter()
+    twant = general_path(tpred, lines, tags=True)
+    tgen_s = time.perf_counter() - t0
+    if tsink.getvalue() != twant:
+        raise AssertionError("lean tag serving bytes differ from the general "
+                             "path with tags")
+    if t_launches <= 0 or t_launches < tst["dispatches"] \
+            or tb_launches < tst["dispatches"]:
+        raise AssertionError(f"tag launches {t_launches}, boundary launches "
+                             f"{tb_launches} < dispatches")
+    log(f"[4t] lean tag serving: {len(lines)} lines, {n_chars} chars in "
+        f"{trun_s:.3f}s = {n_chars / trun_s / 1e6:.2f} Mchar/s; dispatches "
+        f"{tst['dispatches']}, packed_dispatches {tst['packed_dispatches']}, "
+        f"fallback_lines {tst['fallback_lines']}, tag kernel launches "
+        f"{t_launches}, boundary kernel launches {tb_launches} (the general "
+        f"path's included); host seconds: dispatch "
+        f"{tst['t_dispatch_s']:.3f}, wait+readback "
+        f"{tst['t_readback_s']:.3f} ({tst['readback_bytes']} B), detok "
+        f"{tst['t_detok_s']:.3f}, general path {tst['t_fallback_s']:.3f}; "
+        f"{len(twant)} bytes out, {twant.count(b'/')} '/', equal to the "
+        f"general path with tags ({tgen_s:.3f}s for all lines)")
+
     # ---- 5. timing ----------------------------------------------------
-    n_before = boundary.launches
-    log(f"[5] ptxas: {ptxas_summary(ptxas)}")
+    n_before = (boundary.launches, tag_kernel.launches)
+    log(f"[5] ptxas: " + ", ".join(f"{k} {ptxas_summary(v)}"
+                                    for k, v in ptxas.items()))
     shapes, full, timing_err = time_kernel(pred, words, sep)
     err = max(err, timing_err)
-    boundary.launches = n_before  # timing launches are not the main path's
+    tshapes, timing_err = time_tags(tpred, tokens, tsep)
+    tag_err = max(tag_err, timing_err)
+    log(f"[5] launches per run of the stream: boundary {launches} ([4]), "
+        f"tags {t_launches} and boundary {tb_launches} ([4t])")
+    # timing launches are not the main paths'
+    boundary.launches, tag_kernel.launches = n_before
 
     # ---- 6. kernels ---------------------------------------------------
-    main_shape = shapes[0]
+    main_shape, tmain = shapes[0], tshapes[0]
     log(json.dumps({"kernels": [{
         "name": "boundary",
         "route": "cuda",
@@ -791,8 +1174,26 @@ def main(argv) -> int:
         "full_plain_ms": full["plain_ms"],
         "full_bound_ms": full["bound_ms"],
         "occupancy": main_shape["occupancy"],
-        "ptxas": ptxas_summary(ptxas),
+        "ptxas": ptxas_summary(ptxas["boundary"]),
         "serve_shapes": shapes,
+    }, {
+        "name": "tags",
+        "route": "cuda",
+        "source": "vaporetto_tpu_torch/csrc/tags.cu",
+        "replaces": "vaporetto_tpu/predictor.py:692 (XLA body of "
+                    "serve_tags_traced_fn)",
+        "launches": t_launches,
+        "matches_plain": True,
+        "max_abs_err": tag_err,
+        "ms": tmain["ms"],
+        "plain_ms": tmain["plain_ms"],
+        "bound_ms": tmain["bound_ms"],
+        "bound_by": tmain["bound_by"],
+        "library_ms": None,
+        "shape": tmain["shape"],
+        "occupancy": tmain["occupancy"],
+        "ptxas": ptxas_summary(ptxas["tags"]),
+        "serve_shapes": tshapes,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,22 +1,24 @@
-"""The boundary kernel against its plain version, on a CUDA card.
+"""The boundary and tag kernels against their plain versions, on a CUDA card.
 
-The kernel has no CPU form, so every test here is marked ``cuda`` and skips
-without a card. The file imports neither JAX nor the JAX package, so it
-runs on a machine that has only torch (the suite's conftest configures JAX,
-hence ``--noconftest``):
+The kernels have no CPU form, so every test here is marked ``cuda`` and
+skips without a card. The file imports neither JAX nor the JAX package, so
+it runs on a machine that has only torch (the suite's conftest configures
+JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernel.py
 
-The models and batches are ``chip_smoke.py``'s. Every value is an int32,
+The models and batches are ``chip_smoke.py``'s. Every value is an integer,
 so every comparison is exact (tolerance 0).
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from vaporetto_tpu_torch import Predictor
 from vaporetto_tpu_torch.ops.boundary import boundary, launch_geometry
+from vaporetto_tpu_torch.ops.tags import tags
 from vaporetto_tpu_torch.serving import pack_separator
 
 KANJI_DIGIT = (5, 1)
@@ -109,3 +111,59 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         boundary(tabs, torch.zeros((8, 2), dtype=torch.int32, device=dev).t(),
                  None, ln)
+
+
+#: name -> (tagged model, its tokens, the tid output's layout)
+TAG_CASES = {
+    # at most 100 tokens, 12 classes: the fused uint16 tid + choice word
+    "word": lambda: (*chip_smoke.small_tagged_model(), torch.uint16),
+    # 300 tokens: an int16 tid and the int8 choices
+    "int16": lambda: (*chip_smoke.small_tagged_model(300, 6), torch.int16),
+    # 39 classes: (P, 3) probe rows and the w_rows indirection
+    "wide_class": lambda: (*chip_smoke.small_tagged_model(40, 8, (36, 3)),
+                           torch.int8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TAG_CASES))
+def test_tag_kernel_matches_plain_on_card(case):
+    _card()
+    model, tokens, tid_dtype = TAG_CASES[case]()
+    pred = Predictor(model, True)
+    tt = pred._tag_tables()
+    assert tt.inline == (tt.C <= 32)
+    before = tags.launches
+    for lengths in (None, np.resize((0, 1, 2, 64), 67)):
+        cps, cts, ln = chip_smoke.random_batch(67, 64, 24, tokens, lengths)
+        err, n_tok = chip_smoke.compare_tags(pred, cps, cts, ln,
+                                             ((), KANJI_DIGIT))
+        assert err == 0 and n_tok > 0
+    # every span a token
+    c, t, l_, edges = chip_smoke.token_batch(67, 64, 25, tokens)
+    err, n_tok = chip_smoke.compare_tags(pred, c, t, l_, ((), KANJI_DIGIT),
+                                         edges)
+    assert err == 0 and n_tok == int(edges.sum()) + int((l_ > 0).sum())
+    # per batch: host types with 2 wsconst sets, in-kernel types
+    assert tags.launches - before == 9
+    out = pred.serve_tags_fn(host_types=True)(
+        *(torch.from_numpy(x) for x in (cps.astype(np.uint16),
+                                        cts.astype(np.uint8), ln)))
+    assert out[1].dtype == tid_dtype and len(out) == (2 if tt.packed_tc
+                                                      else 3)
+
+
+@pytest.mark.cuda
+def test_tag_wrapper_rejects_what_the_kernel_does_not_take():
+    _card()
+    model, tokens = chip_smoke.small_tagged_model()
+    pred = Predictor(model, True)
+    cps, cts, ln = chip_smoke.random_batch(4, 16, 1, tokens)
+    c16, t8, lens, sc, cm, tm = chip_smoke.tag_inputs(pred, cps, cts, ln)
+    tt = pred._tag_tables()
+    with pytest.raises(TypeError):
+        tags(tt, c16.to(torch.int64), t8, lens, sc, cm, tm)
+    with pytest.raises(ValueError):
+        tags(tt, c16, t8, lens, sc[:, :3].contiguous(), cm, tm)
+    with pytest.raises(ValueError):
+        tags(tt, c16, t8, lens[:2], sc, cm, tm)

@@ -3,8 +3,11 @@
 ``compiled_from_numpy`` rebuilds the port's :class:`CompiledModel` from a
 dict of numpy arrays and ints — e.g. another compiler's compiled model
 flattened with ``dataclasses.asdict`` — so one set of tables can drive
-both implementations. Fields the port does not use (tag metadata, the
-dense symbol table, experimental type decompositions) are ignored.
+both implementations. The tag side comes across too: ``tag_meta`` (a
+dict or a :class:`CompiledTagMeta`), ``n_tags`` and each matcher's
+``tag_weight`` (lists of {pattern id: weights} dicts, kept as they are).
+Fields the port does not use (the dense symbol table, experimental type
+decompositions) are ignored.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from .compiler import CompiledMatcher, CompiledModel
+from .compiler import CompiledMatcher, CompiledModel, CompiledTagMeta
 
 __all__ = ["compiled_from_numpy"]
 
@@ -24,9 +27,18 @@ def _matcher(fields: Optional[Dict[str, Any]]) -> Optional[CompiledMatcher]:
         return None
     kw = {}
     for f in dataclasses.fields(CompiledMatcher):
-        v = fields[f.name]
-        kw[f.name] = int(v) if f.type == "int" else np.asarray(v)
+        v = fields.get(f.name)
+        if f.name == "tag_weight":
+            kw[f.name] = v
+        else:
+            kw[f.name] = int(v) if f.type == "int" else np.asarray(v)
     return CompiledMatcher(**kw)
+
+
+def _tag_meta(v) -> Optional[CompiledTagMeta]:
+    if v is None or isinstance(v, CompiledTagMeta):
+        return v
+    return CompiledTagMeta(**v)
 
 
 def compiled_from_numpy(fields: Dict[str, Any]) -> CompiledModel:
@@ -34,9 +46,13 @@ def compiled_from_numpy(fields: Dict[str, Any]) -> CompiledModel:
     (nested dicts for the matchers)."""
     kw = {}
     for f in dataclasses.fields(CompiledModel):
-        v = fields.get(f.name)
+        if f.name not in fields:  # the dataclass default applies
+            continue
+        v = fields[f.name]
         if f.name in ("char_matcher", "type_matcher"):
             kw[f.name] = _matcher(v)
+        elif f.name == "tag_meta":
+            kw[f.name] = _tag_meta(v)
         elif v is None:
             kw[f.name] = None
         elif f.type == "int":

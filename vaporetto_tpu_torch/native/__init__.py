@@ -3,9 +3,10 @@
 The library is built from the sources beside this file with ``g++`` at
 first use (see :mod:`vaporetto_tpu_torch._build`); a failed build raises.
 It holds the one-call matcher compiler (``compile_matcher.cc`` over
-``trie_builder.cc``) and the lean serving path's host stages
+``trie_builder.cc``), the lean serving path's host stages
 (``tensorizer.cc``): the uint16 tensorizers, the newline and char
-counters, and the byte and bit-packed detokenizers.
+counters, the byte, bit-packed and tag-aware detokenizers, and the
+batched tag scorer of the general tag path (``tag_scorer.cc``).
 
 Wrappers that decode input return None when the batch needs the general
 path (invalid UTF-8, an astral codepoint, NUL, or a line longer than the
@@ -15,6 +16,7 @@ row): that is a property of the text, not of the library.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import threading
 from typing import Optional, Sequence, Tuple
@@ -24,7 +26,8 @@ import numpy as np
 from .._build import build_shared
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("trie_builder.cc", "compile_matcher.cc", "tensorizer.cc")
+_SOURCES = ("trie_builder.cc", "compile_matcher.cc", "tensorizer.cc",
+            "tag_scorer.cc")
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -32,7 +35,9 @@ U8P = ctypes.POINTER(ctypes.c_uint8)
 U16P = ctypes.POINTER(ctypes.c_uint16)
 I32P = ctypes.POINTER(ctypes.c_int32)
 I64P = ctypes.POINTER(ctypes.c_int64)
+I8P = ctypes.POINTER(ctypes.c_int8)
 PI32P = ctypes.POINTER(I32P)
+PI64P = ctypes.POINTER(I64P)
 
 
 def build() -> str:
@@ -67,6 +72,19 @@ def _load() -> ctypes.CDLL:
                 PI32P, PI32P, I64P,  # rows_first/cnt, n_merged
                 PI32P, PI32P, I64P,  # w8, off, n_rows
                 I32P, I32P,  # max_chunks, max_len
+            ]
+            lib.vt_compile_matcher_tags.restype = ctypes.c_int
+            lib.vt_compile_matcher_tags.argtypes = [
+                I32P, I64P, ctypes.c_int64,  # patterns
+                I32P, I32P, I64P,  # weights
+                U8P, I32P, I32P,  # is_tag, tag_tok, tag_rel
+                ctypes.c_int32, ctypes.c_int32,  # project, n_symbols_in
+                PI32P, I64P,  # syms
+                PI32P, PI32P, PI32P, PI32P, I64P,  # trie
+                PI32P, PI32P, I64P,  # rows_first/cnt, n_merged
+                PI32P, PI32P, I64P,  # w8, off, n_rows
+                I32P, I32P,  # max_chunks, max_len
+                PI32P, PI32P, PI32P, PI32P, PI64P, I64P,  # tag entries
             ]
             lib.vt_tensorize16.restype = ctypes.c_int
             lib.vt_tensorize16.argtypes = [
@@ -106,6 +124,46 @@ def _load() -> ctypes.CDLL:
                 U8P, ctypes.c_int64,  # out, out_cap
                 ctypes.c_int32,  # n_threads
             ]
+            lib.vt_detok_tags2.restype = ctypes.c_int64
+            lib.vt_detok_tags2.argtypes = [
+                U8P, I64P, I64P, ctypes.c_int64,
+                U8P, ctypes.c_int32,  # bits, bytes_per_row
+                I32P, I32P, I32P,  # rows_of, cols_of (nullable), counts
+                ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,  # tid
+                I8P, ctypes.c_int32,  # choice, n_slots
+                I64P, I32P, I32P, U8P, I64P, ctypes.c_int64,  # plan
+                U16P, I32P, ctypes.c_int32,  # cps16, gap_scores, Lm1
+                I32P, ctypes.c_int32,  # tag_scores, C
+                I64P, I32P, I32P, I32P, U8P, I64P, ctypes.c_int64,  # ts_*
+                U8P, ctypes.c_int64,  # out, out_cap
+                ctypes.c_int32,  # n_threads
+            ]
+            lib.vt_tag_new.restype = ctypes.c_void_p
+            lib.vt_tag_new.argtypes = [
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                I64P, I32P, I64P, I32P,
+            ]
+            lib.vt_tag_free.restype = None
+            lib.vt_tag_free.argtypes = [ctypes.c_void_p]
+            lib.vt_tag_set_matcher.restype = ctypes.c_int
+            lib.vt_tag_set_matcher.argtypes = [
+                ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                I64P, I32P, I64P, I32P, ctypes.c_int64,
+                I32P, ctypes.c_int64,
+            ]
+            lib.vt_tag_set_tokens.restype = ctypes.c_int
+            lib.vt_tag_set_tokens.argtypes = [ctypes.c_void_p, I32P, I64P]
+            lib.vt_tag_set_assign.restype = ctypes.c_int
+            lib.vt_tag_set_assign.argtypes = [
+                ctypes.c_void_p, I64P, I32P, I32P, I32P,
+            ]
+            lib.vt_tag_predict_batch.restype = ctypes.c_int64
+            lib.vt_tag_predict_batch.argtypes = [
+                ctypes.c_void_p, I32P, U8P, I64P, ctypes.c_int64, I32P, I32P,
+                I32P, I32P, I32P, I32P, I32P,
+                I64P, I32P, I64P,
+                ctypes.c_int32, ctypes.c_int32,
+            ]
             _lib = lib
     return _lib
 
@@ -120,6 +178,10 @@ def _check_out(a: np.ndarray, shape, dtype) -> None:
 
 def _buf(blob: np.ndarray) -> np.ndarray:
     return blob if blob.size else np.zeros(1, dtype=np.uint8)
+
+
+def _buf32(a: np.ndarray) -> np.ndarray:
+    return a if a.size else np.zeros(1, dtype=np.int32)
 
 
 def build_trie_native(
@@ -160,11 +222,19 @@ def compile_matcher_native(
     *,
     project: bool = True,
     n_symbols: int = 0,
+    is_tag: Optional[np.ndarray] = None,
+    tag_tok: Optional[np.ndarray] = None,
+    tag_rel: Optional[np.ndarray] = None,
 ) -> dict:
     """One-call native matcher compile: merge duplicate patterns, propagate
     suffix weights, project symbols, build the double-array, pack fixed-8
     weight rows (native/compile_matcher.cc). Returns a dict of numpy
-    arrays. Raises OverflowError on int32 weight overflow."""
+    arrays. Raises OverflowError on int32 weight overflow.
+
+    When ``is_tag`` is given, rows with ``is_tag[i] != 0`` carry a tag
+    weight vector for ``(tag_tok[i], tag_rel[i])`` instead of a boundary
+    weight, and the result gains ``tag_pat/tag_tok/tag_rel/tag_wflat/
+    tag_woffs``: the merged patterns' tag entries."""
     lib = _load()
     n = int(len(pat_offs) - 1)
     pat_flat = np.ascontiguousarray(pat_flat, dtype=np.int32)
@@ -185,15 +255,15 @@ def compile_matcher_native(
     n_rows = ctypes.c_int64()
     max_chunks = ctypes.c_int32()
     max_len = ctypes.c_int32()
-    rc = lib.vt_compile_matcher(
+    common = (
         pat_flat.ctypes.data_as(I32P),
         pat_offs.ctypes.data_as(I64P),
         n,
         w_offset.ctypes.data_as(I32P),
         w_flat.ctypes.data_as(I32P),
         w_offs.ctypes.data_as(I64P),
-        1 if project else 0,
-        n_symbols,
+    )
+    outs = (
         ctypes.byref(ptrs[0]), ctypes.byref(n_syms),
         ctypes.byref(ptrs[1]), ctypes.byref(ptrs[2]), ctypes.byref(ptrs[3]),
         ctypes.byref(ptrs[4]), ctypes.byref(n_slots),
@@ -201,6 +271,27 @@ def compile_matcher_native(
         ctypes.byref(ptrs[7]), ctypes.byref(ptrs[8]), ctypes.byref(n_rows),
         ctypes.byref(max_chunks), ctypes.byref(max_len),
     )
+    if is_tag is not None:
+        tag_args = [np.ascontiguousarray(a, dtype=d) for a, d in (
+            (is_tag, np.uint8), (tag_tok, np.int32), (tag_rel, np.int32))]
+        if any(len(a) != n for a in tag_args):
+            raise ValueError("is_tag/tag_tok/tag_rel need one entry per "
+                             "pattern")
+        tag_ptrs = [I32P() for _ in range(4)]  # pat, tok, rel, wflat
+        tag_woffs = I64P()
+        n_tag = ctypes.c_int64()
+        rc = lib.vt_compile_matcher_tags(
+            *common,
+            tag_args[0].ctypes.data_as(U8P),
+            tag_args[1].ctypes.data_as(I32P),
+            tag_args[2].ctypes.data_as(I32P),
+            1 if project else 0, n_symbols, *outs,
+            *(ctypes.byref(p) for p in tag_ptrs), ctypes.byref(tag_woffs),
+            ctypes.byref(n_tag),
+        )
+    else:
+        rc = lib.vt_compile_matcher(*common, 1 if project else 0, n_symbols,
+                                    *outs)
     if rc == 3:
         raise OverflowError("weight overflow during merge")
     if rc != 0:
@@ -211,7 +302,7 @@ def compile_matcher_native(
         lib.vt_free(p)
         return a
 
-    return {
+    res = {
         "syms": take(ptrs[0], (max(int(n_syms.value), 1),))[: n_syms.value],
         "base": take(ptrs[1], (int(n_slots.value),)),
         "check": take(ptrs[2], (int(n_slots.value),)),
@@ -229,6 +320,14 @@ def compile_matcher_native(
         "max_len": int(max_len.value),
         "n_symbols": int(n_syms.value) if project else n_symbols,
     }
+    if is_tag is not None:
+        ne = int(n_tag.value)
+        for name, p in zip(("tag_pat", "tag_tok", "tag_rel"), tag_ptrs):
+            res[name] = take(p, (max(ne, 1),))[:ne]
+        res["tag_woffs"] = take(tag_woffs, (ne + 1,))
+        nw = int(res["tag_woffs"][-1])
+        res["tag_wflat"] = take(tag_ptrs[3], (max(nw, 1),))[:nw]
+    return res
 
 
 def tensorize16_native(
@@ -453,3 +552,340 @@ def detok_bits_native(
         n_threads,
     )
     return _written(out, written, scratch)
+
+
+class TagEmitPlan:
+    """Host emission plan for the lean tag path.
+
+    Precomputes, per token id, the '/'-separated tag blocks the tokenized
+    writer appends after the surface (reference sentence.rs:850-886 with
+    TagPredictor::predict resolution, predictor.rs:286-304): one entry
+    per slot up to the token's last non-None slot (trailing-None
+    truncation is static per token — multi/single-candidate slots always
+    yield a tag, empty slots never do). Pool strings are pre-escaped.
+    """
+
+    def __init__(self, tag_meta, n_tags: int):
+        def esc(s: str) -> bytes:
+            out = []
+            for ch in s:
+                if ch in (" ", "\\", "/"):
+                    out.append("\\")
+                out.append(ch)
+            return "".join(out).encode("utf-8")
+
+        pool: list = []
+        pool_off = [0]
+
+        def add_pool(b: bytes) -> int:
+            pool.append(b)
+            pool_off.append(pool_off[-1] + len(b))
+            return len(pool) - 1
+
+        n_tokens = len(tag_meta.tags)
+        ent_start = np.zeros(n_tokens + 1, dtype=np.int64)
+        ent_base: list = []
+        ent_ccol: list = []
+        self.max_tag_bytes = 0
+        for tid, slots in enumerate(tag_meta.tags):
+            last_some = 0
+            for s, cands in enumerate(slots):
+                if s >= n_tags:
+                    break
+                if len(cands) > 0:
+                    last_some = s + 1
+            tok_bytes = 0
+            for s in range(last_some):
+                cands = slots[s]
+                if len(cands) >= 2:
+                    ent_base.append(len(pool))
+                    ent_ccol.append(s)
+                    longest = 0
+                    for c in cands:
+                        b = esc(c)
+                        add_pool(b)
+                        longest = max(longest, len(b))
+                    tok_bytes += 1 + longest
+                elif cands:
+                    b = esc(cands[0])
+                    ent_base.append(add_pool(b))
+                    ent_ccol.append(-1)
+                    tok_bytes += 1 + len(b)
+                else:
+                    ent_base.append(-1)
+                    ent_ccol.append(-1)
+                    tok_bytes += 1
+            ent_start[tid + 1] = len(ent_base)
+            self.max_tag_bytes = max(self.max_tag_bytes, tok_bytes)
+        self.ent_start = ent_start
+        self.ent_base = np.asarray(ent_base or [0], dtype=np.int32)
+        self.ent_ccol = np.asarray(ent_ccol or [0], dtype=np.int32)
+        self.pool = np.frombuffer(b"".join(pool) or b"\x00", dtype=np.uint8)
+        self.pool_off = np.asarray(pool_off, dtype=np.int64)
+
+
+_TID_KIND = {np.dtype(np.int32): 0, np.dtype(np.int16): 1,
+             np.dtype(np.int8): 2}
+
+
+def detok_tags2_native(
+    blob: np.ndarray,  # uint8 ORIGINAL UTF-8 bytes
+    starts: np.ndarray,  # int64 (n_lines,)
+    ends: np.ndarray,  # int64 (n_lines,)
+    bits: np.ndarray,  # uint8 (B, bytes_per_row) column-major gap bits
+    counts: np.ndarray,  # int32 per-line char counts
+    tid: np.ndarray,  # (B, L) int32/int16/int8 token ids
+    choice: np.ndarray,  # int8 (B, L, n_slots)
+    plan: TagEmitPlan,
+    rows_of: Optional[np.ndarray] = None,  # int32 per-line packed row
+    cols_of: Optional[np.ndarray] = None,  # int32 per-line packed column
+    n_threads: int = 0,
+    scratch: Optional[dict] = None,
+):
+    """Tag-aware tokenized writer (native vt_detok_tags2): bit-packed
+    boundaries, per-line placement, token ids at their narrow width.
+    Returns bytes/memoryview like :func:`detok_native`.
+
+    The output buffer is sized from the writer's own per-line bound —
+    ``2 * bytes + chars + 1 + tokens * max_tag_bytes`` with at most
+    ``max(chars, 1)`` tokens a line, so an empty line reserves one tag
+    block too — and an undersized buffer raises."""
+    lib = _load()
+    n = len(starts)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    tid = np.ascontiguousarray(tid)
+    kind = _TID_KIND.get(tid.dtype)
+    if kind is None:
+        raise TypeError(f"tid: dtype {tid.dtype} is not int32/int16/int8")
+    choice = np.ascontiguousarray(choice, dtype=np.int8)
+    n_chars = counts.astype(np.int64)
+    cap = int(2 * (ends - starts).sum() + n_chars.sum() + n
+              + np.maximum(n_chars, 1).sum() * plan.max_tag_bytes) + 1
+    out = _out_buffer(cap, scratch)
+    if rows_of is not None:
+        rows_of = np.ascontiguousarray(rows_of, dtype=np.int32)
+        cols_of = np.ascontiguousarray(cols_of, dtype=np.int32)
+    written = lib.vt_detok_tags2(
+        _buf(blob).ctypes.data_as(U8P),
+        starts.ctypes.data_as(I64P),
+        ends.ctypes.data_as(I64P),
+        n,
+        bits.ctypes.data_as(U8P),
+        bits.shape[1] if bits.ndim == 2 else 0,
+        rows_of.ctypes.data_as(I32P) if rows_of is not None else None,
+        cols_of.ctypes.data_as(I32P) if cols_of is not None else None,
+        counts.ctypes.data_as(I32P),
+        tid.ctypes.data_as(ctypes.c_void_p),
+        kind,
+        tid.shape[1],
+        choice.ctypes.data_as(I8P),
+        choice.shape[2],
+        plan.ent_start.ctypes.data_as(I64P),
+        plan.ent_base.ctypes.data_as(I32P),
+        plan.ent_ccol.ctypes.data_as(I32P),
+        plan.pool.ctypes.data_as(U8P),
+        plan.pool_off.ctypes.data_as(I64P),
+        plan.max_tag_bytes,
+        None, None, 0,  # no --scores block
+        None, 0, None, None, None, None, None, None, 0,  # no --tag-scores
+        out.ctypes.data_as(U8P),
+        cap,
+        n_threads,
+    )
+    return _written(out, written, scratch)
+
+
+class NativeTagScorer:
+    """ctypes wrapper for the C++ batched tag scorer (native/tag_scorer.cc).
+
+    Scores and argmaxes every recognized token of a batch in one call over
+    flat packed tables — the general path's ``predict_tags_batch``
+    (reference predictor.rs:546-637 semantics; the pure-Python reference
+    is ``predictor._tag_token_by_id``).
+    """
+
+    def __init__(self, compiled):
+        lib = _load()
+        self._lib = lib
+        meta = compiled.tag_meta
+        n_tokens = len(meta.bias)
+        self.n_tags = int(compiled.n_tags)
+        bias_off = np.zeros(n_tokens + 1, dtype=np.int64)
+        np.cumsum([len(b) for b in meta.bias], out=bias_off[1:])
+        bias_flat = np.fromiter(itertools.chain.from_iterable(meta.bias),
+                                dtype=np.int32, count=int(bias_off[-1]))
+        cand_off = np.zeros(n_tokens + 1, dtype=np.int64)
+        np.cumsum([len(slots) for slots in meta.tags], out=cand_off[1:])
+        cand_cnt = np.fromiter(
+            (len(c) for slots in meta.tags for c in slots),
+            dtype=np.int32, count=int(cand_off[-1]))
+        self.max_cap = max([8] + [len(b) for b in meta.bias])
+        if bias_flat.size == 0:
+            bias_flat = np.zeros(1, dtype=np.int32)
+        if cand_cnt.size == 0:
+            cand_cnt = np.zeros(1, dtype=np.int32)
+        self._h = lib.vt_tag_new(
+            n_tokens, self.n_tags, self.max_cap,
+            bias_off.ctypes.data_as(I64P), bias_flat.ctypes.data_as(I32P),
+            cand_off.ctypes.data_as(I64P), cand_cnt.ctypes.data_as(I32P),
+        )
+        if not self._h:
+            raise RuntimeError("vt_tag_new failed")
+        tokens = sorted(meta.token_ids, key=meta.token_ids.get)
+        tok_offs = np.zeros(n_tokens + 1, dtype=np.int64)
+        np.cumsum([len(t) for t in tokens], out=tok_offs[1:])
+        tok_cps = np.fromiter((ord(ch) for t in tokens for ch in t),
+                              dtype=np.int32, count=int(tok_offs[-1]))
+        if tok_cps.size == 0:
+            tok_cps = np.zeros(1, dtype=np.int32)
+        lib.vt_tag_set_tokens(self._h, tok_cps.ctypes.data_as(I32P),
+                              tok_offs.ctypes.data_as(I64P))
+        # assignment plan: per token_id the tag slots to fill, each
+        # resolving to an index into a shared candidate-string pool (pool
+        # index 0 = None for empty-candidate slots)
+        pool: list = [None]
+        ent_start = np.zeros(n_tokens + 1, dtype=np.int64)
+        ent_slot: list = []
+        ent_base: list = []
+        ent_ccol: list = []
+        for tid, slots_ in enumerate(meta.tags):
+            for slot, cands in enumerate(slots_):
+                if slot >= self.n_tags:
+                    break
+                ent_slot.append(slot)
+                if len(cands) >= 2:
+                    ent_base.append(len(pool))
+                    ent_ccol.append(slot)
+                    pool.extend(cands)
+                elif cands:
+                    ent_base.append(len(pool))
+                    ent_ccol.append(-1)
+                    pool.append(cands[0])
+                else:
+                    ent_base.append(0)
+                    ent_ccol.append(-1)
+            ent_start[tid + 1] = len(ent_slot)
+        self.pool = np.array(pool, dtype=object)
+        ent_slot_a = np.asarray(ent_slot or [0], dtype=np.int32)
+        ent_base_a = np.asarray(ent_base or [0], dtype=np.int32)
+        ent_ccol_a = np.asarray(ent_ccol or [0], dtype=np.int32)
+        lib.vt_tag_set_assign(
+            self._h, ent_start.ctypes.data_as(I64P),
+            ent_slot_a.ctypes.data_as(I32P), ent_base_a.ctypes.data_as(I32P),
+            ent_ccol_a.ctypes.data_as(I32P),
+        )
+        self.has_char = False
+        self.has_type = False
+        for which, m in ((0, compiled.char_matcher),
+                         (1, compiled.type_matcher)):
+            if m is None or m.tag_weight is None or n_tokens == 0:
+                continue
+            n_rel = max((len(by_rel) for by_rel in m.tag_weight), default=0)
+            if n_rel == 0:
+                continue
+            grp_first = np.zeros(n_tokens * n_rel + 1, dtype=np.int64)
+            states: list = []
+            w_off: list = []
+            w_len: list = []
+            w_flat: list = []
+            for tid in range(n_tokens):
+                by_rel = m.tag_weight[tid]
+                for rel in range(n_rel):
+                    table = by_rel[rel] if rel < len(by_rel) else {}
+                    for st in sorted(table):
+                        w = table[st]
+                        states.append(st)
+                        w_off.append(len(w_flat))
+                        w_len.append(len(w))
+                        w_flat.extend(w)
+                    grp_first[tid * n_rel + rel + 1] = len(states)
+            states_a = np.asarray(states or [0], dtype=np.int32)
+            w_off_a = np.asarray(w_off or [0], dtype=np.int64)
+            w_len_a = np.asarray(w_len or [0], dtype=np.int32)
+            w_flat_a = np.asarray(w_flat or [0], dtype=np.int32)
+            rc = lib.vt_tag_set_matcher(
+                self._h, which, n_rel, grp_first.ctypes.data_as(I64P),
+                states_a.ctypes.data_as(I32P), w_off_a.ctypes.data_as(I64P),
+                w_len_a.ctypes.data_as(I32P), len(states),
+                w_flat_a.ctypes.data_as(I32P), len(w_flat),
+            )
+            if rc != 0:
+                raise RuntimeError("tag scorer setup failed")
+            if which == 0:
+                self.has_char = True
+            else:
+                self.has_type = True
+
+    def predict_batch(self, cps_flat, bnd_flat, sent_off, char_states,
+                      type_states, want_scores: bool = False,
+                      n_threads: int = 0):
+        """Run the full tag pass natively over a batch.
+
+        ``cps_flat``/``bnd_flat``/``char_states``/``type_states``:
+        flattened per-sentence streams delimited by ``sent_off`` (boundary
+        labels occupy the first n-1 slots of each sentence's range; state
+        streams may be None when the side is absent).
+
+        Returns (tids, pos, sent, choices, scores-or-None, gpos, pool_idx),
+        one row per recognized token. choices[t, s] = argmax candidate
+        index for multi-candidate slots, -1 for single-candidate ones.
+        (gpos, pool_idx) resolve the whole batch's tag assignment in flat
+        form: ``all_tags[gpos] = self.pool[pool_idx]`` where all_tags is
+        the batch-concatenated ``total_chars * n_tags`` tag array.
+        """
+        cps_flat = np.ascontiguousarray(cps_flat, dtype=np.int32)
+        bnd_flat = np.ascontiguousarray(bnd_flat, dtype=np.uint8)
+        sent_off = np.ascontiguousarray(sent_off, dtype=np.int64)
+        n_sents = len(sent_off) - 1
+        cap = max(int(sent_off[-1]), 1)  # at most one token per char
+        tids = np.empty(cap, dtype=np.int32)
+        pos = np.empty(cap, dtype=np.int32)
+        sent = np.empty(cap, dtype=np.int32)
+        choices = np.empty((cap, self.n_tags), dtype=np.int32)
+        gpos = np.empty(cap * self.n_tags, dtype=np.int64)
+        pool_idx = np.empty(cap * self.n_tags, dtype=np.int32)
+        n_entries = ctypes.c_int64(0)
+        scores = np.empty((cap, self.max_cap) if want_scores else (1, 1),
+                          dtype=np.int32)
+
+        def states(st, present):
+            if st is None or not present:
+                return None
+            return np.ascontiguousarray(st, dtype=np.int32)
+
+        cs = states(char_states, self.has_char)
+        ts = states(type_states, self.has_type)
+        n_tok = self._lib.vt_tag_predict_batch(
+            self._h,
+            _buf32(cps_flat).ctypes.data_as(I32P),
+            _buf(bnd_flat).ctypes.data_as(U8P),
+            sent_off.ctypes.data_as(I64P),
+            n_sents,
+            cs.ctypes.data_as(I32P) if cs is not None else None,
+            ts.ctypes.data_as(I32P) if ts is not None else None,
+            tids.ctypes.data_as(I32P),
+            pos.ctypes.data_as(I32P),
+            sent.ctypes.data_as(I32P),
+            choices.ctypes.data_as(I32P),
+            scores.ctypes.data_as(I32P),
+            gpos.ctypes.data_as(I64P),
+            pool_idx.ctypes.data_as(I32P),
+            ctypes.byref(n_entries),
+            1 if want_scores else 0,
+            n_threads,
+        )
+        ne = n_entries.value
+        return (
+            tids[:n_tok], pos[:n_tok], sent[:n_tok], choices[:n_tok],
+            scores[:n_tok] if want_scores else None,
+            gpos[:ne], pool_idx[:ne],
+        )
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.vt_tag_free(h)
+            self._h = None

@@ -1,7 +1,8 @@
 // Batch UTF-8 tensorizer and detokenizers — the lean serving path's host
 // stages. Decodes UTF-8 lines into padded (B, L) uint16 codepoint and
 // uint8 char-type arrays in one pass (the host-side input pipeline feeding
-// the device), and writes the tokenized bytes back from the boundary bits.
+// the device), and writes the tokenized bytes back from the boundary bits
+// (and, on the tag path, the token ids and tag choices).
 // Char-type classification matches the reference Unicode ranges
 // (sentence.rs:50-67) exactly.
 
@@ -338,6 +339,231 @@ int64_t vt_detok_bits(const uint8_t* utf8, const int64_t* starts,
     if (w != out_start[row])
       std::memmove(out + w, out + out_start[row], out_len[row]);
     w += out_len[row];
+  }
+  return w;
+}
+
+namespace {
+
+// column-major gap bits (ops/boundary.pack_gap_bits): gap pos lives in
+// byte pos % W at bit pos / W, W = bytes per packed row
+inline int bit_at(const uint8_t* brow, int64_t pos, int32_t W) {
+  return (brow[pos % W] >> (pos / W)) & 1;
+}
+
+// append a codepoint (BMP) as UTF-8
+inline uint8_t* put_utf8(uint8_t* o, uint32_t c) {
+  if (c < 0x80) {
+    *o++ = static_cast<uint8_t>(c);
+  } else if (c < 0x800) {
+    *o++ = static_cast<uint8_t>(0xC0 | (c >> 6));
+    *o++ = static_cast<uint8_t>(0x80 | (c & 0x3F));
+  } else {
+    *o++ = static_cast<uint8_t>(0xE0 | (c >> 12));
+    *o++ = static_cast<uint8_t>(0x80 | ((c >> 6) & 0x3F));
+    *o++ = static_cast<uint8_t>(0x80 | (c & 0x3F));
+  }
+  return o;
+}
+
+inline uint8_t* put_int(uint8_t* o, int64_t v) {
+  if (v < 0) {
+    *o++ = '-';
+    v = -v;
+  }
+  uint8_t tmp[20];
+  int n = 0;
+  do {
+    tmp[n++] = static_cast<uint8_t>('0' + v % 10);
+    v /= 10;
+  } while (v);
+  while (n) *o++ = tmp[--n];
+  return o;
+}
+
+}  // namespace
+
+// Tag-aware detokenizer for the lean --predict-tags path: like
+// vt_detok_bits, but after each token's (escaped) surface it appends the
+// token's tags resolved from the tag kernel's outputs (reference tokenized
+// writer sentence.rs:850-886: '/'-joined tags with trailing-None
+// truncation, static per token id and precomputed into the emission plan).
+//   tid:    (B, L) token id at each token's LAST char (-1 = unrecognized),
+//           at its native width (tid_kind 0/1/2 = int32/int16/int8);
+//   choice: (B, L, n_slots) int8 winning candidate per multi-candidate
+//           slot (-1 otherwise).
+//   Emission plan per token id (native.TagEmitPlan):
+//     ent_start[tid]..ent_start[tid+1]: one entry per emitted slot, in
+//     slot order ("/"-separated). ent_base = candidate-pool index of the
+//     slot's first candidate (-1 = empty slot: bare "/"); ent_ccol = the
+//     choice column to add (-1 = single candidate, use base directly).
+//   pool: concatenated PRE-ESCAPED UTF-8 tag strings; pool_off has
+//     n_pool + 1 offsets.
+// Boundaries arrive as bit rows at per-line (row, col) placement (NULL =
+// line i at (i, 0)); counts are the per-line char counts. The optional
+// diagnostic blocks of the rich --predict-tags combinations (--scores,
+// --tag-scores) are emitted here too:
+//   * gap_scores != NULL: the --scores block (one "i:AB score" line per
+//     gap of the normalized line, then a blank line);
+//   * tag_scores != NULL: the --tag-scores block (one line per token:
+//     surface, then per slot a tab + either "cand:0" for single-
+//     candidate slots or "cand:score,..." over the class-concatenated
+//     score row; blank line after), plan arrays ts_*:
+//       ts_start[tid]..ts_start[tid+1]: one entry per slot (ALL slots);
+//       ts_base = UNESCAPED candidate pool index of the slot's first
+//       candidate; ts_cnt = candidate count; ts_koff = the slot's score
+//       column offset (prefix sum of counts over multi-candidate slots).
+// Empty lines (count 0) emit a bare line and no blocks (the general
+// path's from_raw("") error semantics).
+int64_t vt_detok_tags2(
+    const uint8_t* utf8, const int64_t* starts, const int64_t* ends,
+    int64_t n_lines, const uint8_t* bits, int32_t bytes_per_row,
+    const int32_t* rows_of, const int32_t* cols_of, const int32_t* counts,
+    const void* tid, int32_t tid_kind, int64_t L, const int8_t* choice,
+    int32_t n_slots, const int64_t* ent_start, const int32_t* ent_base,
+    const int32_t* ent_ccol, const uint8_t* pool, const int64_t* pool_off,
+    int64_t max_tag_bytes, const uint16_t* cps16, const int32_t* gap_scores,
+    int32_t Lm1, const int32_t* tag_scores, int32_t C,
+    const int64_t* ts_start, const int32_t* ts_base, const int32_t* ts_cnt,
+    const int32_t* ts_koff, const uint8_t* ts_pool,
+    const int64_t* ts_pool_off, int64_t ts_max_bytes, uint8_t* out,
+    int64_t out_cap, int32_t n_threads) {
+  const int64_t per_gap = 30;
+  std::vector<int64_t> out_len(n_lines, 0);
+  std::vector<int64_t> out_start(n_lines + 1, 0);
+  for (int64_t line = 0; line < n_lines; ++line) {
+    int64_t nbytes = ends[line] - starts[line];
+    int64_t n = counts[line];
+    int64_t row = rows_of ? rows_of[line] : line;
+    int64_t base = cols_of ? cols_of[line] : 0;
+    const uint8_t* brow = bits + row * bytes_per_row;
+    int64_t ntok = 1;
+    for (int64_t g = 0; g + 1 < n; ++g) ntok += bit_at(brow, base + g, bytes_per_row);
+    int64_t cap = 2 * nbytes + n + 1 + ntok * max_tag_bytes;
+    if (gap_scores) cap += n * per_gap + 2;
+    if (tag_scores)  // surfaces print NORMALIZED codepoints (<= 3 B/char)
+      cap += 3 * n + ntok * (ts_max_bytes + 1) + 2;
+    out_start[line + 1] = out_start[line] + cap;
+  }
+  if (out_start[n_lines] > out_cap) return -1;
+  auto tid_at = [&](int64_t row, int64_t col) -> int32_t {
+    int64_t idx = row * L + col;
+    switch (tid_kind) {
+      case 1:
+        return static_cast<const int16_t*>(tid)[idx];
+      case 2:
+        return static_cast<const int8_t*>(tid)[idx];
+      default:
+        return static_cast<const int32_t*>(tid)[idx];
+    }
+  };
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t line = lo; line < hi; ++line) {
+      const uint8_t* p = utf8 + starts[line];
+      const uint8_t* end = utf8 + ends[line];
+      int64_t row = rows_of ? rows_of[line] : line;
+      int64_t base = cols_of ? cols_of[line] : 0;
+      const uint8_t* brow = bits + row * bytes_per_row;
+      int32_t n = counts[line];
+      uint8_t* o = out + out_start[line];
+      uint8_t* o0 = o;
+      int32_t ci = 0;
+      auto emit_tags = [&](int32_t last_char) {
+        int32_t t = tid_at(row, base + last_char);
+        if (t < 0) return;
+        for (int64_t ei = ent_start[t]; ei < ent_start[t + 1]; ++ei) {
+          *o++ = '/';
+          int32_t eb = ent_base[ei];
+          if (eb < 0) continue;  // empty-candidate slot: bare '/'
+          int32_t ccol = ent_ccol[ei];
+          int64_t k = eb;
+          if (ccol >= 0) {
+            int8_t ch =
+                choice[(row * L + base + last_char) * n_slots + ccol];
+            if (ch > 0) k += ch;
+          }
+          int64_t plo = pool_off[k], phi = pool_off[k + 1];
+          std::memcpy(o, pool + plo, phi - plo);
+          o += phi - plo;
+        }
+      };
+      while (p < end) {
+        uint8_t byte = *p;
+        if ((byte & 0xC0) != 0x80) {  // char start
+          if (ci > 0 && ci < n && bit_at(brow, base + ci - 1, bytes_per_row)) {
+            emit_tags(ci - 1);
+            *o++ = ' ';
+          }
+          ++ci;
+          if (byte == ' ' || byte == '/' || byte == '\\') *o++ = '\\';
+        }
+        *o++ = byte;
+        ++p;
+      }
+      if (ci > 0) emit_tags(ci - 1);
+      *o++ = '\n';
+      if (n > 0 && gap_scores) {
+        const uint16_t* cp = cps16 + row * L + base;
+        const int32_t* sc = gap_scores + row * Lm1 + base;
+        for (int32_t i = 0; i + 1 < n; ++i) {
+          o = put_int(o, i);
+          *o++ = ':';
+          o = put_utf8(o, cp[i]);
+          o = put_utf8(o, cp[i + 1]);
+          *o++ = ' ';
+          o = put_int(o, sc[i]);
+          *o++ = '\n';
+        }
+        *o++ = '\n';
+      }
+      if (n > 0 && tag_scores) {
+        const uint16_t* cp = cps16 + row * L + base;
+        int32_t st = 0;
+        for (int32_t e = 0; e < n; ++e) {
+          bool is_end = (e == n - 1) || bit_at(brow, base + e, bytes_per_row);
+          if (!is_end) continue;
+          for (int32_t i = st; i <= e; ++i) o = put_utf8(o, cp[i]);
+          int32_t t = tid_at(row, base + e);
+          if (t >= 0) {
+            const int32_t* srow = tag_scores + (row * L + base + e) * C;
+            for (int64_t ei = ts_start[t]; ei < ts_start[t + 1]; ++ei) {
+              *o++ = '\t';
+              int32_t cnt = ts_cnt[ei];
+              int64_t pb = ts_base[ei];
+              if (cnt == 1) {
+                int64_t plo = ts_pool_off[pb], phi = ts_pool_off[pb + 1];
+                std::memcpy(o, ts_pool + plo, phi - plo);
+                o += phi - plo;
+                *o++ = ':';
+                *o++ = '0';
+              } else {
+                int32_t k = ts_koff[ei];
+                for (int32_t j = 0; j < cnt; ++j) {
+                  if (j) *o++ = ',';
+                  int64_t plo = ts_pool_off[pb + j];
+                  int64_t phi = ts_pool_off[pb + j + 1];
+                  std::memcpy(o, ts_pool + plo, phi - plo);
+                  o += phi - plo;
+                  *o++ = ':';
+                  o = put_int(o, srow[k + j]);
+                }
+              }
+            }
+          }
+          *o++ = '\n';
+          st = e + 1;
+        }
+        *o++ = '\n';
+      }
+      out_len[line] = o - o0;
+    }
+  };
+  vt::parallel_rows(n_lines, n_threads, 256, work);
+  int64_t w = 0;
+  for (int64_t line = 0; line < n_lines; ++line) {
+    if (w != out_start[line])
+      std::memmove(out + w, out + out_start[line], out_len[line]);
+    w += out_len[line];
   }
   return w;
 }

@@ -2,7 +2,7 @@
 
 The reference predict CLI's whole-pipeline contract is wall-clock elapsed
 over the per-line loop (predict/src/main.rs:124,183-185). This module is
-the port's bytes-to-bytes boundary path:
+the port's bytes-to-bytes path, for boundaries and (``tags=True``) tags:
 
     bytes -> native uint16 tensorize (+ fused fullwidth normalization and
              char typing; short-line runs PACKED many-per-row with
@@ -13,6 +13,12 @@ the port's bytes-to-bytes boundary path:
              bit-packed gaps directly, with per-line (row, col) placement
              for packed batches)
           -> bytes
+
+With ``tags=True`` each batch is two launches instead — the boundary
+kernel's full epilogue (scores and match ids), then the tag kernel
+(``Predictor.serve_tags_fn``) — and the tag-aware native detokenizer
+(``vt_detok_tags2``) appends each token's tags from the tag kernel's token
+ids and choices (or its fused uint16 word, unpacked on the host).
 
 * ~3 B/char crosses the host<->device boundary (uint16 codepoints + uint8
   types in, 1 bit per gap out).
@@ -45,8 +51,10 @@ import numpy as np
 import torch
 
 from .native import (
+    TagEmitPlan,
     count_chars_native,
     detok_bits_native,
+    detok_tags2_native,
     find_newlines_native,
     tensorize16_native,
     tensorize16_packed_native,
@@ -65,7 +73,7 @@ PACK_MAX_LINE = 64
 PACK_TARGET_ROWS = 4096
 
 
-def pack_separator(compiled) -> int:
+def pack_separator(compiled, tag_reach: int = 0) -> int:
     """Separator width (codepoint-0 chars) between packed lines.
 
     Must cover (a) score spill: the rightmost gap any match's weights
@@ -76,9 +84,13 @@ def pack_separator(compiled) -> int:
     reference's out-of-sentence positions
     (type_scorer/boundary_scorer_cache.rs increment_seqid_without_char).
     Char patterns can never span a separator (codepoint 0 projects to
-    the OOV symbol), so within-line matches are unaffected.
+    the OOV symbol), so within-line matches are unaffected. ``tag_reach``:
+    on the tag path, a token's scores read match ids up to that many
+    chars past its end (``ops.tags.TagTables.max_rel``), which in a
+    packed row must all be separators, as past a line's end in the
+    general path.
     """
-    sep = max(1, compiled.type_window_size - 1)
+    sep = max(1, compiled.type_window_size - 1, tag_reach)
     for m in (compiled.char_matcher, compiled.type_matcher):
         if m is None or not len(m.w8):
             continue
@@ -123,13 +135,14 @@ class _HostSlot:
 
 
 class LeanServer:
-    """Streams line-delimited UTF-8 through the lean boundary pipeline.
+    """Streams line-delimited UTF-8 through the lean pipeline.
 
     ``wsconst``: character-type codes (ints) fused as kernel-side
-    KyteaWsConst filters. ``fallback(lines: List[bytes])`` handles lines
-    the lean path cannot represent (it must write its own output, in
-    order). Tags, scores, grapheme filtering and device meshes are not
-    ported yet: asking for any of them raises.
+    KyteaWsConst filters. ``tags``: append each token's tags (a predictor
+    built with ``predict_tags``). ``fallback(lines: List[bytes])`` handles
+    lines the lean path cannot represent (it must write its own output, in
+    order). Scores, grapheme filtering and device meshes are not ported
+    yet: asking for any of them raises.
     """
 
     def __init__(
@@ -139,17 +152,31 @@ class LeanServer:
         normalize: bool = True,
         batch_lines: int = 8192,
         fallback: Optional[Callable[[List[bytes]], None]] = None,
+        tags: bool = False,
         **options,
     ):
-        if options:  # tags, scores, grapheme, mesh, ...
+        if tags and options.get("grapheme"):
+            # the tag pass derives token spans from the pre-G boundaries;
+            # a post-hoc host mask would desynchronize them
+            raise ValueError("lean tag path cannot compose with the "
+                             "grapheme filter")
+        asked = sorted(k for k, v in options.items() if v)
+        if asked:  # scores, grapheme, mesh, ...
             raise NotImplementedError(
-                f"lean serving options not ported: {sorted(options)}"
+                f"lean serving options not ported: {asked}"
             )
         self.predictor = predictor
         self.device = predictor.device
-        self.fn = predictor.serve_boundaries_fn(
-            tuple(sorted(wsconst)), host_types=True
-        )
+        self.tags = bool(tags)
+        ws = tuple(sorted(wsconst))
+        c = predictor.compiled
+        if self.tags:
+            self.fn = predictor.serve_tags_fn(ws, host_types=True)
+            self.plan = TagEmitPlan(c.tag_meta, c.n_tags)
+            self._sep = pack_separator(c, predictor._tag_tables().max_rel())
+        else:
+            self.fn = predictor.serve_boundaries_fn(ws, host_types=True)
+            self._sep = pack_separator(c)
         self.norm_map = _fullwidth_norm_map() if normalize else None
         self._scratch: dict = {}  # reused detok output buffer
         self._slots = [_HostSlot(self.device), _HostSlot(self.device)]
@@ -165,26 +192,30 @@ class LeanServer:
             "readback_bytes": 0, "t_dispatch_s": 0.0, "t_readback_s": 0.0,
             "t_detok_s": 0.0, "t_fallback_s": 0.0,
         }
-        self._sep = pack_separator(predictor.compiled)
 
     # ------------------------------------------------------------------
 
     def _launch(self, slot: _HostSlot, cps, cts, lengths):
         """Upload one batch from the slot's host buffers, run the serve
-        kernel, and start the bits' copy back; returns (bits_host,
-        ready_event or None)."""
+        kernel(s), and start the outputs' copy back; returns (outputs on
+        the host, ready_event or None). The outputs are the bits, then on
+        the tag path the tag kernel's word or tid and choice."""
         dev = self.device
-        bits = self.fn(cps.to(dev, non_blocking=True),
-                       cts.to(dev, non_blocking=True),
-                       lengths.to(dev, non_blocking=True))
+        res = self.fn(cps.to(dev, non_blocking=True),
+                      cts.to(dev, non_blocking=True),
+                      lengths.to(dev, non_blocking=True))
+        outs = res if isinstance(res, tuple) else (res,)
         self._n_launched += 1
         if dev.type != "cuda":
-            return bits, None
-        bits_h = slot.tensor("bits", tuple(bits.shape), torch.uint8)
-        bits_h.copy_(bits, non_blocking=True)
+            return outs, None
+        host = []
+        for i, o in enumerate(outs):
+            h = slot.tensor(f"out{i}", tuple(o.shape), o.dtype)
+            h.copy_(o, non_blocking=True)
+            host.append(h)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(dev))
-        return bits_h, ready
+        return tuple(host), ready
 
     def _dispatch(self, blob, starts, ends, n_valid):
         """Tensorize + dispatch one unpacked group; returns the pending
@@ -209,7 +240,8 @@ class LeanServer:
             return None
         res = self._launch(slot, cps, cts, lengths)
         self.stats["dispatches"] += 1
-        return res, blob, starts[:n_valid], ends[:n_valid], None
+        return (res, blob, starts[:n_valid], ends[:n_valid], None,
+                lengths.numpy()[:n_valid])
 
     def _pack_groups(self, counts: np.ndarray):
         """Split a chunk's lines into dispatch groups: contiguous runs
@@ -286,32 +318,55 @@ class LeanServer:
         self.stats["dispatches"] += 1
         self.stats["packed_dispatches"] += 1
         packed = (row[:n_valid], col[:n_valid], max_chars)
-        return res, blob, starts[:n_valid], ends[:n_valid], packed
+        return (res, blob, starts[:n_valid], ends[:n_valid], packed,
+                counts[:n_valid])
 
     def _realize(self, pending, out) -> None:
-        (bits, ready), blob, starts, ends, packed = pending
+        (outs, ready), blob, starts, ends, packed, counts = pending
         n = len(starts)
         st = self.stats
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
-        raw = bits.numpy()
+        raw = [o.numpy() for o in outs]
         st["t_readback_s"] += time.perf_counter() - t0
-        st["readback_bytes"] += raw.nbytes
+        st["readback_bytes"] += sum(r.nbytes for r in raw)
         t0 = time.perf_counter()
-        if packed is not None:
+        if self.tags:
+            data = self._detok_tags(raw, blob, starts, ends, packed, counts)
+        elif packed is not None:
             row, col, max_chars = packed
             data = detok_bits_native(
-                blob, starts, ends, raw, max(max_chars - 1, 0), row, col,
+                blob, starts, ends, raw[0], max(max_chars - 1, 0), row, col,
                 scratch=self._scratch,
             )
         else:
             data = detok_bits_native(
-                blob, starts, ends, raw[:n], raw.shape[1] * 8,
+                blob, starts, ends, raw[0][:n], raw[0].shape[1] * 8,
                 scratch=self._scratch,
             )
         st["t_detok_s"] += time.perf_counter() - t0
         out.write(data)
+
+    def _detok_tags(self, raw, blob, starts, ends, packed, counts):
+        """Tag emission (vt_detok_tags2): bit boundaries, the narrow tid
+        and choices (unpacked from the fused uint16 word when the model's
+        fields fit it), per-line placement for packed batches."""
+        bits = raw[0]
+        if self.fn.packed_tc:
+            # (tid+1) | (c0+1)<<7 | (c1+1)<<11
+            w = raw[1]
+            tid = ((w & 0x7F).astype(np.int16) - 1).astype(np.int8)
+            choice = np.stack(
+                [((w >> (7 + 4 * s)) & 0xF).astype(np.int16) - 1
+                 for s in range(self.fn.n_tag_slots)], axis=-1,
+            ).astype(np.int8)
+        else:
+            tid, choice = raw[1], raw[2]
+        row, col = packed[:2] if packed is not None else (None, None)
+        return detok_tags2_native(blob, starts, ends, bits, counts, tid,
+                                  choice, self.plan, row, col,
+                                  scratch=self._scratch)
 
     # ------------------------------------------------------------------
 
