@@ -50,7 +50,7 @@ struct VtTagsArgs {
   const void* cps;         // (B, L) uint16 or int32 codepoints
   const void* cts;         // (B, L) uint8 or int32 char types, or null
   const int32_t* lengths;  // (B,)
-  int64_t B, L, cps_u16, cts_kind;  // cts_kind: 0 classify, 1 uint8, 2 int32
+  int64_t L, cps_u16, cts_kind;  // cts_kind: 0 classify, 1 uint8, 2 int32
   const int32_t* scores;   // (B, S_pad) the boundary kernel's full epilogue
   int64_t S_pad, pad_left;
   const int32_t* char_match;  // (B, L) match ids, or null
@@ -60,7 +60,7 @@ struct VtTagsArgs {
   int64_t rev_mul, rev_shift;
   const int4* rev_walk;       // (n + 1,) (check, base, value, 0), dead last
   int64_t rev_slots, rev_root_base, max_tok_len;
-  int64_t n_tokens, C, S;
+  int64_t C, S;
   const int32_t* bias;        // (n_tokens, C)
   const int32_t* slot2;       // (n_tokens, 2S): slot offsets, then counts
   const int32_t* desc;        // (n_tabs, 8) probe table descriptors

@@ -313,13 +313,13 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p if p else ctypes.c_int64) for n, p in (
         ("cps", 1), ("cts", 1), ("lengths", 1),
-        ("B", 0), ("L", 0), ("cps_u16", 0), ("cts_kind", 0),
+        ("L", 0), ("cps_u16", 0), ("cts_kind", 0),
         ("scores", 1), ("S_pad", 0), ("pad_left", 0),
         ("char_match", 1), ("type_match", 1), ("ws_mask", 0),
         ("rev_hash2", 1), ("rev_mul", 0), ("rev_shift", 0),
         ("rev_walk", 1), ("rev_slots", 0), ("rev_root_base", 0),
         ("max_tok_len", 0),
-        ("n_tokens", 0), ("C", 0), ("S", 0), ("bias", 1), ("slot2", 1),
+        ("C", 0), ("S", 0), ("bias", 1), ("slot2", 1),
         ("desc", 1), ("n_tabs", 0), ("probe", 1), ("w_rows", 1),
         ("bits", 1), ("W8", 0), ("out_kind", 0), ("tid_out", 1),
         ("choice_out", 1),
@@ -431,7 +431,7 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
         return out
     a = _Args()
     a.cps, a.lengths, a.cts = cps.data_ptr(), lengths.data_ptr(), _ptr(cts)
-    a.B, a.L, a.cps_u16 = B, L, int(cps.dtype == torch.uint16)
+    a.L, a.cps_u16 = L, int(cps.dtype == torch.uint16)
     a.cts_kind = 0 if cts is None else (1 if cts.dtype == torch.uint8 else 2)
     a.scores, a.S_pad, a.pad_left = scores.data_ptr(), S_pad, tt.pad_left
     a.char_match, a.type_match = _ptr(char_match), _ptr(type_match)
@@ -440,7 +440,7 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
     a.rev_shift = tt.rev_shift
     a.rev_walk, a.rev_slots = tt.rev_walk.data_ptr(), tt.rev_walk.shape[0]
     a.rev_root_base, a.max_tok_len = tt.rev_root_base, tt.max_tok_len
-    a.n_tokens, a.C, a.S = tt.n_tokens, tt.C, tt.S
+    a.C, a.S = tt.C, tt.S
     a.bias, a.slot2 = tt.bias.data_ptr(), tt.slot2.data_ptr()
     a.desc, a.n_tabs = tt.desc.data_ptr(), len(tt.tabs)
     a.probe, a.w_rows = tt.probe_flat.data_ptr(), _ptr(tt.w_rows)

@@ -71,7 +71,6 @@ class Predictor:
         self.compiled = compiled if compiled is not None else compile_model(
             model, predict_tags
         )
-        self.predict_tags_enabled = predict_tags
         self._store_tag_scores = False
         self._device_tables: Optional[BoundaryTables] = None
         self._tag_dev_obj = False  # False: not built yet
