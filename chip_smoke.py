@@ -32,8 +32,10 @@ versions on the same inputs. Phases, each printed on its own line:
    bytes must equal the port's general path; the kernel's launch count
    during the run must be > 0 and cover every dispatch;
 4t. lean tag serving: ``LeanServer(tags=True).run`` over the same stream
-   on the tagged model, whose bytes must equal the port's general path
-   with tags; each dispatch is one boundary and one tag launch;
+   followed by 20 000 lines of tag tokens (the tagged model splits them
+   out: hundreds of thousands of tags), on the tagged model, whose bytes
+   must equal the port's general path with tags; each dispatch is one
+   boundary and one tag launch;
 5. timing with CUDA events, kernel and plain version, at the three serve
    shapes ``LeanServer`` dispatches ((8192, 256) unpacked, (4096, 512)
    packed, (8192, 128)) and the full epilogue at (8192, 256), each shape's
@@ -42,7 +44,8 @@ versions on the same inputs. Phases, each printed on its own line:
    the inputs make the kernel do (live positions, walk steps, matches,
    weight-chunk rows, in-line gaps); then the tag kernel at the same
    shapes on the tagged model, and at (8192, 256) on rows of tokens only,
-   with its plain version's time, its byte bound and the tokens it finds;
+   with its plain version's time, its byte bound (what the tokens found
+   make it read) and the tokens it finds;
 6. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
@@ -53,9 +56,8 @@ Usage: python3 chip_smoke.py [--timing-only]
 
 ``--timing-only`` runs phases 1, 2 and 5 and ends with a ``{"timing":
 ...}`` line instead; it reads only the package's entry points, so a copy
-of this script placed in an earlier tree times that tree's kernels the
-same way (an A/B on one card; a tree without the tag kernel times the
-boundary kernel only).
+of this script placed in an earlier tree that has both kernels times
+that tree's kernels the same way (an A/B on one card).
 """
 
 from __future__ import annotations
@@ -244,10 +246,34 @@ def tag_models(tokens, rng, pool, n_classes=(8, 4), n_char=10, n_type=3,
         [int(x) for x in rng.integers(-10, 11, C)]) for tok in tokens]
 
 
+#: the tag tokens' dictionary weight at their edges (minus it inside): it
+#: outweighs what the 50k model's n-grams add at a gap (a few weights of
+#: at most 500)
+TOKEN_EDGE_WEIGHT = 5000
+
+
+def split_out_tokens(model, tokens, edge: int = TOKEN_EDGE_WEIGHT):
+    """Make the segmenter split out the tag tokens, as a trained model
+    splits out the words its tag dictionary holds: each token's dictionary
+    weights become +``edge`` at its two edges and -``edge`` inside (a
+    token the dictionary lacks is added)."""
+    from vaporetto_tpu_torch.models.model import WordWeightRecord
+
+    def rec(w):
+        return WordWeightRecord(w, [edge] + [-edge] * (len(w) - 1) + [edge])
+
+    tok = dict.fromkeys(tokens)
+    known = {r.word for r in model.dict_model}
+    model.dict_model = [rec(r.word) if r.word in tok else r
+                        for r in model.dict_model] + [
+        rec(w) for w in tok if w not in known]
+
+
 def tagged_big_model(n_tokens: int = 3_000):
     """The 50k model with tag models for ``n_tokens`` of its dictionary
     words (seed 23, a seeded permutation of the sorted words; all 2-7
-    chars): 12 classes, 2 slots, inline weight rows, int16 token ids."""
+    chars), which it splits out (:func:`split_out_tokens`): 12 classes, 2
+    slots, inline weight rows, int16 token ids."""
     import numpy as np
 
     model = big_model()
@@ -255,6 +281,7 @@ def tagged_big_model(n_tokens: int = 3_000):
     rng = np.random.default_rng(23)
     tokens = [words[int(i)] for i in rng.permutation(len(words))[:n_tokens]]
     model.tag_models = tag_models(tokens, rng, word_pool())
+    split_out_tokens(model, tokens)
     return model, words, tokens
 
 
@@ -412,6 +439,32 @@ def geometry_batches(words, sep):
     }
 
 
+def token_lines(seed, tokens, n_short=10_000, n_long=10_000):
+    """Lines of tag tokens back to back, as :func:`token_batch` builds its
+    rows: ``n_short`` lines of at most 64 chars (the packed layout), then
+    ``n_long`` of 65-256 chars (unpacked (8192, 256) groups). Through the
+    tagged model, which splits its tag tokens out, nearly every span of
+    them is a token: text whose words the tag dictionary covers."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def line(n):
+        """Tokens back to back while they fit in n chars."""
+        parts, c = [], 0
+        for i in rng.integers(0, len(tokens), n):
+            w = tokens[int(i)]
+            if c + len(w) > n:
+                break
+            parts.append(w)
+            c += len(w)
+        return "".join(parts)
+
+    # a long line stops at most 6 chars (a token) short of its n
+    return ([line(int(rng.integers(0, 65))) for _ in range(n_short)]
+            + [line(int(rng.integers(71, 257))) for _ in range(n_long)])
+
+
 def stream_lines(seed, words):
     """50 001 mixed lines in runs, as a corpus arrives: 20 000 short lines
     (<= 64 chars: the packed layout), 20 000 lines of 65-256 chars
@@ -446,17 +499,13 @@ def stream_lines(seed, words):
 
 def build_all():
     """Build the host library (g++) and the kernels (nvcc) in parallel;
-    returns {name: seconds} and {kernel: its ptxas report lines}. A tree
-    without the tag kernel (``--timing-only`` in an earlier tree) builds
-    the boundary kernel only."""
+    returns {name: seconds} and {kernel: its ptxas report lines}."""
     from vaporetto_tpu_torch import native
     from vaporetto_tpu_torch.ops import boundary as bmod
+    from vaporetto_tpu_torch.ops import tags as tmod
 
-    builds = [("g++", native.build), ("boundary", bmod.build)]
-    if has_tags():
-        from vaporetto_tpu_torch.ops import tags as tmod
-
-        builds.append(("tags", tmod.build))
+    builds = [("g++", native.build), ("boundary", bmod.build),
+              ("tags", tmod.build)]
     secs, errors, paths = {}, [], {}
 
     def run(name, fn):
@@ -480,14 +529,6 @@ def build_all():
             ptxas[name] = [ln.strip() for ln in f if any(
                 k in ln for k in ("registers", "smem", "spill"))]
     return secs, ptxas
-
-
-def has_tags() -> bool:
-    """Whether the tree has the tag path (an earlier tree, timed with
-    ``--timing-only``, may not)."""
-    import importlib.util
-
-    return importlib.util.find_spec("vaporetto_tpu_torch.ops.tags") is not None
 
 
 def ptxas_summary(lines):
@@ -675,6 +716,42 @@ def compare_tags(pred, cps, cts, lengths, ws_types_list=((),), edges=None):
     return 0, n_tok
 
 
+def tag_work(tt, batch):
+    """What the tag pass over ``batch`` (:func:`tag_inputs`' tuple), with
+    wsconst off as it is timed, must move, and the tokens it finds: (least
+    bytes, tokens). It reads the gap score of each in-line gap, the
+    codepoint of each live position (the span gaps, the trie walks), the
+    lengths, and the match ids only at the positions the tokens found
+    probe (``e + rel`` for each probe table of that side, each position
+    once); with wsconst off it reads no char types. It writes every output
+    byte. The tables are not counted, as for the boundary kernel. The
+    tokens come from the plain version."""
+    import torch
+
+    from vaporetto_tpu_torch.ops.tags import serve_tags_plain
+
+    c16, t8, ln, sc, cm, tm = batch
+    out = serve_tags_plain(tt, c16, t8, ln, sc, cm, tm)
+    tid = (out[1].to(torch.int32) & 0x7F) - 1 if tt.packed_tc else \
+        out[1].to(torch.int32)
+    ends = tid >= 0
+    L = ends.shape[1]
+    probed_ids = 0
+    for side, m in ((0, cm), (1, tm)):
+        rels = {t.rel for t in tt.side_tabs(side) if t.rel < L}
+        if m is None or not rels:
+            continue
+        probed = torch.zeros_like(ends)
+        for rel in rels:
+            probed[:, rel:] |= ends[:, :L - rel]
+        probed_ids += int(probed.sum())
+    n = ln.long()
+    read = 2 * int(n.sum()) + 4 * int((n - 1).clamp(min=0).sum()) \
+        + 4 * probed_ids + 4 * len(n)
+    written = sum(o.numel() * o.element_size() for o in out)
+    return read + written, int(ends.sum())
+
+
 def cuda_ms(fn, inputs, iters, reps=5, hold=True):
     """Device ms per call: the median over ``reps`` runs of the mean over
     ``iters`` calls cycling through ``inputs`` (several batches, more than
@@ -837,12 +914,12 @@ def time_tags(pred, tokens, sep):
     """Phase 5 for the tag kernel: CUDA-event times of the kernel (held
     stream) and its plain version at the serve shapes on the tagged model,
     over the boundary kernel's full epilogue of each batch, with each
-    shape's bound and the tokens its first batch holds. Before timing a
-    shape the kernel is held to plain on its first batch (wsconst none and
-    KANJI+DIGIT). Returns (shapes, max |difference|)."""
+    shape's bound (:func:`tag_work`, the mean over the timed batches) and
+    the tokens its batches hold. Before timing a shape the kernel is held
+    to plain on its first batch (wsconst none and KANJI+DIGIT). Returns
+    (shapes, max |difference|)."""
     from vaporetto_tpu_torch.ops.tags import (occupancy, serve_tags_plain,
-                                              tag_output_dtype, tags,
-                                              threads_per_block)
+                                              tags, threads_per_block)
 
     tt = pred._tag_tables()
     shapes, err = [], 0
@@ -862,24 +939,18 @@ def time_tags(pred, tokens, sep):
             else:
                 c, t, ln = random_batch(B, L, 400 + seed, tokens)
             if seed == 0:
-                e, n_tok = compare_tags(pred, c, t, ln, ((), KANJI_DIGIT),
-                                        edges)
-                err = max(err, e)
+                err = max(err, compare_tags(pred, c, t, ln,
+                                            ((), KANJI_DIGIT), edges)[0])
             batches.append(tag_inputs(pred, c, t, ln, edges))
         ms = cuda_ms(lambda *x: tags(tt, *x), batches, 50)
         plain_ms = cuda_ms(lambda *x: serve_tags_plain(tt, *x), batches[:2],
                            2, hold=False)
         live = sum(int(b[2].sum()) for b in batches) / len(batches)
-        n_match = (batches[0][4] is not None) + (batches[0][5] is not None)
-        W8 = -(-(L - 1) // 8)
-        # least bytes: each live position's gap score, codepoint, type and
-        # match ids read once, the lengths, and every output written once
-        out_per_pos = 2 if tt.packed_tc else (
-            tag_output_dtype(tt.n_tokens).itemsize + tt.S)
-        tag_bytes = live * (4 + 2 + 1 + 4 * n_match) + B * 4 + B * W8 \
-            + B * L * out_per_pos
+        work = [tag_work(tt, b) for b in batches]
+        tag_bytes = sum(w[0] for w in work) / len(work)
+        n_tok = sum(w[1] for w in work) / len(work)
         # least operations: one add and one compare per class of each
-        # token the first batch holds
+        # token found
         ops = 2 * tt.C * n_tok
         bytes_ms = tag_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
@@ -887,7 +958,7 @@ def time_tags(pred, tokens, sep):
                  "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                 "live_positions_mean": live, "tokens_first_batch": n_tok,
+                 "live_positions_mean": live, "tokens_mean": n_tok,
                  "threads_per_block": threads_per_block(L),
                  "occupancy": occupancy(L, tt.device)}
         shapes.append(shape)
@@ -895,8 +966,9 @@ def time_tags(pred, tokens, sep):
             f"{', tokens only' if dense else ''}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
             f"{shape['bound_ms']:.5f} ms ({tag_bytes:.0f} B at 3.35 TB/s; "
-            f"ops bound {ops_ms:.6f} ms); first batch equal to plain, "
-            f"{n_tok} tokens of {B * L} positions ({live:.0f} live); "
+            f"ops bound {ops_ms:.6f} ms); first batch equal to plain; "
+            f"mean {n_tok:.0f} tokens of {B * L} positions ({live:.0f} "
+            "live); "
             f"{shape['threads_per_block']} threads per block, occupancy "
             f"{shape['occupancy']:.3f}")
     return shapes, err
@@ -950,36 +1022,32 @@ def main(argv) -> int:
         f"tables on card {tabs.nbytes()} bytes")
     words = [w.word for w in model.dict_model]
     sep = pack_separator(pred.compiled)
-    tpred = None
-    if has_tags():
-        t0 = time.perf_counter()
-        tmodel, _, tokens = tagged_big_model()
-        gen_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tpred = Predictor(tmodel, True)
-        tt = tpred._tag_tables()
-        ttabs = tpred._tables()
-        torch.cuda.synchronize()
-        compile_s = time.perf_counter() - t0
-        tsep = pack_separator(tpred.compiled, tt.max_rel())
-        tm_ = tpred.compiled.type_matcher
-        log(f"[2] tagged model: generated {gen_s:.2f}s, compiled (tags, "
-            f"device tables, upload) {compile_s:.2f}s; n_tokens "
-            f"{tt.n_tokens}, C {tt.C}, S {tt.S}, max_tok_len "
-            f"{tt.max_tok_len}, probe tables {len(tt.tabs)} (char "
-            f"{len(tt.side_tabs(0))}, type {len(tt.side_tabs(1))}, "
-            f"{'inline weight rows' if tt.inline else 'w_rows'}), output "
-            f"{'uint16 word' if tt.packed_tc else 'tid + choice'}, "
-            f"rev trie slots {tt.rev_walk.shape[0]}; type trie "
-            f"{len(tm_.base)} slots, max_len {tm_.max_len}; packing "
-            f"separator {tsep}; tag tables on card {tt.nbytes()} bytes, "
-            f"boundary tables {ttabs.nbytes()} bytes")
+    t0 = time.perf_counter()
+    tmodel, _, tokens = tagged_big_model()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tpred = Predictor(tmodel, True)
+    tt = tpred._tag_tables()
+    ttabs = tpred._tables()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    tsep = pack_separator(tpred.compiled, tt.max_rel())
+    tm_ = tpred.compiled.type_matcher
+    log(f"[2] tagged model: generated {gen_s:.2f}s, compiled (tags, "
+        f"device tables, upload) {compile_s:.2f}s; n_tokens "
+        f"{tt.n_tokens}, C {tt.C}, S {tt.S}, max_tok_len "
+        f"{tt.max_tok_len}, probe tables {len(tt.tabs)} (char "
+        f"{len(tt.side_tabs(0))}, type {len(tt.side_tabs(1))}, "
+        f"{'inline weight rows' if tt.inline else 'w_rows'}), output "
+        f"{'uint16 word' if tt.packed_tc else 'tid + choice'}, "
+        f"rev trie slots {tt.rev_walk.shape[0]}; type trie "
+        f"{len(tm_.base)} slots, max_len {tm_.max_len}; packing "
+        f"separator {tsep}; tag tables on card {tt.nbytes()} bytes, "
+        f"boundary tables {ttabs.nbytes()} bytes")
     if timing_only:
         shapes, full, _ = time_kernel(pred, words, sep)
-        timing = {"serve_shapes": shapes, "full": full}
-        if tpred is not None:
-            timing["tags"] = time_tags(tpred, tokens, tsep)[0]
-        log(json.dumps({"timing": timing}))
+        log(json.dumps({"timing": {"serve_shapes": shapes, "full": full,
+                                   "tags": time_tags(tpred, tokens, tsep)[0]}}))
         return 0
     from vaporetto_tpu_torch import LeanServer, Sentence
     from vaporetto_tpu_torch.ops.boundary import (STAGE_BUDGET, boundary,
@@ -1104,6 +1172,11 @@ def main(argv) -> int:
         f"path {st['t_fallback_s']:.3f}; bytes equal to the general path")
 
     # ---- 4t. lean tag serving -----------------------------------------
+    # the same stream, then lines of tag tokens (the tagged model splits
+    # them out, so nearly every span there is a token that gets tags)
+    tlines = lines + token_lines(8, tokens)
+    tblob = ("\n".join(tlines) + "\n").encode("utf-8")
+    tn_chars = sum(map(len, tlines))
     tsink = io.BytesIO()
 
     def tfallback(raw):
@@ -1114,23 +1187,26 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     boundary.launches = tag_kernel.launches = 0
     t0 = time.perf_counter()
-    tserver.run(io.BytesIO(blob), tsink)
+    tserver.run(io.BytesIO(tblob), tsink)
     torch.cuda.synchronize()
     trun_s = time.perf_counter() - t0
     t_launches, tb_launches = tag_kernel.launches, boundary.launches
     tst = tserver.stats
     t0 = time.perf_counter()
-    twant = general_path(tpred, lines, tags=True)
+    twant = general_path(tpred, tlines, tags=True)
     tgen_s = time.perf_counter() - t0
     if tsink.getvalue() != twant:
         raise AssertionError("lean tag serving bytes differ from the general "
                              "path with tags")
+    n_tags = twant.count(b"/") - twant.count(b"\\/")
     if t_launches <= 0 or t_launches < tst["dispatches"] \
             or tb_launches < tst["dispatches"]:
         raise AssertionError(f"tag launches {t_launches}, boundary launches "
                              f"{tb_launches} < dispatches")
-    log(f"[4t] lean tag serving: {len(lines)} lines, {n_chars} chars in "
-        f"{trun_s:.3f}s = {n_chars / trun_s / 1e6:.2f} Mchar/s; dispatches "
+    log(f"[4t] lean tag serving: {len(tlines)} lines ([4]'s "
+        f"{len(lines)}, then {len(tlines) - len(lines)} of tag tokens), "
+        f"{tn_chars} chars in {trun_s:.3f}s = "
+        f"{tn_chars / trun_s / 1e6:.2f} Mchar/s; dispatches "
         f"{tst['dispatches']}, packed_dispatches {tst['packed_dispatches']}, "
         f"fallback_lines {tst['fallback_lines']}, tag kernel launches "
         f"{t_launches}, boundary kernel launches {tb_launches} (the general "
@@ -1138,8 +1214,9 @@ def main(argv) -> int:
         f"{tst['t_dispatch_s']:.3f}, wait+readback "
         f"{tst['t_readback_s']:.3f} ({tst['readback_bytes']} B), detok "
         f"{tst['t_detok_s']:.3f}, general path {tst['t_fallback_s']:.3f}; "
-        f"{len(twant)} bytes out, {twant.count(b'/')} '/', equal to the "
-        f"general path with tags ({tgen_s:.3f}s for all lines)")
+        f"{len(twant)} bytes out with {n_tags} tags (unescaped '/'), "
+        f"equal to the general path with tags ({tgen_s:.3f}s for all "
+        "lines)")
 
     # ---- 5. timing ----------------------------------------------------
     n_before = (boundary.launches, tag_kernel.launches)
@@ -1155,7 +1232,7 @@ def main(argv) -> int:
     boundary.launches, tag_kernel.launches = n_before
 
     # ---- 6. kernels ---------------------------------------------------
-    main_shape, tmain = shapes[0], tshapes[0]
+    main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
     log(json.dumps({"kernels": [{
         "name": "boundary",
         "route": "cuda",
@@ -1191,6 +1268,10 @@ def main(argv) -> int:
         "bound_by": tmain["bound_by"],
         "library_ms": None,
         "shape": tmain["shape"],
+        # rows of tag tokens only, every span a token
+        "tokens_only_ms": tdense["ms"],
+        "tokens_only_plain_ms": tdense["plain_ms"],
+        "tokens_only_bound_ms": tdense["bound_ms"],
         "occupancy": tmain["occupancy"],
         "ptxas": ptxas_summary(ptxas["tags"]),
         "serve_shapes": tshapes,

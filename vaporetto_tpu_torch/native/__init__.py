@@ -132,9 +132,6 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,  # tid
                 I8P, ctypes.c_int32,  # choice, n_slots
                 I64P, I32P, I32P, U8P, I64P, ctypes.c_int64,  # plan
-                U16P, I32P, ctypes.c_int32,  # cps16, gap_scores, Lm1
-                I32P, ctypes.c_int32,  # tag_scores, C
-                I64P, I32P, I32P, I32P, U8P, I64P, ctypes.c_int64,  # ts_*
                 U8P, ctypes.c_int64,  # out, out_cap
                 ctypes.c_int32,  # n_threads
             ]
@@ -689,8 +686,6 @@ def detok_tags2_native(
         plan.pool.ctypes.data_as(U8P),
         plan.pool_off.ctypes.data_as(I64P),
         plan.max_tag_bytes,
-        None, None, 0,  # no --scores block
-        None, 0, None, None, None, None, None, None, 0,  # no --tag-scores
         out.ctypes.data_as(U8P),
         cap,
         n_threads,

@@ -351,36 +351,6 @@ inline int bit_at(const uint8_t* brow, int64_t pos, int32_t W) {
   return (brow[pos % W] >> (pos / W)) & 1;
 }
 
-// append a codepoint (BMP) as UTF-8
-inline uint8_t* put_utf8(uint8_t* o, uint32_t c) {
-  if (c < 0x80) {
-    *o++ = static_cast<uint8_t>(c);
-  } else if (c < 0x800) {
-    *o++ = static_cast<uint8_t>(0xC0 | (c >> 6));
-    *o++ = static_cast<uint8_t>(0x80 | (c & 0x3F));
-  } else {
-    *o++ = static_cast<uint8_t>(0xE0 | (c >> 12));
-    *o++ = static_cast<uint8_t>(0x80 | ((c >> 6) & 0x3F));
-    *o++ = static_cast<uint8_t>(0x80 | (c & 0x3F));
-  }
-  return o;
-}
-
-inline uint8_t* put_int(uint8_t* o, int64_t v) {
-  if (v < 0) {
-    *o++ = '-';
-    v = -v;
-  }
-  uint8_t tmp[20];
-  int n = 0;
-  do {
-    tmp[n++] = static_cast<uint8_t>('0' + v % 10);
-    v /= 10;
-  } while (v);
-  while (n) *o++ = tmp[--n];
-  return o;
-}
-
 }  // namespace
 
 // Tag-aware detokenizer for the lean --predict-tags path: like
@@ -400,21 +370,10 @@ inline uint8_t* put_int(uint8_t* o, int64_t v) {
 //   pool: concatenated PRE-ESCAPED UTF-8 tag strings; pool_off has
 //     n_pool + 1 offsets.
 // Boundaries arrive as bit rows at per-line (row, col) placement (NULL =
-// line i at (i, 0)); counts are the per-line char counts. The optional
-// diagnostic blocks of the rich --predict-tags combinations (--scores,
-// --tag-scores) are emitted here too:
-//   * gap_scores != NULL: the --scores block (one "i:AB score" line per
-//     gap of the normalized line, then a blank line);
-//   * tag_scores != NULL: the --tag-scores block (one line per token:
-//     surface, then per slot a tab + either "cand:0" for single-
-//     candidate slots or "cand:score,..." over the class-concatenated
-//     score row; blank line after), plan arrays ts_*:
-//       ts_start[tid]..ts_start[tid+1]: one entry per slot (ALL slots);
-//       ts_base = UNESCAPED candidate pool index of the slot's first
-//       candidate; ts_cnt = candidate count; ts_koff = the slot's score
-//       column offset (prefix sum of counts over multi-candidate slots).
-// Empty lines (count 0) emit a bare line and no blocks (the general
-// path's from_raw("") error semantics).
+// line i at (i, 0)); counts are the per-line char counts. Empty lines
+// (count 0) emit a bare line (the general path's from_raw("") error
+// semantics). Returns the bytes written, or -1 when out_cap is below the
+// per-line bound 2 * bytes + chars + 1 + tokens * max_tag_bytes.
 int64_t vt_detok_tags2(
     const uint8_t* utf8, const int64_t* starts, const int64_t* ends,
     int64_t n_lines, const uint8_t* bits, int32_t bytes_per_row,
@@ -422,13 +381,7 @@ int64_t vt_detok_tags2(
     const void* tid, int32_t tid_kind, int64_t L, const int8_t* choice,
     int32_t n_slots, const int64_t* ent_start, const int32_t* ent_base,
     const int32_t* ent_ccol, const uint8_t* pool, const int64_t* pool_off,
-    int64_t max_tag_bytes, const uint16_t* cps16, const int32_t* gap_scores,
-    int32_t Lm1, const int32_t* tag_scores, int32_t C,
-    const int64_t* ts_start, const int32_t* ts_base, const int32_t* ts_cnt,
-    const int32_t* ts_koff, const uint8_t* ts_pool,
-    const int64_t* ts_pool_off, int64_t ts_max_bytes, uint8_t* out,
-    int64_t out_cap, int32_t n_threads) {
-  const int64_t per_gap = 30;
+    int64_t max_tag_bytes, uint8_t* out, int64_t out_cap, int32_t n_threads) {
   std::vector<int64_t> out_len(n_lines, 0);
   std::vector<int64_t> out_start(n_lines + 1, 0);
   for (int64_t line = 0; line < n_lines; ++line) {
@@ -439,11 +392,8 @@ int64_t vt_detok_tags2(
     const uint8_t* brow = bits + row * bytes_per_row;
     int64_t ntok = 1;
     for (int64_t g = 0; g + 1 < n; ++g) ntok += bit_at(brow, base + g, bytes_per_row);
-    int64_t cap = 2 * nbytes + n + 1 + ntok * max_tag_bytes;
-    if (gap_scores) cap += n * per_gap + 2;
-    if (tag_scores)  // surfaces print NORMALIZED codepoints (<= 3 B/char)
-      cap += 3 * n + ntok * (ts_max_bytes + 1) + 2;
-    out_start[line + 1] = out_start[line] + cap;
+    out_start[line + 1] = out_start[line] + 2 * nbytes + n + 1 +
+                          ntok * max_tag_bytes;
   }
   if (out_start[n_lines] > out_cap) return -1;
   auto tid_at = [&](int64_t row, int64_t col) -> int32_t {
@@ -502,59 +452,6 @@ int64_t vt_detok_tags2(
       }
       if (ci > 0) emit_tags(ci - 1);
       *o++ = '\n';
-      if (n > 0 && gap_scores) {
-        const uint16_t* cp = cps16 + row * L + base;
-        const int32_t* sc = gap_scores + row * Lm1 + base;
-        for (int32_t i = 0; i + 1 < n; ++i) {
-          o = put_int(o, i);
-          *o++ = ':';
-          o = put_utf8(o, cp[i]);
-          o = put_utf8(o, cp[i + 1]);
-          *o++ = ' ';
-          o = put_int(o, sc[i]);
-          *o++ = '\n';
-        }
-        *o++ = '\n';
-      }
-      if (n > 0 && tag_scores) {
-        const uint16_t* cp = cps16 + row * L + base;
-        int32_t st = 0;
-        for (int32_t e = 0; e < n; ++e) {
-          bool is_end = (e == n - 1) || bit_at(brow, base + e, bytes_per_row);
-          if (!is_end) continue;
-          for (int32_t i = st; i <= e; ++i) o = put_utf8(o, cp[i]);
-          int32_t t = tid_at(row, base + e);
-          if (t >= 0) {
-            const int32_t* srow = tag_scores + (row * L + base + e) * C;
-            for (int64_t ei = ts_start[t]; ei < ts_start[t + 1]; ++ei) {
-              *o++ = '\t';
-              int32_t cnt = ts_cnt[ei];
-              int64_t pb = ts_base[ei];
-              if (cnt == 1) {
-                int64_t plo = ts_pool_off[pb], phi = ts_pool_off[pb + 1];
-                std::memcpy(o, ts_pool + plo, phi - plo);
-                o += phi - plo;
-                *o++ = ':';
-                *o++ = '0';
-              } else {
-                int32_t k = ts_koff[ei];
-                for (int32_t j = 0; j < cnt; ++j) {
-                  if (j) *o++ = ',';
-                  int64_t plo = ts_pool_off[pb + j];
-                  int64_t phi = ts_pool_off[pb + j + 1];
-                  std::memcpy(o, ts_pool + plo, phi - plo);
-                  o += phi - plo;
-                  *o++ = ':';
-                  o = put_int(o, srow[k + j]);
-                }
-              }
-            }
-          }
-          *o++ = '\n';
-          st = e + 1;
-        }
-        *o++ = '\n';
-      }
       out_len[line] = o - o0;
     }
   };
