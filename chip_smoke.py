@@ -13,7 +13,9 @@ versions on the same inputs. Phases, each printed on its own line:
    build seconds (all three built in parallel, from the sources in the
    tree), each kernel's ptxas report;
 2. model: compile seconds and the table bytes on the card, for the 50k
-   model and the tagged 50k model (tokens, classes, slots, probe tables);
+   model and the tagged 50k model (tokens, classes, slots, probe tables;
+   the tag kernel's tables and the boundary tables beside the 50 MB L2,
+   and apart from them the plain version's own probe rows);
 3. kernel vs plain: full and serve epilogues on a seeded (8192, 256)
    batch, exact equality (tolerance 0: all values are int32), on (4, 20000)
    rows whose working set exceeds shared memory, on the launch geometry's
@@ -26,8 +28,11 @@ versions on the same inputs. Phases, each printed on its own line:
    the tagged model's type side is a trie), tolerance 0, at the three
    serve shapes with wsconst none and KANJI+DIGIT, on an edge batch (row
    lengths 0-2 and L), on rows of tokens only whose gap scores mark their
-   edges (every span a token), and on two small tagged models (the fused
-   uint16 word layout, and more than 32 classes: the w_rows route);
+   edges (every span a token), on rows of the shortest tokens back to
+   back at (4096, 512) and (8192, 128) (the most tokens a row holds), on
+   tokens whose probes end on keys at the end of long probe runs (their
+   match ids set to the keys' states), and on two small tagged models
+   (the fused uint16 word layout, and more than 32 classes);
 4. lean serving: ``LeanServer.run`` over 50 000+ seeded mixed lines, whose
    bytes must equal the port's general path; the kernel's launch count
    during the run must be > 0 and cover every dispatch;
@@ -45,7 +50,8 @@ versions on the same inputs. Phases, each printed on its own line:
    weight-chunk rows, in-line gaps); then the tag kernel at the same
    shapes on the tagged model, and at (8192, 256) on rows of tokens only,
    with its plain version's time, its byte bound (what the tokens found
-   make it read) and the tokens it finds;
+   make it read), the tokens it finds, the probe-table hits and probe
+   slots a token reads under the kernel's rule, and its launch geometry;
 6. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
@@ -391,17 +397,19 @@ def packed_batch(B, seed, words, sep, L=512, max_line=64):
     return _with_types(cps, keep, np.full(B, L))
 
 
-def token_batch(B, L, seed, tokens):
+def token_batch(B, L, seed, tokens, full=False):
     """Rows made of tag tokens back to back, to a seeded length in [L/2,
-    L]: (cps, cts, lengths, edges) with ``edges`` (B, L - 1) True at each
-    gap between two tokens. With gap scores positive exactly there, every
-    span is a token, as in text whose words the tag dictionary covers."""
+    L] (``full``: as far as tokens fit in L): (cps, cts, lengths, edges)
+    with ``edges`` (B, L - 1) True at each gap between two tokens. With
+    gap scores positive exactly there, every span is a token, as in text
+    whose words the tag dictionary covers."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     cps = np.zeros((B, L), dtype=np.int32)
     edges = np.zeros((B, L - 1), dtype=bool)
-    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lengths = (np.full(B, L, dtype=np.int32) if full else
+               rng.integers(L // 2, L + 1, B).astype(np.int32))
     for b in range(B):
         c = 0
         for i in rng.integers(0, len(tokens), L):
@@ -416,6 +424,78 @@ def token_batch(B, L, seed, tokens):
         edges[b, max(c - 1, 0):] = False  # no gap after the row's last token
     cps, cts, lengths = _with_types(cps, cps != 0, lengths)
     return cps, cts, lengths, edges
+
+
+def shortest_token_batch(B, L, seed, tokens):
+    """:func:`token_batch` rows of only the shortest tokens, each row as
+    full as they fit: the most tokens a row of width L can hold."""
+    n = min(map(len, tokens))
+    return token_batch(B, L, seed, [t for t in tokens if len(t) == n],
+                       full=True)
+
+
+def far_keys(pred, min_place=4):
+    """tid -> [(side, rel, state)] of the probe-table keys placed at least
+    ``min_place`` slots past their home slot (the end of a long probe
+    run), from the model's device tag tables (compile.tagdev)."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.compile.tagdev import _hash_slots
+
+    dt = pred.device_tag_tables()
+    out = {}
+    for side, tabs in ((0, dt.char_tabs), (1, dt.type_tabs)):
+        for t in tabs:
+            occ = np.flatnonzero(t.ver_tid != -2)
+            tid, st = t.ver_tid[occ], t.ver_state[occ]
+            place = (occ - _hash_slots(tid, st, t.shift)) & (
+                len(t.ver_tid) - 1)
+            for i in np.flatnonzero(place >= min_place):
+                out.setdefault(int(tid[i]), []).append(
+                    (side, int(t.rel), int(st[i])))
+    return out
+
+
+def far_key_batch(pred, B, L, seed, min_place=4):
+    """Rows of tokens back to back (gap scores at their edges, as
+    :func:`token_batch`), each token one that has a probe key at the end
+    of a long run (:func:`far_keys`), with the match id that key names
+    set ``rel`` chars past the token's end: (cps, cts, lengths, edges,
+    states), ``states`` [(side, row, position, match id)] for
+    :func:`tag_inputs` to write over the boundary kernel's match ids.
+    Those tokens' probes end on keys placed at least ``min_place`` slots
+    past their home."""
+    import numpy as np
+
+    far = far_keys(pred, min_place)
+    surface = {tid: tok for tok, tid in
+               pred.compiled.tag_meta.token_ids.items()}
+    tids = sorted(t for t in far if t in surface)
+    rng = np.random.default_rng(seed)
+    cps = np.zeros((B, L), dtype=np.int32)
+    edges = np.zeros((B, L - 1), dtype=bool)
+    lengths = np.zeros(B, dtype=np.int32)
+    states, taken = [], set()
+    for b in range(B):
+        c = 0
+        for i in rng.integers(0, len(tids), L):
+            tid = tids[int(i)]
+            w = surface[tid]
+            if c + len(w) > L:
+                break
+            cps[b, c:c + len(w)] = [ord(x) for x in w]
+            c += len(w)
+            if c < L:
+                edges[b, c - 1] = True
+            for side, rel, st in far[tid]:
+                pos = c - 1 + rel
+                if pos < L and (side, b, pos) not in taken:
+                    taken.add((side, b, pos))
+                    states.append((side, b, pos, st))
+        lengths[b] = c
+        edges[b, max(c - 1, 0):] = False
+    cps, cts, lengths = _with_types(cps, cps != 0, lengths)
+    return cps, cts, lengths, edges, states
 
 
 #: row lengths at the kernel's edges: empty, one char, one gap, a warp's
@@ -660,11 +740,13 @@ def general_path(pred, lines, batch=4096, tags=False):
     return ("\n".join(out) + "\n").encode("utf-8") if out else b""
 
 
-def tag_inputs(pred, cps, cts, lengths, edges=None):
+def tag_inputs(pred, cps, cts, lengths, edges=None, states=()):
     """The tag kernel's inputs on the card: uint16 codepoints, uint8 types,
     lengths, and the boundary kernel's full epilogue over them (scores,
     char and type match ids), that epilogue held to its plain version.
-    ``edges`` (B, L - 1): gap scores set to 1 there and -1 elsewhere."""
+    ``edges`` (B, L - 1): gap scores set to 1 there and -1 elsewhere;
+    ``states`` [(side, row, position, match id)]: match ids written over
+    the epilogue's (side 0 char, 1 type)."""
     import torch
 
     from vaporetto_tpu_torch.ops.boundary import (boundary,
@@ -684,29 +766,41 @@ def tag_inputs(pred, cps, cts, lengths, edges=None):
     if edges is not None:
         g = slice(tabs.pad_left, tabs.pad_left + cps.shape[1] - 1)
         full[0][:, g] = torch.from_numpy(edges).to(dev).to(torch.int32) * 2 - 1
+    for side in (0, 1):
+        at = [s[1:] for s in states if s[0] == side]
+        if at:
+            b, pos, st = (torch.tensor(x, device=dev) for x in zip(*at))
+            full[1 + side][b, pos] = st.to(torch.int32)
     return (c16, t8, ln) + tuple(full)
 
 
-def compare_tags(pred, cps, cts, lengths, ws_types_list=((),), edges=None):
+def compare_tags(pred, cps, cts, lengths, ws_types_list=((),), edges=None,
+                 states=()):
     """The tag kernel vs its plain version on the card, over the boundary
-    kernel's full epilogue (host types; in-kernel typing with the last
-    wsconst set; ``edges`` as :func:`tag_inputs` takes it). Returns (max
-    |difference| (must be 0), tokens found)."""
+    kernel's full epilogue (uint16 codepoints with uint8 host types for
+    each wsconst set; with the last set, in-kernel typing, and int32
+    codepoints with int32 types; ``edges`` and ``states`` as
+    :func:`tag_inputs` takes them). Returns (max |difference| (must be 0),
+    tokens found)."""
     import torch
 
     from vaporetto_tpu_torch.ops.tags import serve_tags_plain, tags
 
     tt = pred._tag_tables()
-    c16, t8, ln, sc, cm, tm = tag_inputs(pred, cps, cts, lengths, edges)
-    runs = [(ws, t8) for ws in ws_types_list] + [(ws_types_list[-1], None)]
+    c16, t8, ln, sc, cm, tm = tag_inputs(pred, cps, cts, lengths, edges,
+                                         states)
+    last = ws_types_list[-1]
+    runs = [(c16, ws, t8) for ws in ws_types_list] + [
+        (c16, last, None), (c16.to(torch.int32), last, t8.to(torch.int32))]
     n_tok = 0
-    for ws, ct_in in runs:
-        got = tags(tt, c16, ct_in, ln, sc, cm, tm, ws_types=ws)
-        want = serve_tags_plain(tt, c16, ct_in, ln, sc, cm, tm, ws)
+    for cp_in, ws, ct_in in runs:
+        got = tags(tt, cp_in, ct_in, ln, sc, cm, tm, ws_types=ws)
+        want = serve_tags_plain(tt, cp_in, ct_in, ln, sc, cm, tm, ws)
         for g, w in zip(got, want):
             if g.dtype != w.dtype or not torch.equal(g, w):
                 raise AssertionError(
                     f"tag kernel differs from plain (wsconst {ws}, "
+                    f"{cp_in.dtype} codepoints, "
                     f"{'host' if ct_in is not None else 'kernel'} types, "
                     f"{w.dtype})")
         tid = want[1].to(torch.int32) & 0x7F if tt.packed_tc else \
@@ -750,6 +844,55 @@ def tag_work(tt, batch):
         + 4 * probed_ids + 4 * len(n)
     written = sum(o.numel() * o.element_size() for o in out)
     return read + written, int(ends.sum())
+
+
+def tag_probe_work(pred, batch):
+    """What the tag kernel's probes read for ``batch`` (:func:`tag_inputs`'
+    tuple), wsconst off, counted in plain torch on the card from the plain
+    version's tokens and the model's probe tables (compile.tagdev):
+    tokens, probe-table hits, and probe slots read under the kernel's rule
+    (a probe stops at its key, at the first empty slot, or after probe_len
+    slots). Also the table bytes the kernel's layout reads for them: an
+    8-byte key per probe slot, a row index and a C-wide weight row per
+    hit, a bias row and a slot-offset row per token (a diagnostic, not a
+    bound: it leaves out the trie walk rows)."""
+    import numpy as np
+    import torch
+
+    from vaporetto_tpu_torch.ops.tags import serve_tags_plain
+
+    tt = pred._tag_tables()
+    dt = pred.device_tag_tables()
+    c16, t8, ln, sc, cm, tm = batch
+    out = serve_tags_plain(tt, c16, t8, ln, sc, cm, tm)
+    tid = (out[1].to(torch.int32) & 0x7F) - 1 if tt.packed_tc else \
+        out[1].to(torch.int32)
+    b, e = (tid >= 0).nonzero(as_tuple=True)
+    t = tid[b, e].long()
+    L = tid.shape[1]
+    hits = slots = 0
+    for tabs, m in ((dt.char_tabs, cm), (dt.type_tabs, tm)):
+        if m is None:
+            continue
+        for tab in tabs:
+            keys = torch.from_numpy(np.stack(
+                [tab.ver_tid, tab.ver_state], 1)).to(t.device).long()
+            pos = e + tab.rel
+            st = torch.where(pos < L, m[b, pos.clamp(max=L - 1)], -1).long()
+            home = ((t * 0x9E3779B1 + st * 0x85EBCA77) & 0xFFFFFFFF) \
+                >> tab.shift
+            live = torch.ones_like(t, dtype=torch.bool)
+            for p in range(tab.probe_len):
+                k = keys[(home + p) & (len(tab.ver_tid) - 1)]
+                slots += int(live.sum())
+                hit = live & (k[:, 0] == t) & (k[:, 1] == st)
+                hits += int(hit.sum())
+                live = live & ~hit & (k[:, 0] != -2)
+    n = len(t)
+    table_bytes = (8 * slots + (4 + 4 * tt.C) * hits
+                   + (4 * tt.C + 8 * tt.S) * n)
+    return {"tokens": n, "hits": hits, "probe slots": slots,
+            "table bytes read": table_bytes}
 
 
 def cuda_ms(fn, inputs, iters, reps=5, hold=True):
@@ -914,14 +1057,19 @@ def time_tags(pred, tokens, sep):
     """Phase 5 for the tag kernel: CUDA-event times of the kernel (held
     stream) and its plain version at the serve shapes on the tagged model,
     over the boundary kernel's full epilogue of each batch, with each
-    shape's bound (:func:`tag_work`, the mean over the timed batches) and
-    the tokens its batches hold. Before timing a shape the kernel is held
-    to plain on its first batch (wsconst none and KANJI+DIGIT). Returns
-    (shapes, max |difference|)."""
-    from vaporetto_tpu_torch.ops.tags import (occupancy, serve_tags_plain,
-                                              tags, threads_per_block)
+    shape's bound (:func:`tag_work`, the mean over the timed batches), the
+    tokens its batches hold, the hits and probe slots its first batch
+    makes the kernel read (:func:`tag_probe_work`), and the launch
+    geometry where the package reports one. Before timing a shape the
+    kernel is held to plain on its first batch (wsconst none and
+    KANJI+DIGIT). Returns (shapes, max |difference|). It reads only the
+    package's entry points, so it times an earlier tree's kernel too
+    (``--timing-only``)."""
+    from vaporetto_tpu_torch.ops import tags as tmod
+    from vaporetto_tpu_torch.ops.tags import serve_tags_plain, tags
 
     tt = pred._tag_tables()
+    geometry = getattr(tmod, "launch_geometry", None)
     shapes, err = [], 0
     # the serve shapes, then (B_FULL, L_FULL) rows of tokens only, every
     # span a token (token_batch)
@@ -954,23 +1102,36 @@ def time_tags(pred, tokens, sep):
         ops = 2 * tt.C * n_tok
         bytes_ms = tag_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
+        probe = tag_probe_work(pred, batches[0])
         shape = {"shape": [B, L], "packed": packed, "tokens_only": dense,
                  "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                  "live_positions_mean": live, "tokens_mean": n_tok,
-                 "threads_per_block": threads_per_block(L),
-                 "occupancy": occupancy(L, tt.device)}
+                 "probe_work": probe}
         shapes.append(shape)
-        log(f"[5] tags ({B}, {L}){' packed' if packed else ''}"
-            f"{', tokens only' if dense else ''}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{shape['bound_ms']:.5f} ms ({tag_bytes:.0f} B at 3.35 TB/s; "
-            f"ops bound {ops_ms:.6f} ms); first batch equal to plain; "
+        name = (f"({B}, {L}){' packed' if packed else ''}"
+                f"{', tokens only' if dense else ''}")
+        log(f"[5] tags {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {shape['bound_ms']:.5f} ms ({tag_bytes:.0f} B at 3.35 "
+            f"TB/s; ops bound {ops_ms:.6f} ms); first batch equal to plain; "
             f"mean {n_tok:.0f} tokens of {B * L} positions ({live:.0f} "
-            "live); "
-            f"{shape['threads_per_block']} threads per block, occupancy "
-            f"{shape['occupancy']:.3f}")
+            "live)")
+        n = max(probe["tokens"], 1)
+        log(f"[5] tags probe work {name}, first batch, under the kernel's "
+            f"rule: {probe['tokens']} tokens, {probe['hits'] / n:.3f} hits "
+            f"and {probe['probe slots'] / n:.3f} probe slots a token; "
+            f"table bytes read by the kernel's layout (not a bound) "
+            f"{probe['table bytes read']}")
+        if geometry is not None:
+            g = geometry(tt, B, L)
+            shape.update(warps_per_block=g.warps, blocks=g.blocks,
+                         blocks_per_sm=g.blocks_per_sm,
+                         occupancy=g.occupancy, smem=g.smem)
+            log(f"[5] tags geometry {name}: {g.warps} warps per block, "
+                f"{g.blocks} blocks, {g.blocks_per_sm} per SM, occupancy "
+                f"{g.occupancy:.3f} of {g.max_warps_per_sm} warps, {g.smem} "
+                f"B shared memory ({g.row_bytes} B a row)")
     return shapes, err
 
 
@@ -1042,8 +1203,14 @@ def main(argv) -> int:
         f"{'uint16 word' if tt.packed_tc else 'tid + choice'}, "
         f"rev trie slots {tt.rev_walk.shape[0]}; type trie "
         f"{len(tm_.base)} slots, max_len {tm_.max_len}; packing "
-        f"separator {tsep}; tag tables on card {tt.nbytes()} bytes, "
-        f"boundary tables {ttabs.nbytes()} bytes")
+        f"separator {tsep}")
+    # the kernel's tag tables, then the plain version's own probe rows
+    # (built on the card when it first runs), beside the L2
+    plain_nbytes = getattr(tt, "plain_nbytes", None)
+    log(f"[2] tagged model tables on card: tag kernel's {tt.nbytes()} B + "
+        f"boundary {ttabs.nbytes()} B = {tt.nbytes() + ttabs.nbytes()} B, "
+        f"against a 50 MB L2; the plain version's probe rows "
+        f"{plain_nbytes() if plain_nbytes else 'not separate'} B")
     if timing_only:
         shapes, full, _ = time_kernel(pred, words, sep)
         log(json.dumps({"timing": {"serve_shapes": shapes, "full": full,
@@ -1110,7 +1277,7 @@ def main(argv) -> int:
         log(f"[3] tagged 50k model ({B}, {L}){' packed' if packed else ''}: "
             f"full epilogue (type trie) and tag kernel equal to plain "
             f"(tolerance 0), wsconst none and KANJI+DIGIT, host and kernel "
-            f"types; {n_tok} tokens")
+            f"types, uint16 and int32 codepoints; {n_tok} tokens")
     c, t, ln = random_batch(67, 256, 23, tokens,
                             np.resize((0, 1, 2, 256), 67))
     tag_err = max(tag_err, compare_tags(tpred, c, t, ln,
@@ -1123,6 +1290,24 @@ def main(argv) -> int:
     log(f"[3] tagged 50k model, tokens only, gaps at their edges (1024, "
         f"256): tag kernel equal to plain; {n_tok} tokens of "
         f"{int(ln.sum())} chars")
+    # the most tokens a row holds: the token list's capacity
+    for B, L in ((4096, 512), (8192, 128)):
+        c, t, ln, edges = shortest_token_batch(B, L, 26, tokens)
+        e, n_tok = compare_tags(tpred, c, t, ln, ((), KANJI_DIGIT), edges)
+        tag_err = max(tag_err, e)
+        if n_tok != int(edges.sum()) + int((ln > 0).sum()):
+            raise AssertionError(f"shortest tokens ({B}, {L}): {n_tok} "
+                                 "tokens, not every span")
+        log(f"[3] tagged 50k model, rows of its shortest tokens back to back "
+            f"({B}, {L}): tag kernel equal to plain; {n_tok} tokens, "
+            f"{n_tok / B:.1f} a row")
+    c, t, ln, edges, states = far_key_batch(tpred, 1024, 256, 27)
+    e, n_tok = compare_tags(tpred, c, t, ln, ((), KANJI_DIGIT), edges,
+                            states)
+    tag_err = max(tag_err, e)
+    log(f"[3] tagged 50k model, tokens whose probes end on keys placed 4 or "
+        f"more slots past their home (1024, 256): tag kernel equal to "
+        f"plain; {n_tok} tokens, {len(states)} such match ids set")
     for name, (m, mtok), want_word in (
         ("<= 100 tokens, 12 classes", small_tagged_model(), True),
         ("39 classes", small_tagged_model(40, 8, (36, 3)), False),

@@ -119,7 +119,7 @@ TAG_CASES = {
     "word": lambda: (*chip_smoke.small_tagged_model(), torch.uint16),
     # 300 tokens: an int16 tid and the int8 choices
     "int16": lambda: (*chip_smoke.small_tagged_model(300, 6), torch.int16),
-    # 39 classes: (P, 3) probe rows and the w_rows indirection
+    # 39 classes: the plain version's (P, 3) probe rows
     "wide_class": lambda: (*chip_smoke.small_tagged_model(40, 8, (36, 3)),
                            torch.int8),
 }
@@ -139,13 +139,24 @@ def test_tag_kernel_matches_plain_on_card(case):
         err, n_tok = chip_smoke.compare_tags(pred, cps, cts, ln,
                                              ((), KANJI_DIGIT))
         assert err == 0 and n_tok > 0
-    # every span a token
-    c, t, l_, edges = chip_smoke.token_batch(67, 64, 25, tokens)
+    # every span a token; then the most tokens a row holds (the token
+    # list's capacity): the shortest tokens back to back at width 512
+    for c, t, l_, edges in (
+            chip_smoke.token_batch(67, 64, 25, tokens),
+            chip_smoke.shortest_token_batch(67, 512, 26, tokens)):
+        err, n_tok = chip_smoke.compare_tags(pred, c, t, l_,
+                                             ((), KANJI_DIGIT), edges)
+        assert err == 0 and n_tok == int(edges.sum()) + int((l_ > 0).sum())
+    assert n_tok == 67 * (512 // min(map(len, tokens)))
+    # probes that end on keys at the end of long runs (probe_len >= 5)
+    c, t, l_, edges, states = chip_smoke.far_key_batch(pred, 67, 64, 27)
+    assert states and max(x.probe_len for x in tt.tabs) >= 5
     err, n_tok = chip_smoke.compare_tags(pred, c, t, l_, ((), KANJI_DIGIT),
-                                         edges)
-    assert err == 0 and n_tok == int(edges.sum()) + int((l_ > 0).sum())
-    # per batch: host types with 2 wsconst sets, in-kernel types
-    assert tags.launches - before == 9
+                                         edges, states)
+    assert err == 0 and n_tok > 0
+    # per batch: host types with 2 wsconst sets, in-kernel types, int32
+    # codepoints and types
+    assert tags.launches - before == 20
     out = pred.serve_tags_fn(host_types=True)(
         *(torch.from_numpy(x) for x in (cps.astype(np.uint16),
                                         cts.astype(np.uint8), ln)))

@@ -27,9 +27,11 @@ from vaporetto_tpu.sentence import CharacterType
 from vaporetto_tpu.sentence import Sentence as JaxSentence
 from vaporetto_tpu_torch import LeanServer, Predictor, Sentence
 from vaporetto_tpu_torch.compile import compile_model
-from vaporetto_tpu_torch.compile.tagdev import build_device_tag_tables
+from vaporetto_tpu_torch.compile.tagdev import (_MAX_PROBE, _build_hash,
+                                                _hash_slots,
+                                                build_device_tag_tables)
 from vaporetto_tpu_torch.ops.boundary import boundary_scores_plain
-from vaporetto_tpu_torch.ops.tags import serve_tags_plain, tags
+from vaporetto_tpu_torch.ops.tags import GROUP, serve_tags_plain, tags
 from vaporetto_tpu_torch.rules import KyteaFullwidthFilter
 
 from test_scorers import create_test_model
@@ -42,6 +44,8 @@ from tag_bench import build_tagged_model  # noqa: E402
 
 HIRA = [chr(c) for c in range(0x3041, 0x3093)]
 KANJI_DIGIT = (int(CharacterType.KANJI), int(CharacterType.DIGIT))
+#: csrc/tags.cu WALKS: trie walks a lane advances together
+WALKS = 2
 
 
 def random_tagged_model(rng, n_tokens=15):
@@ -314,78 +318,123 @@ def test_nothing_past_a_rows_length(case):
                     ].any()
 
 
-def _kernel_mirror(tt, cps, cts, lengths, scores, cm, tm, ws_types):
-    """csrc/tags.cu's algorithm, position by position, on its own layouts
-    (flags, rev_walk, probe_flat, desc): (tid, choices) per position."""
+def _wrap32(x):
+    return ((int(x) + 2**31) % 2**32) - 2**31
+
+
+def _kernel_mirror(tt, cps, cts, lengths, scores, cm, tm, ws_types, rng):
+    """csrc/tags.cu's algorithm, row by row, on its own layouts: one pass
+    over 32-position windows builds the gap and span-gap bits as ballot
+    words and lists the span ends short enough to be tokens (a span's
+    length from the last span gap below it in its window's word, or from
+    the run since the windows before); then every listed span end is
+    walked (WALKS per lane, 32 lanes a round) and the token ends are
+    compacted in place, each id kept in its end's symbol slot; then the
+    tokens go in groups of GROUP: probes table by table in the 8-byte keys,
+    each stopping at its key, at the first empty slot or after probe_len
+    slots, the hits' weight rows read through the row array, and the bias
+    and hit rows added class by class in a random order (wrapping int32).
+    Returns (bits, tid, choices, probe slots read, hits)."""
     B, L = cps.shape
-    walk = tt.rev_walk.numpy()
-    h2 = tt.rev_hash2.numpy()
-    flat = tt.probe_flat.numpy()
-    desc = tt.desc.numpy()
-    bias, slot2 = tt.bias.numpy(), tt.slot2.numpy()
-    w_rows = None if tt.w_rows is None else tt.w_rows.numpy()
-    C, S = tt.C, tt.S
+    walk, h2 = tt.rev_walk.numpy(), tt.rev_hash2.numpy()
+    keys, rows, w_rows = tt.keys.numpy(), tt.rows.numpy(), tt.w_rows.numpy()
+    desc, bias, slot2 = tt.desc.numpy(), tt.bias.numpy(), tt.slot2.numpy()
+    C, S, max_k = tt.C, tt.S, tt.max_tok_len
+    mul = tt.rev_mul & 0xFFFFFFFF
+    NW = -(-L // 32)
+    W8 = -(-(L - 1) // 8) if L > 1 else 0
+    bits = np.zeros((B, W8), np.uint8)
     tid_out = np.full((B, L), -1, np.int64)
     ch_out = np.full((B, L, S), -1, np.int64)
+    n_slots = n_hits = 0
     for r in range(B):
         n = int(lengths[r])
-        flags = np.zeros(max(L - 1, 0), np.int64)
-        for g in range(max(n - 1, 0)):
-            gap = scores[r, tt.pad_left + g] > 0
-            if gap and cts[r, g] == cts[r, g + 1] and cts[r, g] in ws_types:
-                gap = False
-            sep = cps[r, g] == 0 or cps[r, g + 1] == 0
-            flags[g] = int(gap) | (int(gap or sep) << 1)
-        for e in range(n):
-            if e != n - 1 and not flags[e] >> 1:
-                continue
-            k = 1
-            while k <= tt.max_tok_len and e - k >= 0 \
-                    and not flags[e - k] >> 1:
-                k += 1
-            if k > tt.max_tok_len:
-                continue
-            node, base, tid = 0, tt.rev_root_base, -1
-            for j in range(k):
-                cp = int(cps[r, e - j])
-                h = ((cp * (tt.rev_mul & 0xFFFFFFFF)) & 0xFFFFFFFF) \
-                    >> tt.rev_shift
-                cand = base + (h2[h, 1] if h2[h, 0] == cp else 0)
-                row = walk[min(max(cand, 0), len(walk) - 1)]
-                if row[0] != node:
-                    tid = -1
-                    break
-                node, base, tid = int(cand), int(row[1]), int(row[2])
-            tid_out[r, e] = tid
-            if tid < 0:
-                continue
+        gapw, spanw = [0] * NW, [0] * NW
+        sym = np.zeros(L, np.int64)
+        cand, run = [], 0
+        for w in range(NW):
+            for t in range(32 * w, min(32 * w + 32, n)):
+                cp = int(cps[r, t])
+                h = ((cp * mul) & 0xFFFFFFFF) >> tt.rev_shift
+                sym[t] = h2[h, 1] if h2[h, 0] == cp else 0
+                if t + 1 < n:
+                    gap = bool(scores[r, tt.pad_left + t] > 0)
+                    if gap and cts[r, t] == cts[r, t + 1] \
+                            and cts[r, t] in ws_types:
+                        gap = False
+                    span = gap or cps[r, t] == 0 or cps[r, t + 1] == 0
+                    gapw[w] |= int(gap) << (t & 31)
+                    spanw[w] |= int(span) << (t & 31)
+            for t in range(32 * w, min(32 * w + 32, n)):
+                lane = t & 31
+                below = spanw[w] & ((1 << lane) - 1)
+                k = lane - (below.bit_length() - 1) if below \
+                    else lane + 1 + run
+                if ((spanw[w] >> lane) & 1 or t == n - 1) and k <= max_k:
+                    cand.append((t, k))
+            run = 32 - spanw[w].bit_length() if spanw[w] \
+                else min(run + 32, max_k + 1)
+        for i in range(W8):
+            bits[r, i] = sum(((gapw[g >> 5] >> (g & 31)) & 1) << j
+                             for j in range(8) if (g := j * W8 + i) < L - 1)
+        lst = [e for e, _ in cand]
+        n_tok = 0
+        for i0 in range(0, len(cand), 32 * WALKS):
+            found = {}
+            for e, k in cand[i0:i0 + 32 * WALKS]:  # the round's walks
+                node, base, tid = 0, tt.rev_root_base, -1
+                for j in range(k):
+                    c = base + int(sym[e - j])
+                    row = walk[min(max(c, 0), len(walk) - 1)]
+                    if row[0] != node:
+                        tid = -1
+                        break
+                    node, base, tid = c, int(row[1]), int(row[2])
+                found[e] = tid
+            for q in range(WALKS):  # in place: lane order, slot by slot
+                for e, _ in cand[i0 + 32 * q:i0 + 32 * q + 32]:
+                    if found[e] >= 0:
+                        lst[n_tok] = e
+                        sym[e] = found[e]
+                        n_tok += 1
+        for g0 in range(0, n_tok, GROUP):
+            toks = [(e, int(sym[e])) for e in lst[g0:min(g0 + GROUP, n_tok)]]
             hits = []
-            for side, rel, shift, probe, size, first, width, _ in \
-                    desc.tolist():
+            for side, rel, shift, plen, size, first, _, _ in desc.tolist():
                 m = tm if side else cm
                 if m is None:
                     continue
-                st = int(m[r, e + rel]) if e + rel < L else -1
-                slot0 = ((tid * 0x9E3779B1 + st * 0x85EBCA77)
-                         & 0xFFFFFFFF) >> shift
-                for p in range(probe):
-                    at = first + ((slot0 + p) & (size - 1)) * width
-                    if flat[at] == tid and flat[at + 1] == st:
-                        hits.append(w_rows[flat[at + 2]] if w_rows is not None
-                                    else flat[at + 2:at + 2 + C])
-                        break
-            sc = bias[tid].astype(np.int64) + sum(
-                (h.astype(np.int64) for h in hits), np.zeros(C, np.int64))
-            sc = ((sc + 2**31) % 2**32) - 2**31
-            for s in range(S):
-                o, cnt = slot2[tid, s], slot2[tid, S + s]
-                if cnt >= 2:
-                    best_c, best = 0, -2**31
-                    for c in range(max(o, 0), min(o + cnt, C)):
-                        if sc[c] > best:
-                            best, best_c = sc[c], c
-                    ch_out[r, e, s] = best_c - o
-    return tid_out, ch_out
+                for j, (e, tid) in enumerate(toks):
+                    st = int(m[r, e + rel]) if e + rel < L else -1
+                    slot0 = ((tid * 0x9E3779B1 + st * 0x85EBCA77)
+                             & 0xFFFFFFFF) >> shift
+                    for p in range(plen):
+                        at = first + ((slot0 + p) & (size - 1))
+                        n_slots += 1
+                        if keys[at, 0] == tid and keys[at, 1] == st:
+                            hits.append((j, int(rows[at])))
+                            break
+                        if keys[at, 0] == -2:  # empty: the key is absent
+                            break
+            n_hits += len(hits)
+            items = [(j, bias[tid]) for j, (_, tid) in enumerate(toks)] \
+                + [(j, w_rows[row]) for j, row in hits]
+            sc = np.zeros((len(toks), C), np.int64)
+            for i in rng.permutation(len(items) * C):
+                it, c = divmod(int(i), C)
+                j, vec = items[it]
+                sc[j, c] = _wrap32(sc[j, c] + int(vec[c]))
+            for j, (e, tid) in enumerate(toks):
+                tid_out[r, e] = tid
+                for s in range(S):
+                    o, cnt = slot2[tid, s], slot2[tid, S + s]
+                    if cnt >= 2:
+                        best_c, best = 0, -2**31
+                        for c in range(max(o, 0), min(o + cnt, C)):
+                            if sc[j, c] > best:
+                                best, best_c = sc[j, c], c
+                        ch_out[r, e, s] = best_c - o
+    return bits, tid_out, ch_out, n_slots, n_hits
 
 
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
@@ -403,10 +452,11 @@ def test_kernel_mirror_matches_plain(case, layout):
     c, t, ln = (torch.from_numpy(x) for x in (cps, cts, lengths))
     sc, cm, tm = boundary_scores_plain(tp._tables(), c, t, ln)
     out = tags(tt, c, t, ln, sc, cm, tm, ws_types=KANJI_DIGIT)
-    tid, ch = _kernel_mirror(tt, cps, cts, lengths, sc.numpy(),
-                             None if cm is None else cm.numpy(),
-                             None if tm is None else tm.numpy(),
-                             KANJI_DIGIT)
+    bits, tid, ch, n_slots, n_hits = _kernel_mirror(
+        tt, cps, cts, lengths, sc.numpy(),
+        None if cm is None else cm.numpy(),
+        None if tm is None else tm.numpy(), KANJI_DIGIT, rng)
+    np.testing.assert_array_equal(out[0].numpy(), bits)
     if tt.packed_tc:
         w = out[1].numpy().astype(np.int64)
         np.testing.assert_array_equal((w & 0x7F) - 1, tid)
@@ -416,6 +466,137 @@ def test_kernel_mirror_matches_plain(case, layout):
     else:
         np.testing.assert_array_equal(out[1].numpy(), tid)
         np.testing.assert_array_equal(out[2].numpy(), ch)
+    assert (tid >= 0).any() and n_slots > 0
+
+
+def test_kernel_mirror_fills_the_token_list():
+    """Rows of 1-char tokens back to back, every gap a boundary: every
+    position is a token end, so a row's span ends fill the candidate list
+    group after group (64 tokens a row, 2 groups)."""
+    model, tokens = build_tagged_model(n_tokens=100)
+    tp = Predictor(model, True, device="cpu")
+    tt = tp._tag_tables()
+    one = [w for w in tokens if len(w) == 1]
+    assert one
+    rng = np.random.default_rng(4)
+    B, L = 3, 64
+    cps = np.array([[ord(c) for c in rng.choice(one, L)] for _ in range(B)],
+                   dtype=np.int32)
+    cts = _types(cps)
+    lengths = np.full(B, L, dtype=np.int32)
+    c, t, ln = (torch.from_numpy(x) for x in (cps, cts, lengths))
+    sc, cm, tm = boundary_scores_plain(tp._tables(), c, t, ln)
+    sc[:, tt.pad_left:tt.pad_left + L - 1] = 1
+    out = tags(tt, c, t, ln, sc, cm, tm)
+    bits, tid, ch, _, _ = _kernel_mirror(
+        tt, cps, cts, lengths, sc.numpy(), cm.numpy(), tm.numpy(), (), rng)
+    assert (tid >= 0).all()
+    np.testing.assert_array_equal(out[0].numpy(), bits)
+    w = out[1].numpy().astype(np.int64)
+    np.testing.assert_array_equal((w & 0x7F) - 1, tid)
+
+
+# ----------------------------------------------------------------------
+# the probe invariant (compile/tagdev.py _build_hash) that lets a probe
+# stop at its first empty slot
+# ----------------------------------------------------------------------
+
+
+_M2_INV = pow(0x85EBCA77, -1, 2**32)
+
+
+def _state_for(tid, h):
+    """The state whose key with ``tid`` hashes to the 32-bit ``h``."""
+    st = ((h - tid * 0x9E3779B1) * _M2_INV) % 2**32
+    return st - 2**32 if st >= 2**31 else st
+
+
+def _probe(t, tid, st, stop_at_empty):
+    """(weight row or 0, slots read) of a (tid, state) lookup: the plain
+    version's rule (every slot of the run, first hit), or the kernel's
+    (stop at the key, at an empty slot, or after probe_len slots)."""
+    size = len(t.ver_tid)
+    home = int(_hash_slots(np.array([tid]), np.array([st]), t.shift)[0])
+    found, read = 0, 0
+    for p in range(t.probe_len):
+        s = (home + p) & (size - 1)
+        read += 1
+        if t.ver_tid[s] == tid and t.ver_state[s] == st:
+            found = found or int(t.row[s])
+            if stop_at_empty:
+                break
+        elif stop_at_empty and t.ver_tid[s] == -2:
+            break
+    return found, read
+
+
+def _check_probe_invariant(t, rng, n_absent=300):
+    size = len(t.ver_tid)
+    occ = np.flatnonzero(t.ver_tid != -2)
+    tid, st = t.ver_tid[occ], t.ver_state[occ]
+    home = _hash_slots(tid, st, t.shift)
+    place = (occ - home) & (size - 1)
+    assert len(occ) and (place < t.probe_len).all()
+    # every slot from a key's home to its place is occupied
+    for p in range(1, int(place.max()) + 1):
+        at = (home[place >= p] + p - 1) & (size - 1)
+        assert (t.ver_tid[at] != -2).all()
+    # present keys, and absent ones: some with a present key's tid and a
+    # random state, some hashing to a present key's home (their runs go
+    # through the longest runs)
+    far = occ[np.argsort(-place)][:n_absent]
+    queries = list(zip(tid.tolist(), st.tolist()))
+    for i in range(n_absent):
+        q_tid = int(tid[rng.integers(0, len(tid))])
+        queries.append((q_tid, int(rng.integers(-2**31, 2**31))))
+        s = int(far[i % len(far)])
+        h = (int(home[occ == s][0]) << t.shift) | int(
+            rng.integers(0, 1 << t.shift))
+        q_tid = int(rng.integers(0, 1 << 20))
+        queries.append((q_tid, _state_for(q_tid, h)))
+    saved = 0
+    for q_tid, q_st in queries:
+        want, full = _probe(t, q_tid, q_st, False)
+        got, read = _probe(t, q_tid, q_st, True)
+        assert got == want
+        saved += full - read
+    return saved
+
+
+def test_probe_invariant_on_model_tables(case):
+    """For every key of every table the case model's build makes, each
+    slot from its home to its place is occupied, so stopping a probe at
+    its first empty slot gives the full probe's answer."""
+    name, _, _, _, tp = case
+    dt = tp.device_tag_tables()
+    rng = np.random.default_rng(len(name))
+    tabs = dt.char_tabs + dt.type_tabs
+    saved = [_check_probe_invariant(t, rng) for t in tabs]
+    # the rule reads fewer slots wherever a run can be longer than one
+    assert sum(saved) > 0 or all(t.probe_len == 1 for t in tabs)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_probe_invariant_on_colliding_keys(seed):
+    """_build_hash fed clusters of 1-8 keys that share one 32-bit hash
+    (so one home at every table size) among random keys: the longest
+    cluster forces probe_len to _MAX_PROBE, and the invariant holds."""
+    rng = np.random.default_rng(seed)
+    n_rand = int(rng.integers(50, 400))
+    tids = list(rng.integers(0, 5000, n_rand))
+    states = list(rng.integers(-2**31, 2**31, n_rand))
+    for size in range(1, _MAX_PROBE + 1):
+        h = int(rng.integers(0, 2**32))
+        for tid in rng.choice(np.arange(5000, 9000), size, replace=False):
+            tids.append(int(tid))
+            states.append(_state_for(int(tid), h))
+    keys = dict.fromkeys(zip(map(int, tids), map(int, states)))
+    tids, states = np.array([k[0] for k in keys]), np.array(
+        [k[1] for k in keys])
+    t = _build_hash(tids, states, np.arange(1, len(tids) + 1))
+    assert t is not None and t.probe_len == _MAX_PROBE
+    assert _check_probe_invariant(t, rng) > 0
+
 
 
 # ----------------------------------------------------------------------

@@ -17,11 +17,24 @@ char and type match ids):
    ``tid + choice`` word when ``n_tokens <= 126, S <= 2, max_cands <= 15``,
    else an int8/int16/int32 tid and an int8 ``(B, L, S)`` choice.
 
+What bounds the kernel on an H100 is the latency of dependent gathers
+(trie walk rows, then each probe run, the hit's row index and its weight
+row) and the table records that miss the L2. So it works a warp per row in
+persistent blocks, takes a row's span ends as a token list, probes all of
+a group's (token, table) pairs together, stops each probe at the first
+empty slot, and reads narrow probe records that fit the L2. The source's
+header comment gives the design point by point.
+
 :func:`tag_tables` uploads ``compile.tagdev.build_device_tag_tables``'s
-arrays in the layouts both versions read (the JAX package's, so the plain
-version is its line-for-line counterpart, with each reversed-trie walk row
-padded to one int4 record) plus the kernel's: every probe table's rows in
-one buffer and one descriptor row per table.
+arrays in the kernel's layouts: the 8-byte ``(tid, state)`` key of every
+slot of every probe table in one array, each slot's weight row index in
+another, every weight row once in one ``(n_rows, C)`` array, one
+descriptor row per table, and each reversed-trie walk row padded to one
+int4 record. The plain version reads the JAX package's probe rows (the
+weights inline when ``C <= 32``, else ``(tid, state, row)`` beside the
+weight rows), which :meth:`TagTables.plain_rows` builds on the tables'
+device when the plain version first runs there. :func:`launch_geometry`
+chooses the warps per block from the shared memory a row needs.
 
 :func:`tags` is the one entry point. For tensors on the CPU it runs
 :func:`serve_tags_plain`; for CUDA tensors it launches the kernel or
@@ -32,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import threading
 from typing import List, Optional, Sequence
@@ -46,15 +60,25 @@ from .boundary import _char_types, _check, _nvcc, _ptr, _up, pack_gap_bits
 from .match import as_int32, build_walk_tab, hash_project_fused
 
 __all__ = ["TagTables", "tag_tables", "tags", "serve_tags_plain", "build",
-           "tag_output_dtype"]
+           "tag_output_dtype", "launch_geometry", "Geometry", "row_bytes"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "tags.cu")
 
-#: classes up to this width ride inline in the probe rows (JAX: C <= 32)
+#: classes up to this width ride inline in the plain version's probe rows
+#: (JAX: C <= 32)
 INLINE_MAX_C = 32
-#: the kernel keeps one matched weight row per probe table in registers
-MAX_TABLES = 32
+#: csrc/tags.cu GROUP: tokens whose probes and class scores go together
+GROUP = 32
+#: csrc/tags.cu DESC_W: int32 fields of a probe table descriptor
+DESC_W = 8
+#: csrc/tags.cu keeps a hit as ``row * GROUP + token`` in a uint32
+MAX_W_ROWS = (1 << 32) // GROUP
+#: a block's row working sets take at most this much shared memory; the
+#: rest of the SM's 256 KB is L1, which caches the gathered tables. On an
+#: H100, 256-wide rows ran fastest at 32 warps (158 KB) and 512-wide rows
+#: at about 20 warps (140 KB), not 32 (225 KB) (PERF.md section 6)
+SMEM_BUDGET = 160 * 1024
 
 
 @dataclasses.dataclass
@@ -65,8 +89,8 @@ class ProbeTable:
     rel: int
     shift: int
     probe_len: int
-    rows: torch.Tensor  # (P, 2 + C) inline or (P, 3) (tid, state, w row),
-    #                     a view of TagTables.probe_flat
+    first: int  # its first slot in TagTables.keys and TagTables.rows
+    size: int  # slots, a power of two
 
 
 @dataclasses.dataclass
@@ -91,23 +115,54 @@ class TagTables:
     bias: torch.Tensor  # (n_tokens, C) int32
     slot2: torch.Tensor  # (n_tokens, 2S) int32: offsets then counts
     tabs: List[ProbeTable]
-    w_rows: Optional[torch.Tensor]  # (n_rows, C) int32 unless inline
-    # the kernel's layouts
-    probe_flat: torch.Tensor  # every table's rows, concatenated
+    w_rows: torch.Tensor  # (n_rows, C) int32; row 0 all zero
+    # the kernel's probe layout
+    keys: torch.Tensor  # (slots, 2) int32 (tid, state) of every table's
+    #                     slots, tid -2 where empty
+    rows: torch.Tensor  # (slots,) int32 weight row of each slot
     desc: torch.Tensor  # (T, 8) int32 per table: side, rel, shift,
-    #                     probe_len, size, first int32, row width, 0
+    #                     probe_len, size, first slot, 0, 0
+    #: per stream: the kernel's (2,) uint32 row counter, zero between
+    #: launches (the kernel's last warp resets it)
+    sched: dict = dataclasses.field(default_factory=dict, repr=False)
+    _plain: Optional[List[torch.Tensor]] = dataclasses.field(
+        default=None, repr=False)
 
     @property
     def inline(self) -> bool:
-        return self.w_rows is None
+        """The plain version's probe rows carry the weights."""
+        return self.C <= INLINE_MAX_C
 
     def side_tabs(self, side: int) -> List[ProbeTable]:
         return [t for t in self.tabs if t.side == side]
 
+    def plain_rows(self) -> List[torch.Tensor]:
+        """Per table, the plain version's probe rows (the JAX package's
+        layout): (P, 2 + C) (tid, state, weights) when :attr:`inline`,
+        else (P, 3) (tid, state, weight row). Built from the kernel's
+        layout on the tables' device at first use."""
+        if self._plain is None:
+            out = []
+            for t in self.tabs:
+                keys = self.keys[t.first:t.first + t.size]
+                row = self.rows[t.first:t.first + t.size]
+                out.append(torch.cat([keys, self.w_rows[row.long()]
+                                      if self.inline else row[:, None]],
+                                     dim=1))
+            self._plain = out
+        return self._plain
+
     def nbytes(self) -> int:
-        ts = [self.rev_hash2, self.rev_walk, self.bias, self.slot2,
-              self.w_rows, self.probe_flat, self.desc]
-        return sum(t.nbytes for t in ts if t is not None)
+        """Bytes of the tables the kernel reads."""
+        return sum(t.nbytes for t in (
+            self.rev_hash2, self.rev_walk, self.bias, self.slot2,
+            self.w_rows, self.keys, self.rows, self.desc))
+
+    def plain_nbytes(self) -> int:
+        """Bytes of the plain version's own probe rows (:meth:`plain_rows`;
+        the rest it shares with the kernel), built or not."""
+        width = 2 + self.C if self.inline else 3
+        return 4 * width * sum(t.size for t in self.tabs)
 
     def max_rel(self) -> int:
         """The farthest match id (chars past a token's end) the pass
@@ -126,7 +181,7 @@ def tag_output_dtype(n_tokens: int) -> torch.dtype:
 
 def tag_tables(compiled, device, dt=None) -> TagTables:
     """Upload a tag-compiled model's device tag tables (the table build of
-    ``serve_tags_traced_fn:602-664``); ``dt``: its
+    ``serve_tags_traced_fn:602-664``) in the kernel's layouts; ``dt``: its
     ``build_device_tag_tables``, if built already. Raises when the model
     has none (no tag models, or a packing limit of that build)."""
     device = torch.empty(0, device=device).device
@@ -141,28 +196,26 @@ def tag_tables(compiled, device, dt=None) -> TagTables:
     walk, dead, root_base = build_walk_tab(dt.rev_base, dt.rev_check,
                                            dt.rev_value)
     w_rows = np.asarray(dt.w_rows)
-    inline = C <= INLINE_MAX_C
-    # every probe table's rows in one buffer (the kernel's), each table a
-    # view of its slice (the plain version's)
-    rows_np, desc, at = [], [], 0
+    if len(w_rows) > MAX_W_ROWS:
+        raise ValueError(f"{len(w_rows)} weight rows; the kernel takes at "
+                         f"most {MAX_W_ROWS}")
+    # every probe table's slots in one (tid, state) array and one row
+    # array, each table a slice
+    keys, rows, tabs, at = [], [], [], 0
     for side, side_tabs in ((0, dt.char_tabs), (1, dt.type_tabs)):
         for t in side_tabs:
-            head = np.stack([t.ver_tid, t.ver_state], axis=1)
-            rows = np.concatenate(
-                [head, w_rows[np.asarray(t.row)] if inline
-                 else np.asarray(t.row)[:, None]], axis=1).astype(np.int32)
-            rows_np.append((side, t, rows))
-            desc.append([side, t.rel, t.shift, t.probe_len, rows.shape[0],
-                         at, rows.shape[1], 0])
-            at += rows.size
-    if len(rows_np) > MAX_TABLES:
-        raise ValueError(f"{len(rows_np)} probe tables; the kernel takes at "
-                         f"most {MAX_TABLES}")
-    probe_flat = _up(np.concatenate([r.reshape(-1) for _, _, r in rows_np])
-                     if rows_np else np.zeros(1), device)
-    tabs = [ProbeTable(side, int(t.rel), int(t.shift), int(t.probe_len),
-                       probe_flat[d[5]:d[5] + rows.size].view(rows.shape))
-            for (side, t, rows), d in zip(rows_np, desc)]
+            size = len(t.ver_tid)
+            keys.append(np.stack([t.ver_tid, t.ver_state], axis=1))
+            rows.append(np.asarray(t.row))
+            tabs.append(ProbeTable(side, int(t.rel), int(t.shift),
+                                   int(t.probe_len), at, size))
+            at += size
+    if at >= 2 ** 31:
+        raise ValueError(f"{at} probe slots; the kernel takes fewer than "
+                         "2^31")
+    desc = np.zeros((len(tabs), DESC_W), dtype=np.int32)
+    for i, t in enumerate(tabs):
+        desc[i, :6] = (t.side, t.rel, t.shift, t.probe_len, t.size, t.first)
     return TagTables(
         device=device, pad_left=int(compiled.pad_left), n_tokens=dt.n_tokens,
         C=C, S=S, max_tok_len=int(dt.max_tok_len),
@@ -175,9 +228,10 @@ def tag_tables(compiled, device, dt=None) -> TagTables:
         bias=_up(dt.bias, device),
         slot2=_up(np.concatenate([dt.slot_off, dt.slot_cnt], axis=1),
                   device),
-        tabs=tabs, w_rows=None if inline else _up(w_rows, device),
-        probe_flat=probe_flat,
-        desc=_up(np.asarray(desc, dtype=np.int32).reshape(-1, 8), device),
+        tabs=tabs, w_rows=_up(w_rows, device),
+        keys=_up(np.concatenate(keys) if keys else np.zeros((1, 2)), device),
+        rows=_up(np.concatenate(rows) if rows else np.zeros(1), device),
+        desc=_up(desc, device),
     )
 
 
@@ -239,14 +293,16 @@ def _class_scores(tt: TagTables, tid, char_match, type_match):
     for side, match in ((0, char_match), (1, type_match)):
         if match is None:
             continue
-        for t in tt.side_tabs(side):
+        for t, rows in zip(tt.tabs, tt.plain_rows()):
+            if t.side != side:
+                continue
             st = match if t.rel == 0 else F.pad(
                 match[:, t.rel:], (0, t.rel), value=-1)
             # h = tid*M1 + st*M2 mod 2^32, then a logical shift
             h = (tid.to(torch.int64) * m1 + st.to(torch.int64) * m2) \
                 & 0xFFFFFFFF
             slot0 = h >> t.shift
-            size = t.rows.shape[0]
+            size = rows.shape[0]
             found = torch.zeros((B, L), dtype=torch.bool, device=tid.device)
             if tt.inline:
                 wvec = torch.zeros((B, L, tt.C), dtype=torch.int32,
@@ -255,7 +311,7 @@ def _class_scores(tt: TagTables, tid, char_match, type_match):
                 row = torch.zeros((B, L), dtype=torch.int32,
                                   device=tid.device)
             for p in range(t.probe_len):
-                g = t.rows[((slot0 + p) & (size - 1)).long()]
+                g = rows[((slot0 + p) & (size - 1)).long()]
                 hit = (~found) & (g[..., 0] == tid) & (g[..., 1] == st)
                 if tt.inline:
                     wvec = torch.where(hit[..., None], g[..., 2:], wvec)
@@ -313,16 +369,16 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p if p else ctypes.c_int64) for n, p in (
         ("cps", 1), ("cts", 1), ("lengths", 1),
-        ("L", 0), ("cps_u16", 0), ("cts_kind", 0),
+        ("B", 0), ("L", 0), ("cps_u16", 0), ("cts_kind", 0),
         ("scores", 1), ("S_pad", 0), ("pad_left", 0),
         ("char_match", 1), ("type_match", 1), ("ws_mask", 0),
         ("rev_hash2", 1), ("rev_mul", 0), ("rev_shift", 0),
         ("rev_walk", 1), ("rev_slots", 0), ("rev_root_base", 0),
         ("max_tok_len", 0),
         ("C", 0), ("S", 0), ("bias", 1), ("slot2", 1),
-        ("desc", 1), ("n_tabs", 0), ("probe", 1), ("w_rows", 1),
+        ("desc", 1), ("n_tabs", 0), ("keys", 1), ("rows", 1), ("w_rows", 1),
         ("bits", 1), ("W8", 0), ("out_kind", 0), ("tid_out", 1),
-        ("choice_out", 1),
+        ("choice_out", 1), ("row_bytes", 0), ("sched", 1),
     )]
 
 
@@ -345,35 +401,102 @@ def _load() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.vt_tags.restype = ctypes.c_int
-            lib.vt_tags.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_int64,
-                                    ctypes.c_void_p, ctypes.c_int]
-            lib.vt_tags_occupancy.restype = ctypes.c_int
-            lib.vt_tags_occupancy.argtypes = [
-                ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int)]
+            c_int = ctypes.c_int
+            lib.vt_tags.restype = c_int
+            lib.vt_tags.argtypes = [ctypes.POINTER(_Args), c_int, c_int,
+                                    ctypes.c_int64, ctypes.c_void_p, c_int]
+            lib.vt_tags_smem_limit.restype = c_int
+            lib.vt_tags_smem_limit.argtypes = [c_int]
+            lib.vt_tags_occupancy.restype = c_int
+            lib.vt_tags_occupancy.argtypes = [c_int, c_int, ctypes.c_int64,
+                                              c_int]
+            lib.vt_tags_max_threads.restype = c_int
+            lib.vt_tags_max_threads.argtypes = []
             _lib = lib
     return _lib
 
 
-def threads_per_block(L: int) -> int:
-    """A block per row; its threads take the row's positions round robin."""
-    return 128 if L <= 128 else 256
+@functools.lru_cache(maxsize=None)
+def _device_limits(device_index: int):
+    """(SM count, most warps an SM holds, most dynamic shared memory a
+    block may opt into, the kernel's most warps per block) on a device."""
+    lib = _load()
+    limit = lib.vt_tags_smem_limit(device_index)
+    if limit < 0:
+        raise RuntimeError(
+            f"cannot query shared memory of cuda:{device_index}")
+    props = torch.cuda.get_device_properties(device_index)
+    return (props.multi_processor_count,
+            props.max_threads_per_multi_processor // 32, limit,
+            lib.vt_tags_max_threads() // 32)
 
 
-def occupancy(L: int, device) -> float:
-    """The share of an SM's warp slots the kernel's blocks fill for rows
-    of width L on a CUDA ``device``."""
-    device = torch.device(device)
-    threads = threads_per_block(L)
-    blocks = ctypes.c_int()
-    rc = _load().vt_tags_occupancy(threads, max(L - 1, 1), device.index or 0,
-                                   ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"tag kernel occupancy query: CUDA error {rc}")
-    props = torch.cuda.get_device_properties(device)
-    return blocks.value * threads / props.max_threads_per_multi_processor
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def row_bytes(L: int, C: int, n_tabs: int) -> int:
+    """One row's working set in the kernel: its gap and span-gap words, its
+    symbols (then token ids) and its list of span ends (then token ends),
+    then a group's tokens (GROUP int2), hits (GROUP * n_tabs uint32) and
+    class scores (GROUP * C int32), each 16-byte aligned (csrc/tags.cu
+    ``row_at`` lays them out the same way)."""
+    return (_a16(8 * -(-L // 32)) + 2 * _a16(4 * L) + 8 * GROUP
+            + _a16(4 * GROUP * n_tabs) + _a16(4 * GROUP * C))
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How one launch lays a (B, L) batch on the card."""
+
+    warps: int  # warps per block; a warp works on one row at a time
+    blocks: int  # persistent blocks
+    blocks_per_sm: int  # resident at once (occupancy calculator)
+    max_warps_per_sm: int
+    smem: int  # dynamic shared memory per block, bytes
+    row_bytes: int
+
+    @property
+    def occupancy(self) -> float:
+        """Resident warps over the SM's maximum."""
+        return self.blocks_per_sm * self.warps / self.max_warps_per_sm
+
+
+def launch_geometry(tt: TagTables, B: int, L: int,
+                    cps_u16: bool = True) -> Geometry:
+    """The kernel's launch for a (B, L) batch on ``tt.device``: as many
+    warps a block as SMEM_BUDGET holds rows (at most the kernel's 32; one
+    at least, up to the block's whole shared memory), but no more than it
+    takes to spread the batch over every SM; blocks, as many as are
+    resident at once on the card, or fewer when the batch has fewer rows.
+    Raises when one row's working set exceeds a block's shared memory.
+    Cached per shape."""
+    return _geometry(tt.C, len(tt.tabs), B, L, bool(cps_u16),
+                     tt.device.index)
+
+
+@functools.lru_cache(maxsize=4096)
+def _geometry(C: int, n_tabs: int, B: int, L: int, cps_u16: bool,
+              device_index: int) -> Geometry:
+    n_sm, max_warps_per_sm, smem_limit, max_warps = _device_limits(
+        device_index)
+    rb = row_bytes(L, C, n_tabs)
+    head = _a16(4 * DESC_W * n_tabs)
+    if head + rb > smem_limit:
+        raise ValueError(f"tag kernel: a row of {L} chars needs {rb} B of "
+                         f"shared memory, a block has {smem_limit - head}")
+    fit = (min(smem_limit, SMEM_BUDGET) - head) // rb
+    warps = max(1, min(max_warps, -(-B // n_sm), fit))
+    smem = head + warps * rb
+    per_sm = _load().vt_tags_occupancy(int(cps_u16), 32 * warps, smem,
+                                       device_index)
+    if per_sm < 1:
+        raise RuntimeError(f"tag kernel cannot run {32 * warps} threads "
+                           f"with {smem} B of shared memory (code {per_sm})")
+    return Geometry(
+        warps=warps, blocks=min(-(-B // warps), n_sm * per_sm),
+        blocks_per_sm=per_sm, max_warps_per_sm=max_warps_per_sm, smem=smem,
+        row_bytes=rb)
 
 
 def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
@@ -427,11 +550,11 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
                           device=dev)
         choice = torch.empty((B, L, tt.S), dtype=torch.int8, device=dev)
         out = (bits, tid, choice)
-    if B == 0:
+    if B == 0 or L == 0:
         return out
     a = _Args()
     a.cps, a.lengths, a.cts = cps.data_ptr(), lengths.data_ptr(), _ptr(cts)
-    a.L, a.cps_u16 = L, int(cps.dtype == torch.uint16)
+    a.B, a.L, a.cps_u16 = B, L, int(cps.dtype == torch.uint16)
     a.cts_kind = 0 if cts is None else (1 if cts.dtype == torch.uint8 else 2)
     a.scores, a.S_pad, a.pad_left = scores.data_ptr(), S_pad, tt.pad_left
     a.char_match, a.type_match = _ptr(char_match), _ptr(type_match)
@@ -443,14 +566,21 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
     a.C, a.S = tt.C, tt.S
     a.bias, a.slot2 = tt.bias.data_ptr(), tt.slot2.data_ptr()
     a.desc, a.n_tabs = tt.desc.data_ptr(), len(tt.tabs)
-    a.probe, a.w_rows = tt.probe_flat.data_ptr(), _ptr(tt.w_rows)
+    a.keys, a.rows = tt.keys.data_ptr(), tt.rows.data_ptr()
+    a.w_rows = tt.w_rows.data_ptr()
     a.bits, a.W8 = bits.data_ptr(), W8
     a.out_kind = _OUT_KIND[tid.dtype]
     a.tid_out, a.choice_out = tid.data_ptr(), _ptr(choice)
-    threads = threads_per_block(L)
-    rc = _load().vt_tags(ctypes.byref(a), B, threads, max(L - 1, 1),
-                         torch.cuda.current_stream(dev).cuda_stream,
-                         dev.index)
+    g = launch_geometry(tt, B, L, bool(a.cps_u16))
+    a.row_bytes = g.row_bytes
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sched = tt.sched.get(stream)
+    if sched is None:
+        sched = tt.sched.setdefault(
+            stream, torch.zeros(2, dtype=torch.int32, device=dev))
+    a.sched = sched.data_ptr()
+    rc = _load().vt_tags(ctypes.byref(a), g.blocks, 32 * g.warps, g.smem,
+                         stream, dev.index)
     if rc != 0:
         raise RuntimeError(f"tag kernel launch failed: CUDA error {rc}")
     tags.launches += 1
