@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (vaporetto_tpu_torch).
 
-Drives the port's main paths — lean boundary serving and lean
-``--predict-tags`` serving, bytes in to tokenized (and tagged) bytes out —
-on one CUDA card, at the full size of the largest model the repo can build
+Drives the port's main paths — lean boundary serving, lean ``--scores``,
+lean ``--predict-tags`` serving and its rich combination with
+``--scores --tag-scores``, bytes in to tokenized (and tagged, scored)
+bytes out, and the predict and evaluate CLIs over them — on one CUDA card, at the full size of the largest model the repo can build
 from its own code (the synthetic 50k-word dictionary model, seed 17; for
 tags the same model with 3 000 KyTea-style tag models, seed 23), and holds
 the hand-written boundary and tag kernels against their plain torch
@@ -23,7 +24,8 @@ versions on the same inputs. Phases, each printed on its own line:
    not fill the last block or every SM; packed 512-wide rows with
    separators; a model whose hot tables exceed the staging budget), and
    on three small models (type trie, a 1000-char dictionary word, the
-   reference's golden sentence); then the tag kernel against its plain
+   reference's golden sentence), each epilogue also with its gap-score
+   output (every column); then the tag kernel against its plain
    version over the boundary kernel's full epilogue (itself held to plain:
    the tagged model's type side is a trie), tolerance 0, at the three
    serve shapes with wsconst none and KANJI+DIGIT, on an edge batch (row
@@ -32,7 +34,8 @@ versions on the same inputs. Phases, each printed on its own line:
    back at (4096, 512) and (8192, 128) (the most tokens a row holds), on
    tokens whose probes end on keys at the end of long probe runs (their
    match ids set to the keys' states), and on two small tagged models
-   (the fused uint16 word layout, and more than 32 classes);
+   (the fused uint16 word layout, and more than 32 classes), each run
+   also with its tag-score output (held to plain where a token ends);
 4. lean serving: ``LeanServer.run`` over 50 000+ seeded mixed lines, whose
    bytes must equal the port's general path; the kernel's launch count
    during the run must be > 0 and cover every dispatch;
@@ -41,6 +44,13 @@ versions on the same inputs. Phases, each printed on its own line:
    out: hundreds of thousands of tags), on the tagged model, whose bytes
    must equal the port's general path with tags; each dispatch is one
    boundary and one tag launch;
+4s. lean ``--scores``: ``LeanServer(scores=True).run`` over [4]'s stream,
+   whose bytes (each line's gap-score block after it) must equal the
+   port's general path with scores;
+4r. ``LeanServer(tags=True, scores=True, tag_scores=True).run`` over
+   [4t]'s stream, whose bytes must equal the general path with the three
+   flags (gap scores from the full epilogue's launch, class sums from the
+   tag kernel's);
 5. timing with CUDA events, kernel and plain version, at the three serve
    shapes ``LeanServer`` dispatches ((8192, 256) unpacked, (4096, 512)
    packed, (8192, 128)) and the full epilogue at (8192, 256), each shape's
@@ -52,7 +62,14 @@ versions on the same inputs. Phases, each printed on its own line:
    with its plain version's time, its byte bound (what the tokens found
    make it read), the tokens it finds, the probe-table hits and probe
    slots a token reads under the kernel's rule, and its launch geometry;
-6. a ``kernels`` JSON line.
+   each boundary shape also with the gap-score output, each tag shape with
+   the tag-score output, beside their plain times and bounds;
+6. the CLIs (:func:`cli_phase`): ``predict --input --output`` on model
+   files written under ``build/chip_smoke``, plain over [4]'s lines and
+   with ``--predict-tags --scores --tag-scores`` over [4t]'s, bytes equal
+   to [4] and [4r]; ``evaluate`` on 3000 lines of [4]'s output as gold;
+   one ``--profile`` run and the kernel launches its trace shows;
+7. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
@@ -61,15 +78,15 @@ printing any result.
 Usage: python3 chip_smoke.py [--timing-only]
 
 ``--timing-only`` runs phases 1, 2 and 5 and ends with a ``{"timing":
-...}`` line instead; it reads only the package's entry points, so a copy
-of this script placed in an earlier tree that has both kernels times
-that tree's kernels the same way (an A/B on one card).
+...}`` line instead. For an A/B on one card, run each tree's own script
+with ``--timing-only``: the no-score timings are the same in both.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -606,20 +623,52 @@ def build_all():
     ptxas = {}
     for name, _ in builds[1:]:
         with open(paths[name] + ".log") as f:
-            ptxas[name] = [ln.strip() for ln in f if any(
-                k in ln for k in ("registers", "smem", "spill"))]
+            ptxas[name] = ptxas_lines(f)
     return secs, ptxas
 
 
-def ptxas_summary(lines):
-    """Most registers and spill bytes over the kernel's instantiations."""
+def ptxas_lines(log):
+    """The ptxas report lines (registers, shared memory, stack and spills)
+    of a build log, each prefixed with its kernel instantiation's mangled
+    name."""
     import re
+
+    fn, out = "?", []
+    for ln in log:
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            fn = m.group(1)
+        if any(k in ln for k in ("registers", "smem", "spill", "stack")):
+            out.append(f"{fn}: {ln.strip()}")
+    return out
+
+
+def score_output(name: str) -> bool:
+    """Whether a kernel instantiation writes the score output: the last
+    template bool of boundary_kernel<CP, STAGED, SCRATCH, GAP> and of
+    tags_kernel<CP, TS>."""
+    import re
+
+    flags = re.findall(r"Lb([01])E", name)
+    return bool(flags) and flags[-1] == "1"
+
+
+def ptxas_summary(lines, scores=None):
+    """Most registers and spill and stack bytes over the kernel's
+    instantiations; ``scores`` True/False: over those with/without the
+    score output only."""
+    import re
+
+    lines = [ln for ln in lines if scores is None
+             or score_output(ln.split(":", 1)[0]) == scores]
 
     def most(pattern):
         return max((int(m) for ln in lines for m in re.findall(pattern, ln)),
                    default=0)
 
     return {"registers": most(r"Used (\d+) registers"),
+            "stack_bytes": most(r"(\d+) bytes stack frame"),
             "spill_store_bytes": most(r"(\d+) bytes spill stores"),
             "spill_load_bytes": most(r"(\d+) bytes spill loads")}
 
@@ -670,8 +719,10 @@ def kernel_work(tabs, cps, cts, lengths):
 
 
 def compare_kernel(tabs, cps, cts, lengths, ws_types_list=((),)):
-    """Kernel vs plain on the card, full and serve epilogues; returns the
-    max |difference| (must be 0)."""
+    """Kernel vs plain on the card, full and serve epilogues, each without
+    and with the gap-score output (every column of it); returns the max
+    |difference| (must be 0). Launches: 2 full, then 4 for each wsconst
+    set (host and in-kernel types, without and with gap scores)."""
     import torch
 
     from vaporetto_tpu_torch.ops.boundary import (boundary,
@@ -682,38 +733,55 @@ def compare_kernel(tabs, cps, cts, lengths, ws_types_list=((),)):
     c32 = torch.from_numpy(cps).to(dev)
     t32 = torch.from_numpy(cts).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
-    got = boundary(tabs, c32, t32, ln)
     want = boundary_scores_plain(tabs, c32, t32, ln)
-    torch.cuda.synchronize()
+    g0 = tabs.pad_left
+    want = want + (want[0][:, g0:g0 + cps.shape[1] - 1],)
+    runs = [boundary(tabs, c32, t32, ln),
+            boundary(tabs, c32, t32, ln, gap_scores=True)]
+    names = ("scores", "char_match", "type_match", "gap_scores")
     err = 0
-    for g, w, name in zip(got, want, ("scores", "char_match", "type_match")):
-        if (g is None) != (w is None):
-            raise AssertionError(f"{name}: presence differs")
-        if g is not None:
-            d = int((g.long() - w.long()).abs().max()) if g.numel() else 0
-            if d:
-                raise AssertionError(f"full epilogue {name} differs by {d}")
-            err = max(err, d)
+    for got in runs:
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, names):
+            if (g is None) != (w is None):
+                raise AssertionError(f"{name}: presence differs")
+            if g is not None:
+                d = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                if d:
+                    raise AssertionError(f"full epilogue {name} differs by "
+                                         f"{d} ({len(got)} outputs)")
+                err = max(err, d)
     c16 = torch.from_numpy(cps.astype("uint16")).to(dev)
     t8 = torch.from_numpy(cts.astype("uint8")).to(dev)
     for ws in ws_types_list:
         for ct_in in (t8, None):  # host types, and in-kernel typing
             gb = boundary(tabs, c16, ct_in, ln, serve=True, ws_types=ws)
-            wb = serve_bits_plain(tabs, c16, ct_in, ln, ws)
+            wb, wg = serve_bits_plain(tabs, c16, ct_in, ln, ws,
+                                      gap_scores=True)
             if not torch.equal(gb, wb):
                 raise AssertionError(f"serve bits differ (wsconst {ws})")
+            gb, gg = boundary(tabs, c16, ct_in, ln, serve=True, ws_types=ws,
+                              gap_scores=True)
+            if not torch.equal(gb, wb) or not torch.equal(gg, wg):
+                raise AssertionError(f"serve bits or gap scores differ with "
+                                     f"the gap-score output (wsconst {ws})")
     torch.cuda.synchronize()
     return err
 
 
-def general_path(pred, lines, batch=4096, tags=False):
+def general_path(pred, lines, batch=4096, tags=False, scores=False,
+                 tag_scores=False):
     """The reference CLI's per-line loop on the port (fullwidth filter ->
     Sentence -> predict on the card (with ``tags``, then the native tag
     scorer, ``predict_tags_batch``) -> boundaries (and tags) onto the
-    original text -> write_tokenized_text), as bytes."""
+    original text -> write_tokenized_text), as bytes; with ``scores`` and
+    ``tag_scores`` each line's blocks after it, as the predict CLI writes
+    them (``cli/predict.py _emit_outputs``)."""
     from vaporetto_tpu_torch.rules.string_filters import KyteaFullwidthFilter
     from vaporetto_tpu_torch.sentence import Sentence
 
+    if tag_scores:
+        pred.store_tag_scores(True)
     pre = KyteaFullwidthFilter()
     sents = []
     for line in lines:
@@ -736,7 +804,20 @@ def general_path(pred, lines, batch=4096, tags=False):
         if tags:
             orig.reset_tags(s.n_tags)
             orig.tags = list(s.tags)
-        out.append(orig.write_tokenized_text())
+        block = [orig.write_tokenized_text()]
+        if scores:
+            text = s.as_raw_text()
+            sc = s.boundary_scores_list()
+            block += [f"{i}:{text[i]}{text[i + 1]} {sc[i]}"
+                      for i in range(len(text) - 1)] + [""]
+        if tag_scores:
+            block += ["\t".join([t.surface()] + [
+                ",".join(f"{c}:{v}" for c, v in cands)
+                for cands in t.tag_candidates()]) for t in s.iter_tokens()]
+            block.append("")
+        out.append("\n".join(block))
+    if tag_scores:
+        pred.store_tag_scores(False)
     return ("\n".join(out) + "\n").encode("utf-8") if out else b""
 
 
@@ -780,8 +861,9 @@ def compare_tags(pred, cps, cts, lengths, ws_types_list=((),), edges=None,
     kernel's full epilogue (uint16 codepoints with uint8 host types for
     each wsconst set; with the last set, in-kernel typing, and int32
     codepoints with int32 types; ``edges`` and ``states`` as
-    :func:`tag_inputs` takes them). Returns (max |difference| (must be 0),
-    tokens found)."""
+    :func:`tag_inputs` takes them), each run without and with the
+    tag-score output (held to plain where a token ends). Returns (max
+    |difference| (must be 0), tokens found)."""
     import torch
 
     from vaporetto_tpu_torch.ops.tags import serve_tags_plain, tags
@@ -794,18 +876,27 @@ def compare_tags(pred, cps, cts, lengths, ws_types_list=((),), edges=None,
         (c16, last, None), (c16.to(torch.int32), last, t8.to(torch.int32))]
     n_tok = 0
     for cp_in, ws, ct_in in runs:
-        got = tags(tt, cp_in, ct_in, ln, sc, cm, tm, ws_types=ws)
-        want = serve_tags_plain(tt, cp_in, ct_in, ln, sc, cm, tm, ws)
-        for g, w in zip(got, want):
-            if g.dtype != w.dtype or not torch.equal(g, w):
+        want = serve_tags_plain(tt, cp_in, ct_in, ln, sc, cm, tm, ws,
+                                tag_scores=True)
+        tid = want[1].to(torch.int32) & 0x7F if tt.packed_tc else \
+            want[1].to(torch.int32) + 1
+        ends = tid > 0
+        for ts in (False, True):
+            got = tags(tt, cp_in, ct_in, ln, sc, cm, tm, ws_types=ws,
+                       tag_scores=ts)
+            n = len(got) - ts
+            same = len(got) == len(want) - (not ts) and all(
+                g.dtype == w.dtype and torch.equal(g, w)
+                for g, w in zip(got[:n], want[:n]))
+            if ts:
+                same = same and torch.equal(got[-1][ends], want[-1][ends])
+            if not same:
                 raise AssertionError(
                     f"tag kernel differs from plain (wsconst {ws}, "
                     f"{cp_in.dtype} codepoints, "
                     f"{'host' if ct_in is not None else 'kernel'} types, "
-                    f"{w.dtype})")
-        tid = want[1].to(torch.int32) & 0x7F if tt.packed_tc else \
-            want[1].to(torch.int32) + 1
-        n_tok = max(n_tok, int((tid > 0).sum()))
+                    f"{want[1].dtype}, tag scores {'on' if ts else 'off'})")
+        n_tok = max(n_tok, int(ends.sum()))
     torch.cuda.synchronize()
     return 0, n_tok
 
@@ -895,6 +986,122 @@ def tag_probe_work(pred, batch):
             "table bytes read": table_bytes}
 
 
+def kernel_counts():
+    """(boundary launches, tag launches) since the counts were last set."""
+    from vaporetto_tpu_torch.ops.boundary import boundary
+    from vaporetto_tpu_torch.ops.tags import tags
+
+    return boundary.launches, tags.launches
+
+
+def zero_counts() -> None:
+    from vaporetto_tpu_torch.ops.boundary import boundary
+    from vaporetto_tpu_torch.ops.tags import tags
+
+    boundary.launches = tags.launches = 0
+
+
+def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
+              n_gold=3000, n_profile=2000):
+    """Phase [6]: the predict and evaluate CLIs in this process, through
+    ``main(argv, device)``, on model files written under ``work``:
+
+    - ``predict --input --output`` over ``lines`` with ``model``, whose
+      bytes must equal ``want`` ([4]'s LeanServer output), and with
+      ``--predict-tags --scores --tag-scores`` over ``tlines`` with
+      ``tmodel``, equal to ``twant`` ([4r]'s);
+    - ``evaluate`` (char and word metrics) on the first ``n_gold`` lines
+      of ``want`` as the gold corpus: the system's own output, so every
+      metric must be 1.0;
+    - ``predict --profile`` over ``n_profile`` of ``tlines`` with tags: a
+      Chrome trace, and the launches of both kernels found in it.
+
+    Returns a dict of what each run found: the kernel launches counted
+    during each predict run (each run starts from 0), seconds, the metrics
+    printed, the trace's bytes and kernel events."""
+    import contextlib
+
+    from vaporetto_tpu_torch.cli import evaluate, predict
+
+    os.makedirs(work, exist_ok=True)
+    res = {}
+    paths = {}
+    for name, m in (("model", model), ("tagged model", tmodel)):
+        paths[name] = os.path.join(work, name.replace(" ", "_") + ".bin")
+        with open(paths[name], "wb") as f:
+            m.write(f)
+
+    def predict_run(name, argv, data):
+        src = os.path.join(work, f"{name}.in")
+        dst = os.path.join(work, f"{name}.out")
+        with open(src, "wb") as f:
+            f.write(data)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = predict.main(argv + ["--input", src, "--output", dst],
+                          device=device)
+        sync(device)
+        res[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": kernel_counts()}
+        if rc != 0:
+            raise AssertionError(f"predict ({name}) exited {rc}")
+        with open(dst, "rb") as f:
+            return f.read()
+
+    blob = ("\n".join(lines) + "\n").encode("utf-8")
+    if predict_run("plain", ["--model", paths["model"]], blob) != want:
+        raise AssertionError("predict CLI bytes differ from [4]")
+    tblob = ("\n".join(tlines) + "\n").encode("utf-8")
+    if predict_run("rich", ["--model", paths["tagged model"],
+                            "--predict-tags", "--scores", "--tag-scores"],
+                   tblob) != twant:
+        raise AssertionError("predict CLI bytes (tags, scores, tag scores) "
+                             "differ from [4r]")
+    gold = os.path.join(work, "gold.txt")
+    with open(gold, "wb") as f:
+        f.write(b"\n".join(want.split(b"\n")[:n_gold]) + b"\n")
+    res["evaluate"] = {}
+    for metric in ("char", "word"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = evaluate.main(["--model", paths["model"], "--input", gold,
+                                "--metric", metric], device=device)
+        if rc != 0:
+            raise AssertionError(f"evaluate exited {rc}")
+        printed = dict(ln.split(": ", 1) for ln in buf.getvalue().splitlines()
+                       if ln.startswith(("Precision", "Recall", "F1")))
+        if any(float(v) != 1.0 for v in printed.values()) or len(printed) != 3:
+            raise AssertionError(f"evaluate {metric} on the system's own "
+                                 f"output: {buf.getvalue()!r}")
+        res["evaluate"][metric] = dict(printed,
+                                       seconds=time.perf_counter() - t0)
+    trace_dir = os.path.join(work, "trace")
+    pblob = ("\n".join(tlines[-n_profile:]) + "\n").encode("utf-8")
+    predict_run("profile", ["--model", paths["tagged model"],
+                            "--predict-tags", "--profile", trace_dir], pblob)
+    from vaporetto_tpu_torch.utils.observe import TRACE_FILE
+
+    path = os.path.join(trace_dir, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    found = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                    and k in e.get("name", ""))
+             for k in ("boundary_kernel", "tags_kernel")}
+    res["trace"] = {"bytes": os.path.getsize(path), "events": len(events),
+                    "kernel events": sum(1 for e in events
+                                         if e.get("cat") == "kernel"),
+                    **found}
+    return res
+
+
+def sync(device=None) -> None:
+    import torch
+
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def cuda_ms(fn, inputs, iters, reps=5, hold=True):
     """Device ms per call: the median over ``reps`` runs of the mean over
     ``iters`` calls cycling through ``inputs`` (several batches, more than
@@ -951,9 +1158,7 @@ def time_kernel(pred, words, sep):
     what the first batch makes the kernel do. Before timing a shape, the
     kernel is held to the plain version on its first batch (both
     epilogues, host and in-kernel types, wsconst none and KANJI+DIGIT).
-    Returns (shapes, full, max |difference|). It reads only the package's
-    entry points, so it times an earlier tree's kernel too
-    (``--timing-only``)."""
+    Returns (shapes, full, max |difference|)."""
     import torch
 
     from vaporetto_tpu_torch.ops import boundary as bmod
@@ -988,6 +1193,11 @@ def time_kernel(pred, words, sep):
         serve_plain_ms = cuda_ms(
             lambda c, t, ln: serve_bits_plain(tabs, c, t, ln), serve_in[:2],
             4, hold=False)
+        # the --scores launch: gap scores beside the bits
+        gap_ms = cuda_ms(lambda c, t, ln: boundary(
+            tabs, c, t, ln, serve=True, gap_scores=True), serve_in, 50)
+        gap_plain_ms = cuda_ms(lambda c, t, ln: serve_bits_plain(
+            tabs, c, t, ln, gap_scores=True), serve_in[:2], 4, hold=False)
         work = kernel_work(tabs, *full_in[0])
         W8 = -(-(L - 1) // 8)
         # least bytes: each input the function needs read once, each output
@@ -1011,6 +1221,14 @@ def time_kernel(pred, words, sep):
             "live_positions_mean": live, "work": work,
         }
         shapes.append(shape)
+        # and 4 B of gap score for each of the B * (L - 1) gaps out
+        gap_bytes = serve_bytes + 4 * B * (L - 1)
+        shape.update(gap_ms=gap_ms, gap_plain_ms=gap_plain_ms,
+                     gap_bound_ms=max(gap_bytes / HBM_BYTES_PER_S * 1e3,
+                                      ops_ms))
+        gap_line = (f"; with gap scores: kernel {gap_ms:.4f} ms, plain "
+                    f"{gap_plain_ms:.3f} ms, bound "
+                    f"{shape['gap_bound_ms']:.5f} ms ({gap_bytes:.0f} B)")
         if geometry is not None:
             g = geometry(tabs, B, L)
             shape.update(warps_per_block=g.warps, blocks=g.blocks,
@@ -1029,7 +1247,7 @@ def time_kernel(pred, words, sep):
             log(f"[5] timing ({B}, {L}){' packed' if packed else ''}: serve "
                 f"kernel {serve_ms:.4f} ms, plain {serve_plain_ms:.3f} ms, "
                 f"bound {shape['bound_ms']:.5f} ms ({serve_bytes:.0f} B at "
-                f"3.35 TB/s; ops bound {ops_ms:.5f} ms, {ops} ops)")
+                f"3.35 TB/s; ops bound {ops_ms:.5f} ms, {ops} ops){gap_line}")
             continue
         S = tabs.pad_left + L - 1 + tabs.pad_right
         n_match = (tabs.char is not None) + (tabs.type_trie is not None)
@@ -1044,12 +1262,21 @@ def time_kernel(pred, words, sep):
                 full_in[:2], 4, hold=False),
             "bound_ms": max(full_bytes / HBM_BYTES_PER_S * 1e3, ops_ms),
         }
+        # the rich combinations' launch
+        full_gap_bytes = full_bytes + 4 * B * (L - 1)
+        full.update(
+            gap_ms=cuda_ms(lambda c, t, ln: boundary(
+                tabs, c, t, ln, gap_scores=True), full_in, 50),
+            gap_bound_ms=max(full_gap_bytes / HBM_BYTES_PER_S * 1e3, ops_ms))
+        full_line = (f"; full with gap scores {full['gap_ms']:.4f} ms, "
+                     f"bound {full['gap_bound_ms']:.5f} ms "
+                     f"({full_gap_bytes:.0f} B)")
         log(f"[5] timing ({B}, {L}): serve kernel {serve_ms:.4f} ms, plain "
             f"{serve_plain_ms:.3f} ms, bound {shape['bound_ms']:.5f} ms "
             f"({serve_bytes:.0f} B at 3.35 TB/s); full kernel "
             f"{full['ms']:.4f} ms, plain {full['plain_ms']:.3f} ms, bound "
             f"{full['bound_ms']:.5f} ms ({full_bytes:.0f} B); ops bound "
-            f"{ops_ms:.5f} ms ({ops} ops)")
+            f"{ops_ms:.5f} ms ({ops} ops){gap_line}{full_line}")
     return shapes, full, err
 
 
@@ -1062,9 +1289,7 @@ def time_tags(pred, tokens, sep):
     makes the kernel read (:func:`tag_probe_work`), and the launch
     geometry where the package reports one. Before timing a shape the
     kernel is held to plain on its first batch (wsconst none and
-    KANJI+DIGIT). Returns (shapes, max |difference|). It reads only the
-    package's entry points, so it times an earlier tree's kernel too
-    (``--timing-only``)."""
+    KANJI+DIGIT). Returns (shapes, max |difference|)."""
     from vaporetto_tpu_torch.ops import tags as tmod
     from vaporetto_tpu_torch.ops.tags import serve_tags_plain, tags
 
@@ -1093,6 +1318,10 @@ def time_tags(pred, tokens, sep):
         ms = cuda_ms(lambda *x: tags(tt, *x), batches, 50)
         plain_ms = cuda_ms(lambda *x: serve_tags_plain(tt, *x), batches[:2],
                            2, hold=False)
+        # the --tag-scores launch: the class sums at token ends
+        ts_ms = cuda_ms(lambda *x: tags(tt, *x, tag_scores=True), batches, 50)
+        ts_plain_ms = cuda_ms(lambda *x: serve_tags_plain(
+            tt, *x, tag_scores=True), batches[:2], 2, hold=False)
         live = sum(int(b[2].sum()) for b in batches) / len(batches)
         work = [tag_work(tt, b) for b in batches]
         tag_bytes = sum(w[0] for w in work) / len(work)
@@ -1112,11 +1341,18 @@ def time_tags(pred, tokens, sep):
         shapes.append(shape)
         name = (f"({B}, {L}){' packed' if packed else ''}"
                 f"{', tokens only' if dense else ''}")
+        # and the C int32 class sums of each token end out
+        ts_bytes = tag_bytes + 4 * tt.C * n_tok
+        shape.update(ts_ms=ts_ms, ts_plain_ms=ts_plain_ms,
+                     ts_bound_ms=max(ts_bytes / HBM_BYTES_PER_S * 1e3, ops_ms))
+        ts_line = (f"; with tag scores: kernel {ts_ms:.4f} ms, plain "
+                   f"{ts_plain_ms:.3f} ms, bound "
+                   f"{shape['ts_bound_ms']:.5f} ms ({ts_bytes:.0f} B)")
         log(f"[5] tags {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {shape['bound_ms']:.5f} ms ({tag_bytes:.0f} B at 3.35 "
             f"TB/s; ops bound {ops_ms:.6f} ms); first batch equal to plain; "
             f"mean {n_tok:.0f} tokens of {B * L} positions ({live:.0f} "
-            "live)")
+            f"live){ts_line}")
         n = max(probe["tokens"], 1)
         log(f"[5] tags probe work {name}, first batch, under the kernel's "
             f"rule: {probe['tokens']} tokens, {probe['hits'] / n:.3f} hits "
@@ -1356,6 +1592,43 @@ def main(argv) -> int:
         f"({st['readback_bytes']} B), detok {st['t_detok_s']:.3f}, general "
         f"path {st['t_fallback_s']:.3f}; bytes equal to the general path")
 
+    # ---- 4s. lean --scores --------------------------------------------
+    ssink = io.BytesIO()
+
+    def sfallback(raw):
+        ssink.write(general_path(pred, [b.decode("utf-8") for b in raw],
+                                 scores=True))
+
+    sserver = LeanServer(pred, fallback=sfallback, scores=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    sserver.run(io.BytesIO(blob), ssink)
+    torch.cuda.synchronize()
+    srun_s = time.perf_counter() - t0
+    s_launches = boundary.launches
+    sst = sserver.stats
+    t0 = time.perf_counter()
+    swant = general_path(pred, lines, scores=True)
+    sgen_s = time.perf_counter() - t0
+    if ssink.getvalue() != swant:
+        raise AssertionError("lean --scores bytes differ from the general "
+                             "path with scores")
+    if s_launches <= 0 or s_launches < sst["dispatches"]:
+        raise AssertionError(f"--scores launches {s_launches} < dispatches")
+    log(f"[4s] lean --scores: [4]'s {len(lines)} lines, {n_chars} chars in "
+        f"{srun_s:.3f}s = {n_chars / srun_s / 1e6:.2f} Mchar/s; dispatches "
+        f"{sst['dispatches']}, packed_dispatches {sst['packed_dispatches']}, "
+        f"fallback_lines {sst['fallback_lines']}, boundary kernel launches "
+        f"{s_launches} (serve with gap scores; the general path's full "
+        f"launches included); host seconds: dispatch "
+        f"{sst['t_dispatch_s']:.3f}, wait+readback {sst['t_readback_s']:.3f} "
+        f"({sst['readback_bytes']} B, of them gap scores "
+        f"{sst['readback_gap_score_bytes']} B), detok {sst['t_detok_s']:.3f}"
+        f", general path {sst['t_fallback_s']:.3f}; {len(swant)} bytes out, "
+        f"equal to the general path with scores ({sgen_s:.3f}s for all "
+        "lines)")
+
     # ---- 4t. lean tag serving -----------------------------------------
     # the same stream, then lines of tag tokens (the tagged model splits
     # them out, so nearly every span there is a token that gets tags)
@@ -1403,6 +1676,50 @@ def main(argv) -> int:
         f"equal to the general path with tags ({tgen_s:.3f}s for all "
         "lines)")
 
+    # ---- 4r. lean tags with scores and tag scores ---------------------
+    # [4t]'s stream, through the rich combination of all three flags
+    rsink = io.BytesIO()
+
+    def rfallback(raw):
+        rsink.write(general_path(tpred, [b.decode("utf-8") for b in raw],
+                                 tags=True, scores=True, tag_scores=True))
+
+    rserver = LeanServer(tpred, fallback=rfallback, tags=True, scores=True,
+                         tag_scores=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rserver.run(io.BytesIO(tblob), rsink)
+    torch.cuda.synchronize()
+    rrun_s = time.perf_counter() - t0
+    rb_launches, rt_launches = kernel_counts()
+    rst = rserver.stats
+    t0 = time.perf_counter()
+    rwant = general_path(tpred, tlines, tags=True, scores=True,
+                         tag_scores=True)
+    rgen_s = time.perf_counter() - t0
+    if rsink.getvalue() != rwant:
+        raise AssertionError("lean tags + scores + tag scores bytes differ "
+                             "from the general path")
+    if rt_launches <= 0 or rt_launches < rst["dispatches"] \
+            or rb_launches < rst["dispatches"]:
+        raise AssertionError(f"rich launches: tags {rt_launches}, boundary "
+                             f"{rb_launches} < dispatches")
+    log(f"[4r] lean --predict-tags --scores --tag-scores: [4t]'s "
+        f"{len(tlines)} lines, {tn_chars} chars in {rrun_s:.3f}s = "
+        f"{tn_chars / rrun_s / 1e6:.2f} Mchar/s; dispatches "
+        f"{rst['dispatches']}, packed_dispatches {rst['packed_dispatches']}, "
+        f"fallback_lines {rst['fallback_lines']}, tag kernel launches "
+        f"{rt_launches} (with tag scores), boundary kernel launches "
+        f"{rb_launches} (full with gap scores; the general path's included); "
+        f"host seconds: dispatch {rst['t_dispatch_s']:.3f}, wait+readback "
+        f"{rst['t_readback_s']:.3f} ({rst['readback_bytes']} B, of them gap "
+        f"scores {rst['readback_gap_score_bytes']} B and tag scores "
+        f"{rst['readback_tag_score_bytes']} B), detok "
+        f"{rst['t_detok_s']:.3f}, general path {rst['t_fallback_s']:.3f}; "
+        f"{len(rwant)} bytes out, equal to the general path with the three "
+        f"flags ({rgen_s:.3f}s for all lines)")
+
     # ---- 5. timing ----------------------------------------------------
     n_before = (boundary.launches, tag_kernel.launches)
     log(f"[5] ptxas: " + ", ".join(f"{k} {ptxas_summary(v)}"
@@ -1412,11 +1729,42 @@ def main(argv) -> int:
     tshapes, timing_err = time_tags(tpred, tokens, tsep)
     tag_err = max(tag_err, timing_err)
     log(f"[5] launches per run of the stream: boundary {launches} ([4]), "
-        f"tags {t_launches} and boundary {tb_launches} ([4t])")
+        f"{s_launches} ([4s]); tags {t_launches} and boundary {tb_launches} "
+        f"([4t]); tags {rt_launches} and boundary {rb_launches} ([4r])")
     # timing launches are not the main paths'
     boundary.launches, tag_kernel.launches = n_before
 
-    # ---- 6. kernels ---------------------------------------------------
+    # ---- 6. the CLIs ---------------------------------------------------
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    t0 = time.perf_counter()
+    cli = cli_phase(work, model, lines, want_bytes, tmodel, tlines, rwant)
+    for name in ("plain", "rich", "profile"):
+        b_n, t_n = cli[name]["launches"]
+        if b_n <= 0 or (name != "plain" and t_n <= 0):
+            raise AssertionError(f"predict CLI ({name}): kernel launches "
+                                 f"{cli[name]['launches']}")
+    tr = cli["trace"]
+    log(f"[6] predict CLI (--input/--output, models written to {work}): "
+        f"[4]'s lines {cli['plain']['seconds']:.3f}s, boundary launches "
+        f"{cli['plain']['launches'][0]}, bytes equal to [4]; [4t]'s lines "
+        f"with --predict-tags --scores --tag-scores "
+        f"{cli['rich']['seconds']:.3f}s, launches boundary "
+        f"{cli['rich']['launches'][0]}, tags {cli['rich']['launches'][1]}, "
+        f"bytes equal to [4r]")
+    log("[6] evaluate CLI on 3000 lines of [4]'s output as gold: " + "; ".join(
+        f"{k}: " + ", ".join(f"{a} {b}" for a, b in v.items() if a != "seconds")
+        + f" ({v['seconds']:.3f}s)" for k, v in cli["evaluate"].items()))
+    log(f"[6] predict --predict-tags --profile on 2000 lines: "
+        f"{cli['profile']['seconds']:.3f}s, trace {tr['bytes']} B, "
+        f"{tr['events']} events, {tr['kernel events']} kernel events of "
+        f"which boundary_kernel {tr['boundary_kernel']}, tags_kernel "
+        f"{tr['tags_kernel']}; launches counted by the wrappers: boundary "
+        f"{cli['profile']['launches'][0]}, tags "
+        f"{cli['profile']['launches'][1]} ({time.perf_counter() - t0:.1f}s "
+        "for the phase)")
+
+    # ---- 7. kernels ---------------------------------------------------
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
     log(json.dumps({"kernels": [{
         "name": "boundary",
@@ -1437,6 +1785,19 @@ def main(argv) -> int:
         "full_bound_ms": full["bound_ms"],
         "occupancy": main_shape["occupancy"],
         "ptxas": ptxas_summary(ptxas["boundary"]),
+        # the gap-score output: --scores ([4s], serve epilogue) and the
+        # rich combinations ([4r], full epilogue)
+        "scores_launches": s_launches,
+        "rich_launches": rb_launches,
+        "cli_launches": cli["plain"]["launches"][0]
+        + cli["rich"]["launches"][0],
+        "gap_ms": main_shape["gap_ms"],
+        "gap_plain_ms": main_shape["gap_plain_ms"],
+        "gap_bound_ms": main_shape["gap_bound_ms"],
+        "full_gap_ms": full["gap_ms"],
+        "full_gap_bound_ms": full["gap_bound_ms"],
+        "ptxas_without_scores": ptxas_summary(ptxas["boundary"], False),
+        "ptxas_with_scores": ptxas_summary(ptxas["boundary"], True),
         "serve_shapes": shapes,
     }, {
         "name": "tags",
@@ -1459,6 +1820,15 @@ def main(argv) -> int:
         "tokens_only_bound_ms": tdense["bound_ms"],
         "occupancy": tmain["occupancy"],
         "ptxas": ptxas_summary(ptxas["tags"]),
+        # the tag-score output ([4r])
+        "rich_launches": rt_launches,
+        "cli_launches": cli["rich"]["launches"][1],
+        "tag_scores_ms": tmain["ts_ms"],
+        "tag_scores_plain_ms": tmain["ts_plain_ms"],
+        "tag_scores_bound_ms": tmain["ts_bound_ms"],
+        "tokens_only_tag_scores_ms": tdense["ts_ms"],
+        "ptxas_without_scores": ptxas_summary(ptxas["tags"], False),
+        "ptxas_with_scores": ptxas_summary(ptxas["tags"], True),
         "serve_shapes": tshapes,
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,285 @@
+"""The port's predict and evaluate CLIs against the JAX package's.
+
+Both CLIs run in this process on the same model file (written to
+``tmp_path``) and the same input: the port's ``cli.predict.main(argv,
+device="cpu")`` (the kernels' plain versions) and the JAX package's
+``cli.predict.main(argv + ["--backend", "device"])`` on the CPU. Their
+output bytes must be equal for every single-process flag set of the
+device backend, the reference's line semantics included (CRLF, a lone CR,
+an unterminated last line, the abort point at invalid UTF-8). ``evaluate``
+must print what the JAX CLI prints. ``--profile`` writes a trace, and the
+flags the port does not serve yet exit with status 2.
+"""
+
+import io
+import json
+import sys
+
+import pytest
+
+from vaporetto_tpu.cli import evaluate as jax_evaluate
+from vaporetto_tpu.cli import predict as jax_predict
+from vaporetto_tpu_torch.cli import evaluate, predict
+
+from test_serving import CORPUS
+from test_torch_tags import MODELS as TAG_MODELS
+
+
+@pytest.fixture(scope="module", params=("golden", "bench100"))
+def model_case(request, tmp_path_factory):
+    """(model file path, the model's tag tokens)."""
+    model, tokens = TAG_MODELS[request.param]()
+    path = tmp_path_factory.mktemp("model") / "model.bin"
+    with open(path, "wb") as f:
+        model.write(f)
+    return str(path), tokens
+
+
+def _lines(tokens):
+    return CORPUS + [
+        "", "ア", "a b/c\\d", "ＡＢ１２" + "".join(tokens[:3]),
+        "猫だ\U0001F431猫だ", "".join(tokens[:10]), "",
+        "がぎ" + tokens[0], "ABC123オレンジ", " ".join(tokens[:4]),
+    ] + ["".join(tokens[i:i + 3]) for i in range(0, 60, 3)]
+
+
+def _run(main, argv, data: bytes, monkeypatch, **kw):
+    """``main(argv, **kw)`` with ``data`` on stdin; (return code, stdout
+    bytes)."""
+    out = io.BytesIO()
+    monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(
+        io.BytesIO(data), encoding="utf-8", newline="\n"))
+    monkeypatch.setattr(sys, "stdout", io.TextIOWrapper(out,
+                                                        encoding="utf-8"))
+    rc = main(argv, **kw)
+    sys.stdout.flush()
+    return rc, out.getvalue()
+
+
+def _both(argv, data, monkeypatch):
+    port = _run(predict.main, argv, data, monkeypatch, device="cpu")
+    jax = _run(jax_predict.main, argv + ["--backend", "device"], data,
+               monkeypatch)
+    return port, jax
+
+
+FLAG_SETS = {
+    "none": [],
+    "tags": ["--predict-tags"],
+    "scores": ["--scores"],
+    "tags+scores": ["--predict-tags", "--scores"],
+    "tags+tag_scores": ["--predict-tags", "--tag-scores"],
+    "all three": ["--predict-tags", "--scores", "--tag-scores"],
+    "wsconst D G": ["--wsconst", "D", "--wsconst", "G"],
+    "no-norm": ["--no-norm", "--predict-tags"],
+    "no-lean": ["--no-lean", "--predict-tags", "--scores", "--tag-scores"],
+}
+
+
+@pytest.mark.parametrize("flags", sorted(FLAG_SETS))
+def test_predict_bytes_equal_jax(model_case, flags, monkeypatch):
+    path, tokens = model_case
+    data = ("\n".join(_lines(tokens)) + "\n").encode()
+    (rc, got), (jrc, want) = _both(["--model", path, "--batch-size", "16"]
+                                   + FLAG_SETS[flags], data, monkeypatch)
+    assert rc == jrc == 0
+    assert got == want
+    assert got.count(b"\n") >= len(_lines(tokens))
+
+
+def test_predict_input_output_files(model_case, tmp_path, monkeypatch):
+    path, tokens = model_case
+    src = tmp_path / "in.txt"
+    src.write_bytes(("\n".join(_lines(tokens)) + "\n").encode())
+    outs = []
+    for main, extra, kw in ((predict.main, [], {"device": "cpu"}),
+                            (jax_predict.main, ["--backend", "device"], {})):
+        dst = tmp_path / f"out{len(outs)}.txt"
+        rc, stdout = _run(main, ["--model", path, "--predict-tags",
+                                 "--scores", "--input", str(src), "--output",
+                                 str(dst)] + extra, b"", monkeypatch, **kw)
+        assert rc == 0 and stdout == b""
+        outs.append(dst.read_bytes())
+    assert outs[0] == outs[1] and outs[0]
+
+
+@pytest.mark.parametrize("data", [
+    "まぁ社長は火星猫だ\r\nまぁ良いだろう\r\n",  # CRLF
+    "火星\r猫\n",  # a lone CR stays inside the line
+    "火星猫\nまぁ\r",  # an unterminated last line keeps its CR
+    "火星猫\n\n\r\nまぁ",
+], ids=["crlf", "lone-cr", "unterminated-cr", "blank-and-unterminated"])
+@pytest.mark.parametrize("lean", [True, False])
+def test_line_semantics(model_case, data, lean, monkeypatch):
+    """JAX tests/test_integration.py TestLineSemantics, both paths."""
+    path, _ = model_case
+    argv = ["--model", path] + ([] if lean else ["--no-lean"])
+    (rc, got), (jrc, want) = _both(argv, data.encode(), monkeypatch)
+    assert rc == jrc == 0 and got == want
+    if data == "火星\r猫\n":
+        assert got.count(b"\n") == 1 and b"\r" in got
+
+
+@pytest.mark.parametrize("flags", [[], ["--predict-tags", "--scores"]])
+def test_invalid_utf8_aborts_after_the_valid_prefix(model_case, flags,
+                                                    monkeypatch):
+    """The run stops at the first invalid line, as the reference's
+    ``line?`` does, after writing every line before it; both CLIs stop at
+    the same byte."""
+    path, tokens = model_case
+    data = ("\n".join(_lines(tokens)[:6]) + "\n").encode() + \
+        b"\xff\xfe bad\n" + "after\n".encode()
+    outs = []
+    for main, extra, kw in ((predict.main, [], {"device": "cpu"}),
+                            (jax_predict.main, ["--backend", "device"], {})):
+        out = io.BytesIO()
+        monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(
+            io.BytesIO(data), encoding="utf-8", newline="\n"))
+        monkeypatch.setattr(sys, "stdout", io.TextIOWrapper(
+            out, encoding="utf-8"))
+        with pytest.raises(UnicodeDecodeError):
+            main(["--model", path, "--batch-size", "4"] + flags + extra,
+                 **kw)
+        sys.stdout.flush()
+        outs.append(out.getvalue())
+    assert outs[0] == outs[1]
+    assert outs[0].count(b"\n") >= 6 and b"after" not in outs[0]
+
+
+@pytest.fixture(scope="module")
+def gold(model_case, tmp_path_factory):
+    """A gold corpus: the JAX general path's tagged output for the lines,
+    one token moved in every other line so that the metrics are not
+    perfect."""
+    from vaporetto_tpu.models.model import Model
+    from vaporetto_tpu.predictor import Predictor as JaxPredictor
+
+    from test_serving import general_path_tags
+
+    path, tokens = model_case
+    with open(path, "rb") as f:
+        jp = JaxPredictor(Model.read(f), True)
+    lines = [ln for ln in _lines(tokens) if ln and "\U0001F431" not in ln]
+    gold_lines = general_path_tags(jp, lines).decode().split("\n")[:-1]
+    for i in range(0, len(gold_lines), 2):
+        gold_lines[i] = gold_lines[i].replace(" ", "", 1)
+    p = tmp_path_factory.mktemp("gold") / "gold.txt"
+    p.write_text("\n".join(gold_lines) + "\n", encoding="utf-8")
+    return str(p)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--metric", "char"], ["--metric", "word"],
+    ["--metric", "word", "--predict-tags"],
+    ["--metric", "char", "--wsconst", "K", "--no-norm"],
+])
+def test_evaluate_prints_what_jax_prints(model_case, gold, flags,
+                                         monkeypatch):
+    path, _ = model_case
+    with open(gold, "rb") as f:
+        data = f.read()
+    argv = ["--model", path, "--batch-size", "8"] + flags
+    rc, got = _run(evaluate.main, argv, data, monkeypatch, device="cpu")
+    jrc, want = _run(jax_evaluate.main, argv + ["--backend", "device"], data,
+                     monkeypatch)
+    assert rc == jrc == 0
+    assert got == want and b"F1: " in got
+    # --input reads the same corpus
+    rc, got = _run(evaluate.main, argv + ["--input", gold], b"", monkeypatch,
+                   device="cpu")
+    assert rc == 0 and got == want
+
+
+def test_profile_writes_a_trace(model_case, tmp_path, monkeypatch):
+    path, tokens = model_case
+    data = ("\n".join(_lines(tokens)) + "\n").encode()
+    rc, got = _run(predict.main, ["--model", path, "--profile",
+                                  str(tmp_path / "tr")], data, monkeypatch,
+                   device="cpu")
+    assert rc == 0
+    assert got == _run(predict.main, ["--model", path], data, monkeypatch,
+                       device="cpu")[1]
+    with open(tmp_path / "tr" / "trace.json") as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]
+
+
+UNPORTED = [
+    (predict.main, ["--dp", "2"], "--dp"),
+    (predict.main, ["--num-processes", "2"], "--num-processes"),
+    (predict.main, ["--num-processes", "2", "--process-id", "0",
+                    "--coordinator", "localhost:1"], "--num-processes"),
+    (predict.main, ["--backend", "host"], "host engine"),
+    (evaluate.main, ["--num-processes", "4"], "--num-processes"),
+    (evaluate.main, ["--backend", "host"], "host engine"),
+]
+
+
+@pytest.mark.parametrize("main,argv,says", UNPORTED,
+                         ids=[f"{m.__module__.split('.')[-1]} {' '.join(a)}"
+                              for m, a, _ in UNPORTED])
+def test_unported_flags_exit_2(model_case, main, argv, says, monkeypatch,
+                               capsys):
+    path, _ = model_case
+    rc, out = _run(main, ["--model", path] + argv, "火星\n".encode(),
+                   monkeypatch, device="cpu")
+    assert rc == 2 and out == b""
+    assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("main", [predict.main, evaluate.main])
+def test_host_backend_from_the_environment_exits_2(model_case, main,
+                                                   monkeypatch, capsys):
+    path, _ = model_case
+    monkeypatch.setenv("VAPORETTO_TPU_BACKEND", "host")
+    rc, out = _run(main, ["--model", path], "火星\n".encode(), monkeypatch,
+                   device="cpu")
+    assert rc == 2 and out == b""
+    assert "host engine" in capsys.readouterr().err
+
+
+def test_chip_smoke_cli_phase_on_cpu(tmp_path):
+    """chip_smoke.py's phase [6] at a small size on the CPU: the CLIs'
+    bytes equal LeanServer's over the same lines (plain, and tags with
+    both score blocks), evaluate finds the system's own output perfect,
+    and --profile writes a trace."""
+    import numpy as np
+
+    import chip_smoke
+    from vaporetto_tpu_torch import LeanServer, Predictor
+
+    model = chip_smoke.big_model(1000, 200)
+    tmodel, tokens = chip_smoke.small_tagged_model()
+    pred = Predictor(model, device="cpu")
+    tpred = Predictor(tmodel, True, device="cpu")
+    rng = np.random.default_rng(3)
+    pool = chip_smoke.text_pool()
+    words = [w.word for w in model.dict_model]
+    lines = ["".join([chr(int(c)) for c in pool[rng.integers(
+        0, len(pool), int(rng.integers(0, 70)))]] + list(rng.choice(
+            words, 3))) for _ in range(120)] + ["猫\U0001F431"]
+    tlines = lines[:30] + chip_smoke.token_lines(4, tokens, 40, 20)
+
+    def serve(p, ls, **kw):
+        sink = io.BytesIO()
+
+        def fallback(raw):
+            sink.write(chip_smoke.general_path(
+                p, [b.decode() for b in raw], **kw))
+
+        LeanServer(p, fallback=fallback, batch_lines=64, **kw).run(
+            io.BytesIO(("\n".join(ls) + "\n").encode()), sink)
+        return sink.getvalue()
+
+    want = serve(pred, lines)
+    assert want == chip_smoke.general_path(pred, lines)
+    rich = dict(tags=True, scores=True, tag_scores=True)
+    twant = serve(tpred, tlines, **rich)
+    assert twant == chip_smoke.general_path(tpred, tlines, **rich)
+    res = chip_smoke.cli_phase(str(tmp_path / "work"), model, lines, want,
+                               tmodel, tlines, twant, device="cpu",
+                               n_gold=80, n_profile=20)
+    assert res["evaluate"]["char"]["F1"] == "1.0"
+    assert res["evaluate"]["word"]["F1"] == "1.0"
+    assert res["trace"]["bytes"] > 0 and res["trace"]["events"] > 0
+    assert res["plain"]["launches"] == (0, 0)  # plain versions on the CPU

@@ -4,6 +4,10 @@ A fresh interpreter imports ``vaporetto_tpu_torch``, predicts on the CPU
 and runs a CPU ``LeanServer`` stream, and afterwards neither JAX nor the
 JAX package is loaded. An AST scan of every module of the package and of
 ``chip_smoke.py`` finds no such import anywhere (lazy imports included).
+The CLIs run as programs in an interpreter where ``jax``, the JAX package
+and ``regex`` cannot be imported at all, as on the card's machine, which
+has no JAX: ``--help``, a whole CPU run of each, and ``--wsconst G``,
+which needs ``regex`` and fails with its ImportError.
 """
 
 import ast
@@ -88,3 +92,83 @@ def test_predictor_needs_cuda_unless_asked(monkeypatch):
         Predictor(Model([], [], [], 0, 3, 3), device="cuda")
     assert Predictor(Model([], [], [], 0, 3, 3), device="cpu").device.type \
         == "cpu"
+
+
+#: runs a module as ``python -m`` would, with jax, jaxlib, vaporetto_tpu
+#: and regex unimportable
+BLOCKED = r"""
+import importlib.abc, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "vaporetto_tpu", "regex"):
+            raise ImportError(f"No module named {name!r} (blocked)")
+        return None
+
+sys.meta_path.insert(0, Block())
+mod, *sys.argv[1:] = sys.argv[1:]
+if mod == "-c":
+    exec(sys.argv.pop(1))
+else:
+    sys.argv[0] = mod
+    runpy.run_module(mod, run_name="__main__")
+"""
+
+#: the CLIs' main on the CPU over a model file, in the blocked interpreter
+CLI_RUN = r"""
+import io, os, sys, tempfile
+from vaporetto_tpu_torch.cli import evaluate, predict
+from vaporetto_tpu_torch.models.model import Model, NgramData, WordWeightRecord
+
+m = Model([NgramData("この人", [1, -2, 3, 4]), NgramData("人だ", [-5, 6, 7, 8, 9])],
+          [NgramData(bytes([3, 3, 5]), [10, -11, 12, 13])],
+          [WordWeightRecord("人", [19, 20]), WordWeightRecord("地球", [21, -22, 23])],
+          5, 3, 3)
+d = tempfile.mkdtemp(dir=os.getcwd())
+path = os.path.join(d, "m.bin")
+with open(path, "wb") as f:
+    m.write(f)
+src = os.path.join(d, "in.txt")
+with open(src, "wb") as f:
+    f.write("この人は地球人だ\nア\n".encode())
+dst = os.path.join(d, "out.txt")
+assert predict.main(["--model", path, "--scores", "--input", src,
+                     "--output", dst], device="cpu") == 0
+out = open(dst, "rb").read()
+assert out.startswith("この 人 は 地球 人 だ\n0:この -8\n".encode()), out
+with open(src, "wb") as f:
+    f.write("この 人 は 地球 人 だ\n".encode())
+sys.stdin = open(src, encoding="utf-8")
+assert evaluate.main(["--model", path, "--input", src], device="cpu") == 0
+try:
+    predict.main(["--model", path, "--wsconst", "G", "--input", src,
+                  "--output", dst], device="cpu")
+except ImportError as e:
+    print("G:", e)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "vaporetto_tpu", "regex"))
+print("LOADED", bad)
+"""
+
+
+def _blocked(*args):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "-c", BLOCKED, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("cli", ["predict", "evaluate"])
+def test_cli_help_without_jax_or_regex(cli):
+    res = _blocked(f"vaporetto_tpu_torch.cli.{cli}", "--help")
+    assert res.returncode == 0, res.stderr
+    assert "--model" in res.stdout and "--backend" in res.stdout
+
+
+def test_cli_runs_without_jax_or_regex(tmp_path):
+    res = _blocked("-c", CLI_RUN.replace("os.getcwd()", repr(str(tmp_path))))
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+    # G needs regex: its ImportError, not a quiet skip
+    assert "G: No module named 'regex'" in res.stdout, res.stdout

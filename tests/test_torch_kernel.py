@@ -8,7 +8,10 @@ JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernel.py
 
 The models and batches are ``chip_smoke.py``'s. Every value is an integer,
-so every comparison is exact (tolerance 0).
+so every comparison is exact (tolerance 0). ``chip_smoke.compare_kernel``
+and ``compare_tags`` hold each kernel's score output too (the boundary
+kernel's gap scores in both epilogues, the tag kernel's class sums where a
+token ends), so every launch-geometry edge case here covers them.
 """
 
 import numpy as np
@@ -92,8 +95,9 @@ def test_kernel_matches_plain_on_card(case):
     before = boundary.launches
     assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
                                      ((), KANJI_DIGIT)) == 0
-    # one full launch, then serve launches: 2 wsconst sets x 2 type inputs
-    assert boundary.launches - before == 5
+    # full launches without and with gap scores, then serve launches: 2
+    # wsconst sets x 2 type inputs x without and with gap scores
+    assert boundary.launches - before == 10
 
 
 @pytest.mark.cuda
@@ -155,8 +159,8 @@ def test_tag_kernel_matches_plain_on_card(case):
                                          edges, states)
     assert err == 0 and n_tok > 0
     # per batch: host types with 2 wsconst sets, in-kernel types, int32
-    # codepoints and types
-    assert tags.launches - before == 20
+    # codepoints and types, each without and with tag scores
+    assert tags.launches - before == 40
     out = pred.serve_tags_fn(host_types=True)(
         *(torch.from_numpy(x) for x in (cps.astype(np.uint16),
                                         cts.astype(np.uint8), ln)))
@@ -178,3 +182,35 @@ def test_tag_wrapper_rejects_what_the_kernel_does_not_take():
         tags(tt, c16, t8, lens, sc[:, :3].contiguous(), cm, tm)
     with pytest.raises(ValueError):
         tags(tt, c16, t8, lens[:2], sc, cm, tm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TAG_CASES))
+def test_rich_serve_outputs_on_card(case):
+    """``serve_tags_fn`` with both score outputs on the card: the JAX
+    order, dtypes and shapes, and the values of the plain version on the
+    same batch (the tag scores where a token ends)."""
+    _card()
+    model, tokens, _ = TAG_CASES[case]()
+    pred = Predictor(model, True)
+    cps, cts, ln = chip_smoke.random_batch(67, 64, 28, tokens,
+                                           np.resize((0, 1, 2, 64), 67))
+    args = [torch.from_numpy(x) for x in (cps.astype(np.uint16),
+                                          cts.astype(np.uint8), ln)]
+    got = pred.serve_tags_fn(KANJI_DIGIT, True, want_gap_scores=True,
+                             want_tag_scores=True)(*args)
+    cpu = Predictor(compiled=pred.compiled, device="cpu")
+    want = cpu.serve_tags_fn(KANJI_DIGIT, True, want_gap_scores=True,
+                             want_tag_scores=True)(*args)
+    assert len(got) == len(want)
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    tid = want[1].to(torch.int32)
+    ends = ((tid & 0x7F) - 1 if pred._tag_tables().packed_tc else tid) >= 0
+    assert ends.any()
+    assert got[-1].dtype == torch.int32 and tuple(got[-1].shape) == (
+        67, 64, pred._tag_tables().C)
+    assert torch.equal(got[-1].cpu()[ends], want[-1][ends])
+    bits, gap = pred.serve_scores_fn(KANJI_DIGIT, True)(*args)
+    wbits, wgap = cpu.serve_scores_fn(KANJI_DIGIT, True)(*args)
+    assert torch.equal(bits.cpu(), wbits) and torch.equal(gap.cpu(), wgap)

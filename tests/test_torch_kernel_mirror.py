@@ -13,7 +13,8 @@ the kernel's algorithm step for step:
   steps of a chunk taken together, and one plain store per alive window,
   so that for every end position the longest window is written last;
 - score adds placed by the pattern record's one offset (chunk c at
-  offset + 8c), the type window per in-line gap, the serve bit pack.
+  offset + 8c), the type window per in-line gap, the serve bit pack, and
+  the gap-score store (the row's score at pad_left + g for every g < L-1).
 
 It must equal the port's plain matcher and scores, and the JAX package's
 matcher, exactly (tolerance 0: every value is an int32), on the 50k-style
@@ -30,7 +31,7 @@ import chip_smoke
 from vaporetto_tpu.ops import match as jmatch
 from vaporetto_tpu_torch import Predictor
 from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, _pattern_records,
-                                              boundary_scores_plain,
+                                              boundary, boundary_scores_plain,
                                               serve_bits_plain)
 from vaporetto_tpu_torch.ops.match import (hash_project_fused,
                                            match_longest_fused)
@@ -142,6 +143,16 @@ def mirror_bits(tabs, scores, cts, lengths, ws_types=()):
     return pack_gap_bits_np(gaps.astype(np.uint8))
 
 
+def mirror_gap_scores(tabs, scores, L):
+    """The GAP store of either epilogue on the mirror's scores: for every
+    row and g in [0, L-1), sc[pad_left + g]."""
+    out = np.empty((scores.shape[0], max(L - 1, 0)), dtype=np.int32)
+    for b in range(scores.shape[0]):
+        for g in range(L - 1):
+            out[b, g] = scores[b, tabs.pad_left + g]
+    return out
+
+
 def _model(name):
     """(port tables on the CPU, dictionary words)."""
     if name == "50k-style":
@@ -215,6 +226,21 @@ def test_mirror_matches_plain_bits(case, ws):
                                     for x in (cps, cts, ln)), ws)
     np.testing.assert_array_equal(mirror_bits(tabs, scores, cts, ln, ws),
                                   want.numpy())
+
+
+def test_mirror_matches_plain_gap_scores(case):
+    """The serve epilogue with gap scores (wsconst on: the scores stay as
+    they are); the full epilogue's is the same slice of its score row,
+    which test_mirror_matches_plain_scores holds."""
+    _, tabs, cps, cts, ln, (scores, _, _) = case
+    want = mirror_gap_scores(tabs, scores, cps.shape[1])
+    bits, gap = boundary(tabs, *(torch.from_numpy(x) for x in (cps, cts, ln)),
+                         serve=True, ws_types=(5, 1), gap_scores=True)
+    np.testing.assert_array_equal(gap.numpy(), want)
+    np.testing.assert_array_equal(bits.numpy(), mirror_bits(
+        tabs, scores, cts, ln, (5, 1)))
+    assert (want[np.arange(cps.shape[1] - 1)[None] >= ln[:, None] - 1]
+            != 0).any()  # columns past a row's length are stored too
 
 
 @pytest.mark.parametrize("span", [32, 64, 1024])

@@ -333,8 +333,10 @@ def _kernel_mirror(tt, cps, cts, lengths, scores, cm, tm, ws_types, rng):
     tokens go in groups of GROUP: probes table by table in the 8-byte keys,
     each stopping at its key, at the first empty slot or after probe_len
     slots, the hits' weight rows read through the row array, and the bias
-    and hit rows added class by class in a random order (wrapping int32).
-    Returns (bits, tid, choices, probe slots read, hits)."""
+    and hit rows added class by class in a random order (wrapping int32),
+    and with the tag-score output each token's C sums stored at its end.
+    Returns (bits, tid, choices, probe slots read, hits, tag scores (B, L,
+    C), zero where no token ends)."""
     B, L = cps.shape
     walk, h2 = tt.rev_walk.numpy(), tt.rev_hash2.numpy()
     keys, rows, w_rows = tt.keys.numpy(), tt.rows.numpy(), tt.w_rows.numpy()
@@ -346,6 +348,7 @@ def _kernel_mirror(tt, cps, cts, lengths, scores, cm, tm, ws_types, rng):
     bits = np.zeros((B, W8), np.uint8)
     tid_out = np.full((B, L), -1, np.int64)
     ch_out = np.full((B, L, S), -1, np.int64)
+    ts_out = np.zeros((B, L, C), np.int64)
     n_slots = n_hits = 0
     for r in range(B):
         n = int(lengths[r])
@@ -424,6 +427,8 @@ def _kernel_mirror(tt, cps, cts, lengths, scores, cm, tm, ws_types, rng):
                 it, c = divmod(int(i), C)
                 j, vec = items[it]
                 sc[j, c] = _wrap32(sc[j, c] + int(vec[c]))
+            for i in range(len(toks) * C):  # the TS store: score i, token i/C
+                ts_out[r, toks[i // C][0], i % C] = sc[i // C, i % C]
             for j, (e, tid) in enumerate(toks):
                 tid_out[r, e] = tid
                 for s in range(S):
@@ -434,7 +439,7 @@ def _kernel_mirror(tt, cps, cts, lengths, scores, cm, tm, ws_types, rng):
                             if sc[j, c] > best:
                                 best, best_c = sc[j, c], c
                         ch_out[r, e, s] = best_c - o
-    return bits, tid_out, ch_out, n_slots, n_hits
+    return bits, tid_out, ch_out, n_slots, n_hits, ts_out
 
 
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
@@ -451,8 +456,9 @@ def test_kernel_mirror_matches_plain(case, layout):
     tt = tp._tag_tables()
     c, t, ln = (torch.from_numpy(x) for x in (cps, cts, lengths))
     sc, cm, tm = boundary_scores_plain(tp._tables(), c, t, ln)
-    out = tags(tt, c, t, ln, sc, cm, tm, ws_types=KANJI_DIGIT)
-    bits, tid, ch, n_slots, n_hits = _kernel_mirror(
+    out = tags(tt, c, t, ln, sc, cm, tm, ws_types=KANJI_DIGIT,
+               tag_scores=True)
+    bits, tid, ch, n_slots, n_hits, ts = _kernel_mirror(
         tt, cps, cts, lengths, sc.numpy(),
         None if cm is None else cm.numpy(),
         None if tm is None else tm.numpy(), KANJI_DIGIT, rng)
@@ -467,6 +473,8 @@ def test_kernel_mirror_matches_plain(case, layout):
         np.testing.assert_array_equal(out[1].numpy(), tid)
         np.testing.assert_array_equal(out[2].numpy(), ch)
     assert (tid >= 0).any() and n_slots > 0
+    ends = tid >= 0  # the tag scores at token ends
+    np.testing.assert_array_equal(out[-1].numpy()[ends], ts[ends])
 
 
 def test_kernel_mirror_fills_the_token_list():
@@ -487,13 +495,14 @@ def test_kernel_mirror_fills_the_token_list():
     c, t, ln = (torch.from_numpy(x) for x in (cps, cts, lengths))
     sc, cm, tm = boundary_scores_plain(tp._tables(), c, t, ln)
     sc[:, tt.pad_left:tt.pad_left + L - 1] = 1
-    out = tags(tt, c, t, ln, sc, cm, tm)
-    bits, tid, ch, _, _ = _kernel_mirror(
+    out = tags(tt, c, t, ln, sc, cm, tm, tag_scores=True)
+    bits, tid, ch, _, _, ts = _kernel_mirror(
         tt, cps, cts, lengths, sc.numpy(), cm.numpy(), tm.numpy(), (), rng)
     assert (tid >= 0).all()
     np.testing.assert_array_equal(out[0].numpy(), bits)
     w = out[1].numpy().astype(np.int64)
     np.testing.assert_array_equal((w & 0x7F) - 1, tid)
+    np.testing.assert_array_equal(out[2].numpy(), ts)  # every position
 
 
 # ----------------------------------------------------------------------
@@ -817,7 +826,7 @@ def test_tags_and_grapheme_do_not_compose():
     with pytest.raises(ValueError, match="grapheme"):
         LeanServer(tp, tags=True, grapheme=True)
     with pytest.raises(NotImplementedError):
-        LeanServer(tp, scores=True)
+        LeanServer(tp, tags=True, mesh=object())
 
 
 def _rel_beyond_separator_model():

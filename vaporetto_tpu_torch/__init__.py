@@ -1,13 +1,16 @@
 """vaporetto_tpu_torch — the PyTorch/CUDA port of vaporetto_tpu.
 
 Word segmentation with the reference Vaporetto's linear boundary model,
-running on an NVIDIA GPU: compiled model tables live on the card, and one
-hand-written CUDA kernel (``csrc/boundary.cu``) scores a whole batch per
-launch. The host stages (model compiler, UTF-8 tensorizer, detokenizer)
-are C++ built at first use. Importing the package needs only torch and
-numpy.
+running on an NVIDIA GPU: compiled model tables live on the card, and
+hand-written CUDA kernels score a whole batch per launch
+(``csrc/boundary.cu``) and tag its tokens (``csrc/tags.cu``). The host
+stages (model compiler, UTF-8 tensorizer, writers) are C++ built at first
+use. Importing the package needs only torch and numpy; the predict and
+evaluate CLIs are ``vaporetto_tpu_torch.cli.predict`` and
+``vaporetto_tpu_torch.cli.evaluate``.
 """
 
+from .analyzer import VaporettoAnalyzer
 from .errors import InvalidArgumentError, InvalidModelError, VaporettoError
 from .models.model import Model, NgramData, WordWeightRecord
 from .predictor import Predictor
@@ -29,5 +32,6 @@ __all__ = [
     "WordWeightRecord",
     "Predictor",
     "LeanServer",
+    "VaporettoAnalyzer",
     "__version__",
 ]

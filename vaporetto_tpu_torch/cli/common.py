@@ -1,0 +1,141 @@
+"""Shared CLI plumbing (wsconst parsing, filter construction, the
+predictor, and the flags the port does not serve yet)."""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+from ..rules import (
+    ConcatGraphemeClustersFilter,
+    KyteaWsConstFilter,
+)
+from ..sentence import CharacterType
+
+WSCONST_HELP = (
+    "Do not segment some character types: {D, R, H, T, K, O, G}. "
+    "D: Digit, R: Roman, H: Hiragana, T: Katakana, K: Kanji, O: Other, "
+    "G: Grapheme cluster."
+)
+
+_WSCONST_MAP = {
+    "D": CharacterType.DIGIT,
+    "R": CharacterType.ROMAN,
+    "H": CharacterType.HIRAGANA,
+    "T": CharacterType.KATAKANA,
+    "K": CharacterType.KANJI,
+    "O": CharacterType.OTHER,
+}
+
+
+def build_post_filters(wsconst_values: List[str]):
+    """Reference predict/src/main.rs:100-107."""
+    filters = []
+    for w in wsconst_values:
+        if w == "G":
+            filters.append(ConcatGraphemeClustersFilter())
+        elif w in _WSCONST_MAP:
+            filters.append(KyteaWsConstFilter(_WSCONST_MAP[w]))
+        else:
+            raise SystemExit(f"error: could not parse a wsconst value: {w!r}")
+    return filters
+
+
+BACKEND_HELP = (
+    "device = the CUDA kernels on the card; host = the native C++ "
+    "evaluator, not ported yet (rejected); auto (default) = device until "
+    "the host engine is ported (utils/routing.py; VAPORETTO_TPU_BACKEND "
+    "overrides)."
+)
+
+
+def build_predictor(model, predict_tags: bool, backend_flag: str,
+                    device=None):
+    """Construct a Predictor on ``device`` (None: the current CUDA device)
+    after resolving ``--backend`` (see utils/routing.py); raises
+    ``routing.HostEngineNotPorted`` when that resolves to the host
+    engine."""
+    from ..predictor import Predictor
+    from ..utils.routing import resolve_backend
+
+    backend = resolve_backend(backend_flag)
+    p = Predictor(model, predict_tags, device=device)
+    p.backend = backend
+    return p
+
+
+def unported_flag(args) -> Optional[str]:
+    """What a flag set asks for that the port does not serve yet, or
+    None: several processes, a data-parallel mesh, the host engine."""
+    n = getattr(args, "num_processes", None)
+    if n is not None and n > 1:
+        return ("--num-processes > 1: multi-process runs are not ported "
+                "to vaporetto_tpu_torch yet")
+    if getattr(args, "dp", 0):
+        return ("--dp: data-parallel serving over several cards is not "
+                "ported to vaporetto_tpu_torch yet")
+    if args.backend == "host":
+        from ..utils.routing import HostEngineNotPorted
+
+        return str(HostEngineNotPorted())
+    return None
+
+
+def reject_unported(args) -> Optional[int]:
+    """2 after an error message when ``args`` asks for what the port does
+    not serve yet (:func:`unported_flag`), else None."""
+    why = unported_flag(args)
+    if why is None:
+        return None
+    print(f"error: {why}", file=sys.stderr)
+    return 2
+
+
+def validate_multiprocess_args(parser, args) -> None:
+    """Multi-process flag sanity: ``--num-processes N`` (N > 1) requires
+    ``--process-id`` and ``--coordinator``."""
+    n = getattr(args, "num_processes", None)
+    if n is None:
+        return
+    if n < 1:
+        parser.error("--num-processes must be >= 1")
+    if n > 1:
+        missing = [
+            flag
+            for flag, v in (
+                ("--process-id", getattr(args, "process_id", None)),
+                ("--coordinator", getattr(args, "coordinator", None)),
+            )
+            if v is None
+        ]
+        if missing:
+            parser.error(
+                f"--num-processes {n} requires {' and '.join(missing)}"
+            )
+        if not 0 <= args.process_id < n:
+            parser.error(
+                "--process-id must be in [0, --num-processes)"
+            )
+
+
+def iter_lines(f):
+    """Iterate lines of a text stream with the reference's line semantics
+    (BufRead::lines, e.g. predict/src/main.rs:126-128): split on '\\n'
+    only — a lone '\\r' is NOT a line terminator — and strip one trailing
+    "\\r" per line (CRLF). Python's universal-newline text mode would
+    split on lone '\\r' too, so the stream is reconfigured when possible.
+    """
+    try:
+        f.reconfigure(newline="\n")
+    except (AttributeError, OSError, ValueError):
+        # not a reconfigurable TextIOWrapper (StringIO), or the stream was
+        # already read from / detached (reconfigure raises ValueError)
+        pass
+    for line in f:
+        # BufRead::lines strips '\r' only when it precedes '\n': an
+        # unterminated final line ending in a lone '\r' keeps its CR
+        if line.endswith("\n"):
+            line = line[:-1]
+            if line.endswith("\r"):
+                line = line[:-1]
+        yield line

@@ -1,0 +1,159 @@
+"""evaluate CLI — accuracy evaluation against gold tokenized text.
+
+Mirrors the reference evaluate CLI (evaluate/src/main.rs): gold tokenized
+lines on stdin (or ``--input``), re-predict on (optionally normalized) raw
+text, report char-boundary P/R/F1 or Nagata word-level P/R/F1. Single
+process: ``--num-processes`` above 1 and ``--backend host`` are not
+ported yet and exit with status 2.
+
+    python -m vaporetto_tpu_torch.cli.evaluate --model m.bin < gold.txt
+
+``main(argv, device=...)`` runs on another torch device (``"cpu"``: the
+kernels' plain versions); the command line always runs on the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from ..metrics import (
+    char_metric,
+    char_metric_from_counts,
+    word_metric,
+    word_metric_from_counts,
+)
+from ..models.model import Model
+from ..rules import KyteaFullwidthFilter
+from ..sentence import Sentence
+from .common import (
+    BACKEND_HELP,
+    WSCONST_HELP,
+    build_post_filters,
+    build_predictor,
+    iter_lines,
+    reject_unported,
+    validate_multiprocess_args,
+)
+
+BATCH = 256
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    p = argparse.ArgumentParser(
+        description="A program to evaluate the accuracy of Vaporetto."
+    )
+    p.add_argument("--model", required=True)
+    p.add_argument("--predict-tags", action="store_true")
+    p.add_argument("--wsconst", action="append", default=[], help=WSCONST_HELP)
+    p.add_argument("--no-norm", action="store_true")
+    p.add_argument("--metric", choices=["char", "word"], default="char")
+    p.add_argument("--batch-size", type=int, default=BATCH)
+    p.add_argument("--backend", choices=("device", "host", "auto"),
+                   default="auto", help=BACKEND_HELP)
+    p.add_argument("--input", default=None,
+                   help="Gold corpus file (default: stdin).")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="Multi-process coordinator address (multi-process "
+                   "runs are not ported yet).")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Multi-process evaluation (not ported yet: above 1 "
+                   "exits with status 2).")
+    p.add_argument("--process-id", type=int, default=None)
+    args = p.parse_args(argv)
+    rc = reject_unported(args)
+    if rc is not None:
+        return rc
+    validate_multiprocess_args(p, args)
+
+    fullwidth = KyteaFullwidthFilter()
+    post_filters = build_post_filters(args.wsconst)
+
+    print("Loading model file...", file=sys.stderr)
+    model = Model.read(args.model)
+    from ..utils.routing import HostEngineNotPorted
+
+    try:
+        predictor = build_predictor(model, args.predict_tags, args.backend,
+                                    device=device)
+    except HostEngineNotPorted as e:  # VAPORETTO_TPU_BACKEND=host
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    print("Start tokenization", file=sys.stderr)
+    # Streaming accumulation: the confusion/word counts are additive, so
+    # each flushed batch folds into running totals and neither the gold
+    # corpus nor the per-line results are ever materialized (the
+    # reference's per-line loop has the same property,
+    # evaluate/src/main.rs:69-119).
+    counts = [0, 0, 0]  # word: n_sys, n_ref, n_cor
+    ccounts = [0, 0, 0, 0]  # char: tp, tn, fp, fn
+    pending = []  # (ref_boundaries, ref_tags, sentence)
+
+    def flush() -> None:
+        if not pending:
+            return
+        predictor.predict_batch([s for _, _, s in pending])
+        batch_results = []
+        for ref_b, ref_t, s in pending:
+            for f in post_filters:
+                f.filter(s)
+            if args.predict_tags:
+                s.fill_tags()
+            sys_b = [int(b) for b in s.boundaries]
+            n = s.n_tags
+            sys_t = [s.tags[i * n : (i + 1) * n] for i in range(len(sys_b) + 1)]
+            batch_results.append((ref_b, ref_t, sys_b, sys_t))
+        pending.clear()
+        if args.metric == "char":
+            m = char_metric(batch_results)
+            ccounts[0] += m.tp
+            ccounts[1] += m.tn
+            ccounts[2] += m.fp
+            ccounts[3] += m.fn
+        else:
+            m = word_metric(batch_results)
+            counts[0] += m.n_sys
+            counts[1] += m.n_ref
+            counts[2] += m.n_cor
+
+    def line_stream():
+        if args.input is not None:
+            with open(args.input, encoding="utf-8") as f:
+                yield from iter_lines(f)
+        else:
+            yield from iter_lines(sys.stdin)
+
+    for line in line_stream():
+        if not line:
+            continue
+        s = Sentence.from_tokenized(line)
+        ref_b = [int(b) for b in s.boundaries]
+        n = s.n_tags
+        ref_t = [s.tags[i * n : (i + 1) * n] for i in range(len(ref_b) + 1)]
+        if not args.no_norm:
+            s = Sentence.from_raw(fullwidth.filter(s.as_raw_text()))
+        else:
+            s = Sentence.from_raw(s.as_raw_text())
+        pending.append((ref_b, ref_t, s))
+        if len(pending) >= args.batch_size:
+            flush()
+    flush()
+
+    if args.metric == "char":
+        m = char_metric_from_counts(*ccounts)
+        print(f"Precision: {m.precision}")
+        print(f"Recall: {m.recall}")
+        print(f"F1: {m.f1}")
+        print(f"TP: {m.tp}, TN: {m.tn}, FP: {m.fp}, FN: {m.fn}")
+    else:
+        m = word_metric_from_counts(*counts)
+        print(f"Precision: {m.precision}")
+        print(f"Recall: {m.recall}")
+        print(f"F1: {m.f1}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,298 @@
+"""predict CLI — word segmentation filter program.
+
+Mirrors the reference predict CLI (predict/src/main.rs): reads raw lines
+from stdin, normalizes (KyTea fullwidth, skippable with --no-norm),
+predicts boundaries (+tags with --predict-tags), applies --wsconst post
+filters, re-applies results onto the ORIGINAL un-normalized text, and
+writes tokenized lines to stdout. --scores prints per-gap integer scores in
+the reference's exact format, --tag-scores each token's tag scores.
+
+Every flag set of the single-process device backend takes the lean path
+(native tensorize -> the CUDA kernels -> native writers; serving.py) unless
+``--no-lean`` is given or the flags need the general Sentence path; lines
+the lean path cannot represent go to the general path in order. Output is
+byte-identical either way. ``--dp``, ``--num-processes`` above 1 and
+``--backend host`` are not ported yet: they exit with status 2.
+
+    python -m vaporetto_tpu_torch.cli.predict --model m.bin < in.txt
+
+``main(argv, device=...)`` runs on another torch device (``"cpu"``: the
+kernels' plain versions); the command line always runs on the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import sys
+import time
+from typing import List, Optional
+
+from ..models.model import Model
+from ..rules import KyteaFullwidthFilter
+from ..sentence import Sentence
+from .common import (
+    BACKEND_HELP,
+    WSCONST_HELP,
+    build_post_filters,
+    build_predictor,
+    iter_lines,
+    reject_unported,
+    validate_multiprocess_args,
+)
+
+BATCH = 256
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    p = argparse.ArgumentParser(
+        description="A program to perform word segmentation."
+    )
+    p.add_argument("--model", required=True, help="The model file to use")
+    p.add_argument("--predict-tags", action="store_true",
+                   help="Predicts POS tags.")
+    p.add_argument("--wsconst", action="append", default=[],
+                   help=WSCONST_HELP)
+    p.add_argument("--scores", action="store_true",
+                   help="Prints boundary scores.")
+    p.add_argument("--tag-scores", action="store_true",
+                   help="Prints tag scores.")
+    p.add_argument("--no-norm", action="store_true",
+                   help="Do not normalize input strings before prediction.")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="Lines per device batch (default: 256 on the "
+                   "general path, 8192 on the lean serving path).")
+    p.add_argument("--backend", choices=("device", "host", "auto"),
+                   default="auto", help=BACKEND_HELP)
+    p.add_argument("--no-lean", action="store_true",
+                   help="Disable the lean serving fast path (native "
+                   "tensorize -> CUDA kernels -> native detokenize); the "
+                   "general Sentence path is then used for all flag "
+                   "combinations.")
+    p.add_argument("--dp", type=int, default=0, metavar="N",
+                   help="Data-parallel serving over N cards (not ported "
+                   "yet: exits with status 2).")
+    p.add_argument("--input", default=None,
+                   help="Input corpus file (default: stdin).")
+    p.add_argument("--output", default=None,
+                   help="Output path (default: stdout).")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="Multi-process coordinator address (multi-process "
+                   "runs are not ported yet).")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Multi-process predict (not ported yet: above 1 "
+                   "exits with status 2).")
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="Capture a torch.profiler trace of the run into "
+                   "DIR/trace.json (Chrome trace format).")
+    args = p.parse_args(argv)
+    rc = reject_unported(args)
+    if rc is not None:
+        return rc
+    validate_multiprocess_args(p, args)
+
+    if args.profile:
+        from ..utils.observe import trace
+
+        with trace(args.profile):
+            return _run(args, device)
+    return _run(args, device)
+
+
+def _run(args, device) -> int:
+    from ..utils.routing import HostEngineNotPorted
+
+    pre_filter = KyteaFullwidthFilter()
+    post_filters = build_post_filters(args.wsconst)
+
+    print("Loading model file...", file=sys.stderr)
+    model = Model.read(args.model)
+    # --input/--output are honored in single-process mode too
+    in_b = open(args.input, "rb") if args.input else None
+    try:
+        try:
+            predictor = build_predictor(
+                model, args.predict_tags, args.backend, device=device)
+        except HostEngineNotPorted as e:  # VAPORETTO_TPU_BACKEND=host
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        args.backend = predictor.backend
+        if args.tag_scores:
+            predictor.store_tag_scores(True)
+        return _tokenize(args, predictor, pre_filter, post_filters, in_b)
+    finally:
+        if in_b is not None:
+            in_b.close()
+
+
+def _tokenize(args, predictor, pre_filter, post_filters, in_b) -> int:
+    print("Start tokenization", file=sys.stderr)
+    out = open(args.output, "wb") if args.output else sys.stdout.buffer
+    start = time.perf_counter()
+
+    from ..serving import lean_path_supported, lean_tags_supported
+
+    if (
+        not args.no_lean
+        and lean_path_supported(args)
+        and (not args.predict_tags or lean_tags_supported(predictor))
+    ):
+        rc = _run_lean(args, predictor, in_b, out)
+        if args.output:
+            out.close()
+        print(f"Elapsed: {time.perf_counter() - start} [sec]",
+              file=sys.stderr)
+        return rc
+
+    def flush_batch(lines: List[str]) -> None:
+        sentences: List[Optional[Sentence]] = []
+        for line in lines:
+            try:
+                text = line if args.no_norm else pre_filter.filter(line)
+                sentences.append(Sentence.from_raw(text))
+            except Exception:
+                sentences.append(None)
+        alive = [s for s in sentences if s is not None]
+        if alive:
+            predictor.predict_batch(alive)
+        for line, s in zip(lines, sentences):
+            if s is not None:
+                for f in post_filters:
+                    f.filter(s)
+                if args.predict_tags:
+                    s.fill_tags()
+            _emit_outputs(args, line, s, out)
+
+    text_in = (
+        io.TextIOWrapper(in_b, encoding="utf-8", newline="\n")
+        if in_b is not None
+        else sys.stdin
+    )
+    batch: List[str] = []
+    batch_size = args.batch_size or BATCH
+    for line in iter_lines(text_in):
+        batch.append(line)
+        if len(batch) >= batch_size:
+            flush_batch(batch)
+            batch = []
+    if batch:
+        flush_batch(batch)
+    if args.output:
+        out.close()
+
+    print(f"Elapsed: {time.perf_counter() - start} [sec]", file=sys.stderr)
+    return 0
+
+
+def _run_lean(args, predictor, infile=None, out_b=None) -> int:
+    """The lean serving path: native tensorize (+ fused normalization) ->
+    the CUDA kernels (wsconst fused; tag pass, gap scores or tag scores
+    when asked) -> native byte-level writers against the original input
+    bytes, with the wsconst-G host mask when asked. Output is
+    byte-identical to the general path for every flag set
+    lean_path_supported accepts; lines it cannot represent (astral chars,
+    over-long lines, invalid UTF-8) go to the general path in order.
+    """
+    from ..serving import LeanServer
+    from .common import _WSCONST_MAP
+
+    pre_filter = KyteaFullwidthFilter()
+    post_filters = build_post_filters(args.wsconst)
+    if infile is None:
+        infile = sys.stdin.buffer
+    if out_b is None:
+        out_b = sys.stdout.buffer
+
+    def fallback(lines: List[bytes]) -> None:
+        # invalid UTF-8 aborts the run, as in the reference
+        # (predict/src/main.rs:128 `line?` on BufRead::lines) and the
+        # general path (strict text-mode stdin) — but only AFTER the
+        # batch's valid prefix has been predicted and written, so the
+        # abort point matches a line-by-line reader's
+        bad_utf8: Optional[UnicodeDecodeError] = None
+        sentences: List[Optional[Sentence]] = []
+        texts = []
+        for raw in lines:
+            try:
+                line = raw.decode("utf-8", errors="strict")
+            except UnicodeDecodeError as e:
+                bad_utf8 = e
+                break
+            texts.append(line)
+            try:
+                text = line if args.no_norm else pre_filter.filter(line)
+                sentences.append(Sentence.from_raw(text))
+            except Exception:
+                sentences.append(None)
+        alive = [s for s in sentences if s is not None]
+        if alive:
+            predictor.predict_batch(alive)
+        for line, s in zip(texts, sentences):
+            if s is not None:
+                for f in post_filters:
+                    f.filter(s)
+                if args.predict_tags:
+                    s.fill_tags()
+            _emit_outputs(args, line, s, out_b)
+        if bad_utf8 is not None:
+            out_b.flush()
+            raise bad_utf8
+
+    server = LeanServer(
+        predictor,
+        wsconst=[int(_WSCONST_MAP[w]) for w in args.wsconst if w != "G"],
+        normalize=not args.no_norm,
+        batch_lines=args.batch_size or 8192,
+        fallback=fallback,
+        tags=args.predict_tags,
+        scores=args.scores,
+        grapheme="G" in args.wsconst,
+        tag_scores=args.tag_scores,
+    )
+    server.run(infile, out_b)
+    out_b.flush()
+    return 0
+
+
+def _emit_outputs(args, line: str, s: Optional[Sentence], out_b) -> None:
+    """Write one line's outputs as bytes: the tokenized text re-applied
+    onto the ORIGINAL line, then the --scores / --tag-scores blocks —
+    shared by the general path and the lean path's fallback so the two
+    cannot drift. Filters and ``fill_tags`` must already have run on
+    ``s``."""
+    if s is None:
+        out_b.write(b"\n")
+        return
+    orig = s
+    if not args.no_norm:
+        orig = Sentence.from_raw(line)
+        orig.reset_tags(s.n_tags)
+        orig.boundaries = s.boundaries
+        orig.tags = list(s.tags)
+    out_b.write(orig.write_tokenized_text().encode("utf-8"))
+    out_b.write(b"\n")
+    if args.scores:
+        text = s.as_raw_text()
+        scores = s.boundary_scores_list()
+        for i in range(len(text) - 1):
+            out_b.write(
+                f"{i}:{text[i]}{text[i + 1]} {scores[i]}\n".encode("utf-8")
+            )
+        out_b.write(b"\n")
+    if args.tag_scores:
+        for token in s.iter_tokens():
+            out_b.write(token.surface().encode("utf-8"))
+            for cands in token.tag_candidates():
+                out_b.write(b"\t")
+                out_b.write(
+                    ",".join(
+                        f"{tag}:{score}" for tag, score in cands
+                    ).encode("utf-8")
+                )
+            out_b.write(b"\n")
+        out_b.write(b"\n")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

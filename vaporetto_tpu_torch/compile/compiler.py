@@ -82,6 +82,10 @@ class CompiledModel:
     char_hash_syms: Optional[np.ndarray] = None  # int32[P]
     tag_meta: Optional[CompiledTagMeta] = None
     n_tags: int = 0
+    # the merged type n-grams (type cache models only): no kernel reads
+    # them; the compiled-model artifact builds from them the per-start-offset
+    # tables that the JAX package's artifact carries (compile/artifact.py)
+    type_ngrams: Optional[List[Tuple[Tuple[int, ...], List[int]]]] = None
 
 
 def _build_char_hash(cps_sorted: np.ndarray, sym_ids: np.ndarray):
@@ -348,11 +352,13 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
 
     type_matcher = None
     type_cache_table = None
+    type_ngrams = None
     if model.type_ngram_model and model.type_window_size > 0:
         if (not n_tag_models
                 and model.type_window_size <= CACHE_MAX_WINDOW_SIZE):
+            type_ngrams = _merge_type_ngrams(model)
             type_cache_table = _build_type_cache_table(
-                _merge_type_ngrams(model), model.type_window_size
+                type_ngrams, model.type_window_size
             )
         else:
             type_matcher = _compile_type_trie(model, n_tag_models)
@@ -392,4 +398,5 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
         char_hash_syms=char_hash[3] if char_hash else None,
         tag_meta=tag_meta,
         n_tags=n_tags,
+        type_ngrams=type_ngrams,
     )

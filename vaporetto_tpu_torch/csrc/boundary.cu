@@ -9,6 +9,10 @@
 //   full  - the padded int32 score row plus char/type match ids;
 //   serve - score > 0, same-type wsconst suppression, the t < len-1 mask and
 //           the column-major bit pack (gap g at bit g / W8 of byte g % W8).
+// Either epilogue can also write the row's gap scores, the (B, L-1) int32
+// slice sc[pad_left + g] of the padded score row (template GAP): the
+// serve epilogue's --scores output, and the full epilogue's for the rich
+// tag combinations. Without GAP the instantiation is the same code.
 //
 // What bounds it on this card: the latency of dependent table gathers, and
 // how many of them are in flight. The bytes it must move are small (serve:
@@ -128,6 +132,9 @@ struct VtBoundaryArgs {
   // serve epilogue (bits non-null)
   uint8_t* bits;            // (B, W8)
   int64_t W8, ws_mask;      // ws_mask bit c: wsconst on char type c
+  // gap scores, either epilogue (null: none)
+  int32_t* gap_scores;      // (B, gap_stride), gap_stride = L - 1
+  int64_t gap_stride;
   // a warp's row working set: shared memory, or a global scratch slice of
   // row_bytes per warp when scratch is non-null
   uint8_t* scratch;
@@ -365,7 +372,7 @@ __device__ __forceinline__ void add_type_cache(
   }
 }
 
-template <typename CP, bool STAGED, bool SCRATCH>
+template <typename CP, bool STAGED, bool SCRATCH, bool GAP>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     boundary_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -526,6 +533,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         a.bits[static_cast<int64_t>(r) * W8 + i] = static_cast<uint8_t>(v);
       }
     }
+    if (GAP) {  // every column, padding included, as the padded row holds it
+      int32_t* out = a.gap_scores + static_cast<int64_t>(r) * a.gap_stride;
+      for (int g = lane; g < L - 1; g += 32) out[g] = sc[pad_left + g];
+    }
     __syncwarp();  // the next row reuses this warp's working set
     r = r_next;
     len_r = len_next;
@@ -542,20 +553,26 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
-template <typename CP, bool STAGED>
-const void* kernel_of(bool scratch) {
-  return scratch ? reinterpret_cast<const void*>(
-                       boundary_kernel<CP, STAGED, true>)
-                 : reinterpret_cast<const void*>(
-                       boundary_kernel<CP, STAGED, false>);
+template <typename CP, bool STAGED, bool SCRATCH>
+const void* kernel_of(bool gap) {
+  return gap ? reinterpret_cast<const void*>(
+                   boundary_kernel<CP, STAGED, SCRATCH, true>)
+             : reinterpret_cast<const void*>(
+                   boundary_kernel<CP, STAGED, SCRATCH, false>);
 }
 
-const void* pick(int cps_u16, int staged, int scratch) {
+template <typename CP, bool STAGED>
+const void* kernel_of(bool scratch, bool gap) {
+  return scratch ? kernel_of<CP, STAGED, true>(gap)
+                 : kernel_of<CP, STAGED, false>(gap);
+}
+
+const void* pick(int cps_u16, int staged, int scratch, int gap) {
   if (cps_u16)
-    return staged ? kernel_of<uint16_t, true>(scratch)
-                  : kernel_of<uint16_t, false>(scratch);
-  return staged ? kernel_of<int32_t, true>(scratch)
-                : kernel_of<int32_t, false>(scratch);
+    return staged ? kernel_of<uint16_t, true>(scratch, gap)
+                  : kernel_of<uint16_t, false>(scratch, gap);
+  return staged ? kernel_of<int32_t, true>(scratch, gap)
+                : kernel_of<int32_t, false>(scratch, gap);
 }
 
 // Lets an instantiation take the device's whole opt-in dynamic shared
@@ -563,10 +580,12 @@ const void* pick(int cps_u16, int staged, int scratch) {
 // queries then make no cudaFuncSetAttribute call. (The attribute is only a
 // ceiling; each launch still asks for its own smem_bytes.)
 constexpr int MAX_DEVICES = 64;
-std::atomic<bool> smem_allowed[8][MAX_DEVICES];
+std::atomic<bool> smem_allowed[16][MAX_DEVICES];
 
-cudaError_t allow_smem(int cps_u16, int staged, int scratch, int device) {
-  const int k = (cps_u16 ? 4 : 0) + (staged ? 2 : 0) + (scratch ? 1 : 0);
+cudaError_t allow_smem(int cps_u16, int staged, int scratch, int gap,
+                       int device) {
+  const int k = (gap ? 8 : 0) + (cps_u16 ? 4 : 0) + (staged ? 2 : 0) +
+                (scratch ? 1 : 0);
   const bool cached = device >= 0 && device < MAX_DEVICES;
   if (cached && smem_allowed[k][device].load(std::memory_order_acquire))
     return cudaSuccess;
@@ -574,7 +593,7 @@ cudaError_t allow_smem(int cps_u16, int staged, int scratch, int device) {
   cudaError_t e = cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(pick(cps_u16, staged, scratch),
+  e = cudaFuncSetAttribute(pick(cps_u16, staged, scratch, gap),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
   if (e == cudaSuccess && cached)
     smem_allowed[k][device].store(true, std::memory_order_release);
@@ -596,9 +615,10 @@ int vt_boundary(const VtBoundaryArgs* a, int staged, int blocks, int threads,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int cps_u16 = static_cast<int>(a->cps_u16);
   const int scratch = a->scratch != nullptr;
-  e = allow_smem(cps_u16, staged, scratch, device);
+  const int gap = a->gap_scores != nullptr;
+  e = allow_smem(cps_u16, staged, scratch, gap, device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const void* kern = pick(cps_u16, staged, scratch);
+  const void* kern = pick(cps_u16, staged, scratch, gap);
   void* params[] = {const_cast<VtBoundaryArgs*>(a)};
   e = cudaLaunchKernel(kern, dim3(blocks), dim3(threads), params,
                        static_cast<size_t>(smem_bytes),
@@ -619,15 +639,15 @@ int vt_boundary_smem_limit(int device) {
 // Blocks of `threads` threads with `smem_bytes` of dynamic shared memory
 // that one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // or minus the CUDA error.
-int vt_boundary_occupancy(int cps_u16, int staged, int scratch, int threads,
-                          int64_t smem_bytes, int device) {
+int vt_boundary_occupancy(int cps_u16, int staged, int scratch, int gap,
+                          int threads, int64_t smem_bytes, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  e = allow_smem(cps_u16, staged, scratch, device);
+  e = allow_smem(cps_u16, staged, scratch, gap, device);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, pick(cps_u16, staged, scratch), threads,
+      &n, pick(cps_u16, staged, scratch, gap), threads,
       static_cast<size_t>(smem_bytes));
   if (e != cudaSuccess) return -static_cast<int>(e);
   return n;

@@ -18,7 +18,11 @@
 //   4. per tag slot, the first maximum over the slot's classes;
 //   5. outputs: the column-major gap bits (gap g at bit g / W8 of byte
 //      g % W8), then the fused uint16 word (tid + 1) | (choice_s + 1) <<
-//      (7 + 4s), or the tid at its narrow width and the int8 choices.
+//      (7 + 4s), or the tid at its narrow width and the int8 choices; with
+//      template TS also each token's C class sums (bias plus hits, what the
+//      argmax reads) at its end position of the (B, L, C) tag scores, the
+//      --tag-scores output (other positions are not written). Without TS
+//      the instantiation is the same code.
 // Every value equals the plain version's (ops/tags.py serve_tags_plain)
 // bit for bit; integer adds wrap as int32.
 //
@@ -126,6 +130,7 @@ struct VtTagsArgs {
   int64_t W8, out_kind;       // 0: uint16 word; 1/2/3: int8/16/32 tid
   void* tid_out;              // (B, L)
   int8_t* choice_out;         // (B, L, S), null with the word
+  int32_t* tag_scores;        // (B, L, C) at token ends, or null
   int64_t row_bytes;          // a warp's working set in shared memory
   uint32_t* sched;            // (2,) next row, finished warps; 0 between
                               // launches
@@ -413,6 +418,7 @@ __device__ __forceinline__ int walk_spans(const Args& a, const Row& w,
 
 // One group of n <= GROUP tokens (token ends w.list[g0, g0 + n), their
 // ids in w.sym): their probes, their class scores and their outputs.
+template <bool TS>
 __device__ __forceinline__ void token_group(const Args& a, const Row& w,
                                             const int32_t* desc, int g0,
                                             int n_tok, int64_t row0,
@@ -527,6 +533,16 @@ __device__ __forceinline__ void token_group(const Args& a, const Row& w,
   }
   __syncwarp();
 
+  // ---- the class sums, at each token's end (before the next group
+  // overwrites them): score i is token i / C's class i % C --------------
+  if (TS) {
+    int tk = lane / C, c = lane - tk * C;
+    for (int i = lane; i < n_tok * C; i += 32) {
+      a.tag_scores[(row0 + w.tok[tk].x) * C + c] = w.sc[i];
+      for (c += 32; c >= C; c -= C) ++tk;
+    }
+  }
+
   // ---- per slot, the first maximum; outputs ---------------------------
   if (lane < n_tok) {
     const int2 tk = w.tok[lane];
@@ -573,7 +589,7 @@ __device__ __forceinline__ void token_group(const Args& a, const Row& w,
   __syncwarp();  // the next group reuses the token slots and the scores
 }
 
-template <typename CP>
+template <typename CP, bool TS>
 __global__ void __launch_bounds__(MAX_THREADS, 1) tags_kernel(const Args a) {
   // the probe table descriptors, then each warp's row working set
   extern __shared__ __align__(16) unsigned char smem[];
@@ -619,8 +635,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) tags_kernel(const Args a) {
     __syncwarp();  // the list, and the defaults before any token's output
     const int n_tok = walk_spans(a, w, n_c, lane);
     for (int g0 = 0; g0 < n_tok; g0 += GROUP)
-      token_group(a, w, desc, g0, n_tok - g0 < GROUP ? n_tok - g0 : GROUP,
-                  row0, lane);
+      token_group<TS>(a, w, desc, g0,
+                      n_tok - g0 < GROUP ? n_tok - g0 : GROUP, row0, lane);
     __syncwarp();  // the next row reuses this warp's working set
     r = r_next;
     len_r = len_next;
@@ -637,17 +653,22 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) tags_kernel(const Args a) {
   }
 }
 
-const void* pick(int cps_u16) {
-  return cps_u16 ? reinterpret_cast<const void*>(tags_kernel<uint16_t>)
-                 : reinterpret_cast<const void*>(tags_kernel<int32_t>);
+template <bool TS>
+const void* kernel_of(int cps_u16) {
+  return cps_u16 ? reinterpret_cast<const void*>(tags_kernel<uint16_t, TS>)
+                 : reinterpret_cast<const void*>(tags_kernel<int32_t, TS>);
 }
 
-cudaError_t allow_smem(int cps_u16, int device) {
+const void* pick(int cps_u16, int ts) {
+  return ts ? kernel_of<true>(cps_u16) : kernel_of<false>(cps_u16);
+}
+
+cudaError_t allow_smem(int cps_u16, int ts, int device) {
   int limit = 0;
   cudaError_t e = cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(pick(cps_u16),
+  return cudaFuncSetAttribute(pick(cps_u16, ts),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               limit);
 }
@@ -665,12 +686,13 @@ int vt_tags(const VtTagsArgs* a, int blocks, int threads, int64_t smem_bytes,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int cps_u16 = static_cast<int>(a->cps_u16);
+  const int ts = a->tag_scores != nullptr;
   if (smem_bytes > 48 * 1024) {
-    e = allow_smem(cps_u16, device);
+    e = allow_smem(cps_u16, ts, device);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   void* params[] = {const_cast<VtTagsArgs*>(a)};
-  e = cudaLaunchKernel(pick(cps_u16), dim3(blocks), dim3(threads), params,
+  e = cudaLaunchKernel(pick(cps_u16, ts), dim3(blocks), dim3(threads), params,
                        static_cast<size_t>(smem_bytes),
                        static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -688,15 +710,15 @@ int vt_tags_smem_limit(int device) {
 
 // Blocks of `threads` threads with `smem_bytes` of dynamic shared memory
 // that one SM holds at once, or minus the CUDA error.
-int vt_tags_occupancy(int cps_u16, int threads, int64_t smem_bytes,
+int vt_tags_occupancy(int cps_u16, int ts, int threads, int64_t smem_bytes,
                       int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  e = allow_smem(cps_u16, device);
+  e = allow_smem(cps_u16, ts, device);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, pick(cps_u16), threads, static_cast<size_t>(smem_bytes));
+      &n, pick(cps_u16, ts), threads, static_cast<size_t>(smem_bytes));
   if (e != cudaSuccess) return -static_cast<int>(e);
   return n;
 }

@@ -5,8 +5,9 @@ first use (see :mod:`vaporetto_tpu_torch._build`); a failed build raises.
 It holds the one-call matcher compiler (``compile_matcher.cc`` over
 ``trie_builder.cc``), the lean serving path's host stages
 (``tensorizer.cc``): the uint16 tensorizers, the newline and char
-counters, the byte, bit-packed and tag-aware detokenizers, and the
-batched tag scorer of the general tag path (``tag_scorer.cc``).
+counters, the byte, bit-packed, scores and tag-aware detokenizers (the
+last two with the ``--scores`` / ``--tag-scores`` blocks), and the batched
+tag scorer of the general tag path (``tag_scorer.cc``).
 
 Wrappers that decode input return None when the batch needs the general
 path (invalid UTF-8, an astral codepoint, NUL, or a line longer than the
@@ -124,6 +125,16 @@ def _load() -> ctypes.CDLL:
                 U8P, ctypes.c_int64,  # out, out_cap
                 ctypes.c_int32,  # n_threads
             ]
+            lib.vt_detok_scores2.restype = ctypes.c_int64
+            lib.vt_detok_scores2.argtypes = [
+                U8P, I64P, I64P, ctypes.c_int64,
+                U8P, ctypes.c_int32,  # bits, bytes_per_row
+                I32P, I32P, I32P,  # rows_of, cols_of (nullable), counts
+                U16P, ctypes.c_int32,  # cps16, L
+                I32P, ctypes.c_int32,  # scores, Lm1
+                U8P, ctypes.c_int64,  # out, out_cap
+                ctypes.c_int32,  # n_threads
+            ]
             lib.vt_detok_tags2.restype = ctypes.c_int64
             lib.vt_detok_tags2.argtypes = [
                 U8P, I64P, I64P, ctypes.c_int64,
@@ -132,6 +143,11 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,  # tid
                 I8P, ctypes.c_int32,  # choice, n_slots
                 I64P, I32P, I32P, U8P, I64P, ctypes.c_int64,  # plan
+                U16P,  # cps16 (nullable)
+                I32P, ctypes.c_int32,  # gap_scores (nullable), Lm1
+                I32P, ctypes.c_int32,  # tag_scores (nullable), C
+                I64P, I32P, I32P, I32P, U8P, I64P,  # tag-scores plan
+                ctypes.c_int64,  # ts_max_bytes
                 U8P, ctypes.c_int64,  # out, out_cap
                 ctypes.c_int32,  # n_threads
             ]
@@ -621,6 +637,126 @@ class TagEmitPlan:
         self.pool_off = np.asarray(pool_off, dtype=np.int64)
 
 
+class TagScoresPlan:
+    """Host emission plan for the native ``--tag-scores`` block
+    (vt_detok_tags2): per token id, every slot in order, each with its
+    UNESCAPED candidate pool range, candidate count, and score-column
+    offset into the class-concatenated tag score row (the reference's
+    print_tag_scores, predict/src/main.rs:76-91; column layout
+    model.rs:17-38 — only multi-candidate slots own columns).
+    ``max_bytes`` bounds one token's cells: per slot a tab, and per
+    candidate its bytes and at most 13 more (``:``, ``,`` and an int32)."""
+
+    def __init__(self, tag_meta):
+        pool: list = []
+        pool_off = [0]
+
+        def add_pool(b: bytes) -> int:
+            pool.append(b)
+            pool_off.append(pool_off[-1] + len(b))
+            return len(pool) - 1
+
+        n_tokens = len(tag_meta.tags)
+        ts_start = np.zeros(n_tokens + 1, dtype=np.int64)
+        base: list = []
+        cnt: list = []
+        koff: list = []
+        self.max_bytes = 0
+        for tid, slots in enumerate(tag_meta.tags):
+            k = 0
+            tok_bytes = 0
+            for cands in slots:
+                first = len(pool)
+                for c in cands:
+                    add_pool(c.encode("utf-8"))
+                base.append(first)
+                cnt.append(len(cands))
+                koff.append(k)
+                if len(cands) == 1:
+                    tok_bytes += 1 + (pool_off[-1] - pool_off[first]) + 2
+                else:
+                    k += len(cands)
+                    tok_bytes += 1 + (pool_off[-1] - pool_off[first]) \
+                        + 13 * len(cands)
+            ts_start[tid + 1] = len(base)
+            self.max_bytes = max(self.max_bytes, tok_bytes)
+        self.start = ts_start
+        self.base = np.asarray(base or [0], dtype=np.int32)
+        self.cnt = np.asarray(cnt or [0], dtype=np.int32)
+        self.koff = np.asarray(koff or [0], dtype=np.int32)
+        self.pool = np.frombuffer(b"".join(pool) or b"\x00", dtype=np.uint8)
+        self.pool_off = np.asarray(pool_off, dtype=np.int64)
+
+
+#: bytes of one ``i:AB score`` line of a ``--scores`` block at most
+#: (tensorizer.cc PER_GAP)
+PER_GAP = 30
+
+
+def scores_detok_available() -> bool:
+    """Whether the native ``--scores`` writer is built in (it always is in
+    the port's library; a failed build raises instead)."""
+    return hasattr(_load(), "vt_detok_scores2")
+
+
+def detok_scores2_native(
+    blob: np.ndarray,  # uint8 ORIGINAL UTF-8 bytes
+    starts: np.ndarray,  # int64 (n_lines,)
+    ends: np.ndarray,  # int64 (n_lines,)
+    bits: np.ndarray,  # uint8 (B, bytes_per_row) column-major gap bits
+    counts: np.ndarray,  # int32 per-line char counts
+    cps16: np.ndarray,  # uint16 (B, L) normalized device rows
+    scores: np.ndarray,  # int32 (B, L - 1) gap scores
+    rows_of: Optional[np.ndarray] = None,  # int32 per-line packed row
+    cols_of: Optional[np.ndarray] = None,  # int32 per-line packed column
+    n_threads: int = 0,
+    scratch: Optional[dict] = None,
+):
+    """``--scores`` writer (native vt_detok_scores2): each line's
+    tokenized text and its gap-score block, reading boundaries as bit rows
+    and codepoints and scores at per-line (row, col) placement (the packed
+    short-line layout; no placement = line i at row i). Returns
+    bytes/memoryview like :func:`detok_native`.
+
+    The output buffer is sized from the writer's own per-line bound, ``2 *
+    bytes + chars + 2 + chars * PER_GAP`` (an empty line's 2 included),
+    and an undersized buffer raises."""
+    lib = _load()
+    n = len(starts)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    cps16 = np.ascontiguousarray(cps16, dtype=np.uint16)
+    scores = np.ascontiguousarray(scores, dtype=np.int32)
+    n_chars = counts.astype(np.int64)
+    cap = int(2 * (ends - starts).sum() + (1 + PER_GAP) * n_chars.sum()
+              + 2 * n) + 1
+    out = _out_buffer(cap, scratch)
+    if rows_of is not None:
+        rows_of = np.ascontiguousarray(rows_of, dtype=np.int32)
+        cols_of = np.ascontiguousarray(cols_of, dtype=np.int32)
+    written = lib.vt_detok_scores2(
+        _buf(blob).ctypes.data_as(U8P),
+        starts.ctypes.data_as(I64P),
+        ends.ctypes.data_as(I64P),
+        n,
+        bits.ctypes.data_as(U8P),
+        bits.shape[1] if bits.ndim == 2 else 0,
+        rows_of.ctypes.data_as(I32P) if rows_of is not None else None,
+        cols_of.ctypes.data_as(I32P) if cols_of is not None else None,
+        counts.ctypes.data_as(I32P),
+        cps16.ctypes.data_as(U16P),
+        cps16.shape[1],
+        scores.ctypes.data_as(I32P),
+        scores.shape[1],
+        out.ctypes.data_as(U8P),
+        cap,
+        n_threads,
+    )
+    return _written(out, written, scratch)
+
+
 _TID_KIND = {np.dtype(np.int32): 0, np.dtype(np.int16): 1,
              np.dtype(np.int8): 2}
 
@@ -638,15 +774,23 @@ def detok_tags2_native(
     cols_of: Optional[np.ndarray] = None,  # int32 per-line packed column
     n_threads: int = 0,
     scratch: Optional[dict] = None,
+    cps16: Optional[np.ndarray] = None,  # uint16 (B, L), for either block
+    gap_scores: Optional[np.ndarray] = None,  # int32 (B, L - 1)
+    tag_scores: Optional[np.ndarray] = None,  # int32 (B, L, C)
+    ts_plan: Optional[TagScoresPlan] = None,
 ):
     """Tag-aware tokenized writer (native vt_detok_tags2): bit-packed
-    boundaries, per-line placement, token ids at their narrow width.
-    Returns bytes/memoryview like :func:`detok_native`.
+    boundaries, per-line placement, token ids at their narrow width, and
+    with ``gap_scores`` / ``tag_scores`` the ``--scores`` / ``--tag-scores``
+    blocks of the rich combinations. Returns bytes/memoryview like
+    :func:`detok_native`.
 
     The output buffer is sized from the writer's own per-line bound —
-    ``2 * bytes + chars + 1 + tokens * max_tag_bytes`` with at most
-    ``max(chars, 1)`` tokens a line, so an empty line reserves one tag
-    block too — and an undersized buffer raises."""
+    ``2 * bytes + chars + 1 + tokens * max_tag_bytes``, plus ``chars *
+    PER_GAP + 2`` with gap scores and ``3 * chars + tokens * (ts_plan.
+    max_bytes + 1) + 2`` with tag scores, at most ``max(chars, 1)`` tokens
+    a line, so an empty line reserves its blocks too — and an undersized
+    buffer raises."""
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -659,12 +803,27 @@ def detok_tags2_native(
         raise TypeError(f"tid: dtype {tid.dtype} is not int32/int16/int8")
     choice = np.ascontiguousarray(choice, dtype=np.int8)
     n_chars = counts.astype(np.int64)
+    n_tok = int(np.maximum(n_chars, 1).sum())
     cap = int(2 * (ends - starts).sum() + n_chars.sum() + n
-              + np.maximum(n_chars, 1).sum() * plan.max_tag_bytes) + 1
+              + n_tok * plan.max_tag_bytes) + 1
+    if gap_scores is not None or tag_scores is not None:
+        if cps16 is None:
+            raise ValueError("the score blocks need the codepoints (cps16)")
+        cps16 = np.ascontiguousarray(cps16, dtype=np.uint16)
+    if gap_scores is not None:
+        gap_scores = np.ascontiguousarray(gap_scores, dtype=np.int32)
+        cap += int(PER_GAP * n_chars.sum()) + 2 * n
+    if tag_scores is not None:
+        if ts_plan is None:
+            raise ValueError("tag_scores needs a TagScoresPlan")
+        tag_scores = np.ascontiguousarray(tag_scores, dtype=np.int32)
+        cap += int(3 * n_chars.sum()) + n_tok * (ts_plan.max_bytes + 1) \
+            + 2 * n
     out = _out_buffer(cap, scratch)
     if rows_of is not None:
         rows_of = np.ascontiguousarray(rows_of, dtype=np.int32)
         cols_of = np.ascontiguousarray(cols_of, dtype=np.int32)
+    ts = ts_plan if tag_scores is not None else None
     written = lib.vt_detok_tags2(
         _buf(blob).ctypes.data_as(U8P),
         starts.ctypes.data_as(I64P),
@@ -686,6 +845,20 @@ def detok_tags2_native(
         plan.pool.ctypes.data_as(U8P),
         plan.pool_off.ctypes.data_as(I64P),
         plan.max_tag_bytes,
+        cps16.ctypes.data_as(U16P) if cps16 is not None else None,
+        (gap_scores.ctypes.data_as(I32P) if gap_scores is not None
+         else None),
+        gap_scores.shape[1] if gap_scores is not None else 0,
+        (tag_scores.ctypes.data_as(I32P) if tag_scores is not None
+         else None),
+        tag_scores.shape[2] if tag_scores is not None else 0,
+        ts.start.ctypes.data_as(I64P) if ts is not None else None,
+        ts.base.ctypes.data_as(I32P) if ts is not None else None,
+        ts.cnt.ctypes.data_as(I32P) if ts is not None else None,
+        ts.koff.ctypes.data_as(I32P) if ts is not None else None,
+        ts.pool.ctypes.data_as(U8P) if ts is not None else None,
+        ts.pool_off.ctypes.data_as(I64P) if ts is not None else None,
+        ts.max_bytes if ts is not None else 0,
         out.ctypes.data_as(U8P),
         cap,
         n_threads,

@@ -2,7 +2,8 @@
 // stages. Decodes UTF-8 lines into padded (B, L) uint16 codepoint and
 // uint8 char-type arrays in one pass (the host-side input pipeline feeding
 // the device), and writes the tokenized bytes back from the boundary bits
-// (and, on the tag path, the token ids and tag choices).
+// (and, on the tag path, the token ids and tag choices), with the --scores
+// and --tag-scores blocks when asked.
 // Char-type classification matches the reference Unicode ranges
 // (sentence.rs:50-67) exactly.
 
@@ -351,7 +352,116 @@ inline int bit_at(const uint8_t* brow, int64_t pos, int32_t W) {
   return (brow[pos % W] >> (pos / W)) & 1;
 }
 
+// append a codepoint (BMP) as UTF-8
+inline uint8_t* put_utf8(uint8_t* o, uint32_t c) {
+  if (c < 0x80) {
+    *o++ = static_cast<uint8_t>(c);
+  } else if (c < 0x800) {
+    *o++ = static_cast<uint8_t>(0xC0 | (c >> 6));
+    *o++ = static_cast<uint8_t>(0x80 | (c & 0x3F));
+  } else {
+    *o++ = static_cast<uint8_t>(0xE0 | (c >> 12));
+    *o++ = static_cast<uint8_t>(0x80 | ((c >> 6) & 0x3F));
+    *o++ = static_cast<uint8_t>(0x80 | (c & 0x3F));
+  }
+  return o;
+}
+
+inline uint8_t* put_int(uint8_t* o, int64_t v) {
+  if (v < 0) {
+    *o++ = '-';
+    v = -v;
+  }
+  uint8_t tmp[20];
+  int n = 0;
+  do {
+    tmp[n++] = static_cast<uint8_t>('0' + v % 10);
+    v /= 10;
+  } while (v);
+  while (n) *o++ = tmp[--n];
+  return o;
+}
+
+// bytes of one "i:AB score\n" line of a --scores block at most: a gap index
+// and a score of up to 11 chars each, two 3-byte chars, ':', ' ', '\n'
+constexpr int64_t PER_GAP = 30;
+
 }  // namespace
+
+// Scores writer for the lean --scores path: per line, the tokenized text
+// (vt_detok_bits semantics), then one "i:AB score" line per gap of the
+// NORMALIZED text (reference predict/src/main.rs:66-75 prints the scores of
+// the normalized sentence), then a blank line. Boundaries arrive as bit
+// rows at per-line (row, col) placement (NULL = line i at (i, 0)); counts
+// are the per-line char counts; cps16 (B, L) and scores (B, Lm1) are the
+// device rows, line i reading columns col .. col + count - 1. Empty lines
+// (count 0) have no Sentence on the general path and get no block. Returns
+// the bytes written, or -1 when out_cap is below the per-line bound
+// 2 * bytes + chars + 2 + chars * PER_GAP.
+int64_t vt_detok_scores2(const uint8_t* utf8, const int64_t* starts,
+                         const int64_t* ends, int64_t n_lines,
+                         const uint8_t* bits, int32_t bytes_per_row,
+                         const int32_t* rows_of, const int32_t* cols_of,
+                         const int32_t* counts, const uint16_t* cps16,
+                         int32_t L, const int32_t* scores, int32_t Lm1,
+                         uint8_t* out, int64_t out_cap, int32_t n_threads) {
+  std::vector<int64_t> out_len(n_lines, 0);
+  std::vector<int64_t> out_start(n_lines + 1, 0);
+  for (int64_t line = 0; line < n_lines; ++line) {
+    int64_t nbytes = ends[line] - starts[line];
+    int64_t n = counts[line];
+    out_start[line + 1] = out_start[line] + 2 * nbytes + n + 2 + n * PER_GAP;
+  }
+  if (out_start[n_lines] > out_cap) return -1;
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t line = lo; line < hi; ++line) {
+      const uint8_t* p = utf8 + starts[line];
+      const uint8_t* end = utf8 + ends[line];
+      int64_t row = rows_of ? rows_of[line] : line;
+      int64_t base = cols_of ? cols_of[line] : 0;
+      const uint8_t* brow = bits + row * bytes_per_row;
+      int32_t n = counts[line];
+      uint8_t* o = out + out_start[line];
+      uint8_t* o0 = o;
+      int32_t ci = 0;
+      while (p < end) {
+        uint8_t byte = *p;
+        if ((byte & 0xC0) != 0x80) {  // char start
+          if (ci > 0 && ci < n && bit_at(brow, base + ci - 1, bytes_per_row))
+            *o++ = ' ';
+          ++ci;
+          if (byte == ' ' || byte == '/' || byte == '\\') *o++ = '\\';
+        }
+        *o++ = byte;
+        ++p;
+      }
+      *o++ = '\n';
+      if (n > 0) {
+        const uint16_t* cp = cps16 + row * L + base;
+        const int32_t* sc = scores + row * Lm1 + base;
+        for (int32_t i = 0; i + 1 < n; ++i) {
+          o = put_int(o, i);
+          *o++ = ':';
+          o = put_utf8(o, cp[i]);
+          o = put_utf8(o, cp[i + 1]);
+          *o++ = ' ';
+          o = put_int(o, sc[i]);
+          *o++ = '\n';
+        }
+        *o++ = '\n';
+      }
+      out_len[line] = o - o0;
+    }
+  };
+  vt::parallel_rows(n_lines, n_threads, 256, work);
+  int64_t w = 0;
+  for (int64_t line = 0; line < n_lines; ++line) {
+    if (w != out_start[line])
+      std::memmove(out + w, out + out_start[line], out_len[line]);
+    w += out_len[line];
+  }
+  return w;
+}
 
 // Tag-aware detokenizer for the lean --predict-tags path: like
 // vt_detok_bits, but after each token's (escaped) surface it appends the
@@ -369,11 +479,28 @@ inline int bit_at(const uint8_t* brow, int64_t pos, int32_t W) {
 //     choice column to add (-1 = single candidate, use base directly).
 //   pool: concatenated PRE-ESCAPED UTF-8 tag strings; pool_off has
 //     n_pool + 1 offsets.
+// The optional diagnostic blocks of the rich --predict-tags combinations
+// follow each line (reference print_scores / print_tag_scores,
+// predict/src/main.rs:65-91):
+//   * gap_scores != NULL: the --scores block of vt_detok_scores2 (one
+//     "i:AB score" line per gap of the normalized line, then a blank line),
+//     gap_scores (B, Lm1) and cps16 (B, L) at the line's placement;
+//   * tag_scores != NULL: the --tag-scores block (one line per token: the
+//     normalized surface, then per slot a tab and either "cand:0" for a
+//     single-candidate slot or "cand:score,..." over the token's (B, L, C)
+//     class-concatenated score row; a blank line after), from the plan
+//     (native.TagScoresPlan):
+//       ts_start[tid]..ts_start[tid+1]: one entry per slot (every slot);
+//       ts_base = UNESCAPED candidate pool index of the slot's first
+//       candidate; ts_cnt = candidate count; ts_koff = the slot's score
+//       column (prefix sum of the counts of multi-candidate slots).
 // Boundaries arrive as bit rows at per-line (row, col) placement (NULL =
 // line i at (i, 0)); counts are the per-line char counts. Empty lines
-// (count 0) emit a bare line (the general path's from_raw("") error
-// semantics). Returns the bytes written, or -1 when out_cap is below the
-// per-line bound 2 * bytes + chars + 1 + tokens * max_tag_bytes.
+// (count 0) emit a bare line and no blocks (the general path's
+// from_raw("") error semantics). Returns the bytes written, or -1 when
+// out_cap is below the sum of the per-line bounds: 2 * bytes + chars + 1 +
+// tokens * max_tag_bytes, plus chars * PER_GAP + 2 with gap scores, plus
+// 3 * chars + tokens * (ts_max_bytes + 1) + 2 with tag scores.
 int64_t vt_detok_tags2(
     const uint8_t* utf8, const int64_t* starts, const int64_t* ends,
     int64_t n_lines, const uint8_t* bits, int32_t bytes_per_row,
@@ -381,7 +508,12 @@ int64_t vt_detok_tags2(
     const void* tid, int32_t tid_kind, int64_t L, const int8_t* choice,
     int32_t n_slots, const int64_t* ent_start, const int32_t* ent_base,
     const int32_t* ent_ccol, const uint8_t* pool, const int64_t* pool_off,
-    int64_t max_tag_bytes, uint8_t* out, int64_t out_cap, int32_t n_threads) {
+    int64_t max_tag_bytes, const uint16_t* cps16, const int32_t* gap_scores,
+    int32_t Lm1, const int32_t* tag_scores, int32_t C,
+    const int64_t* ts_start, const int32_t* ts_base, const int32_t* ts_cnt,
+    const int32_t* ts_koff, const uint8_t* ts_pool,
+    const int64_t* ts_pool_off, int64_t ts_max_bytes, uint8_t* out,
+    int64_t out_cap, int32_t n_threads) {
   std::vector<int64_t> out_len(n_lines, 0);
   std::vector<int64_t> out_start(n_lines + 1, 0);
   for (int64_t line = 0; line < n_lines; ++line) {
@@ -392,8 +524,11 @@ int64_t vt_detok_tags2(
     const uint8_t* brow = bits + row * bytes_per_row;
     int64_t ntok = 1;
     for (int64_t g = 0; g + 1 < n; ++g) ntok += bit_at(brow, base + g, bytes_per_row);
-    out_start[line + 1] = out_start[line] + 2 * nbytes + n + 1 +
-                          ntok * max_tag_bytes;
+    int64_t cap = 2 * nbytes + n + 1 + ntok * max_tag_bytes;
+    if (gap_scores) cap += n * PER_GAP + 2;
+    if (tag_scores)  // surfaces print NORMALIZED codepoints (<= 3 B a char)
+      cap += 3 * n + ntok * (ts_max_bytes + 1) + 2;
+    out_start[line + 1] = out_start[line] + cap;
   }
   if (out_start[n_lines] > out_cap) return -1;
   auto tid_at = [&](int64_t row, int64_t col) -> int32_t {
@@ -452,6 +587,58 @@ int64_t vt_detok_tags2(
       }
       if (ci > 0) emit_tags(ci - 1);
       *o++ = '\n';
+      if (n > 0 && gap_scores) {
+        const uint16_t* cp = cps16 + row * L + base;
+        const int32_t* sc = gap_scores + row * Lm1 + base;
+        for (int32_t i = 0; i + 1 < n; ++i) {
+          o = put_int(o, i);
+          *o++ = ':';
+          o = put_utf8(o, cp[i]);
+          o = put_utf8(o, cp[i + 1]);
+          *o++ = ' ';
+          o = put_int(o, sc[i]);
+          *o++ = '\n';
+        }
+        *o++ = '\n';
+      }
+      if (n > 0 && tag_scores) {
+        const uint16_t* cp = cps16 + row * L + base;
+        int32_t st = 0;
+        for (int32_t e = 0; e < n; ++e) {
+          if (e != n - 1 && !bit_at(brow, base + e, bytes_per_row)) continue;
+          for (int32_t i = st; i <= e; ++i) o = put_utf8(o, cp[i]);
+          int32_t t = tid_at(row, base + e);
+          if (t >= 0) {
+            const int32_t* srow = tag_scores + (row * L + base + e) * C;
+            for (int64_t ei = ts_start[t]; ei < ts_start[t + 1]; ++ei) {
+              *o++ = '\t';
+              int32_t cnt = ts_cnt[ei];
+              int64_t pb = ts_base[ei];
+              if (cnt == 1) {
+                int64_t plo = ts_pool_off[pb], phi = ts_pool_off[pb + 1];
+                std::memcpy(o, ts_pool + plo, phi - plo);
+                o += phi - plo;
+                *o++ = ':';
+                *o++ = '0';
+              } else {
+                int32_t k = ts_koff[ei];
+                for (int32_t j = 0; j < cnt; ++j) {
+                  if (j) *o++ = ',';
+                  int64_t plo = ts_pool_off[pb + j];
+                  int64_t phi = ts_pool_off[pb + j + 1];
+                  std::memcpy(o, ts_pool + plo, phi - plo);
+                  o += phi - plo;
+                  *o++ = ':';
+                  o = put_int(o, srow[k + j]);
+                }
+              }
+            }
+          }
+          *o++ = '\n';
+          st = e + 1;
+        }
+        *o++ = '\n';
+      }
       out_len[line] = o - o0;
     }
   };

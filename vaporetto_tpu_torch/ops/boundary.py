@@ -7,7 +7,9 @@ projection, windowed trie walk, weight chunk adds and type window scores.
 On this path it also folds the serve tail that the JAX package leaves to
 XLA (``Predictor._make_serve_core.tail`` and ``_pack_gap_bits``): score >
 0, same-type wsconst suppression, the in-line gap mask and the column-major
-bit pack.
+bit pack. Either epilogue can also return the row's gap scores (``--scores``
+and the rich tag combinations): the (B, L-1) slice of the padded score row
+at ``pad_left`` that the JAX serve core returns beside the bits.
 
 What bounds it on an H100 is the latency of dependent table gathers
 (hash slot -> root child -> walk rows -> pattern record -> weight chunks,
@@ -52,8 +54,9 @@ from .match import (as_int32, build_walk_tab, classify_types,
 from .score import plan_chunk_offsets, shift_add_scores, type_cache_scores
 
 __all__ = ["BoundaryTables", "boundary_tables", "boundary",
-           "boundary_scores_plain", "serve_bits_plain", "pack_gap_bits",
-           "build", "launch_geometry", "Geometry", "row_bytes"]
+           "boundary_scores_plain", "serve_bits_plain", "gap_scores_of",
+           "pack_gap_bits", "build", "launch_geometry", "Geometry",
+           "row_bytes"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "boundary.cu")
@@ -270,10 +273,18 @@ def pack_gap_bits(gaps: torch.Tensor) -> torch.Tensor:
     return b.to(torch.uint8)
 
 
+def gap_scores_of(tabs: BoundaryTables, scores: torch.Tensor) -> torch.Tensor:
+    """(B, L-1) int32 gap scores out of the padded (B, S) score row: every
+    column, padding included (JAX ``_make_serve_core``'s ``gap_scores``)."""
+    L = scores.shape[1] - tabs.pad_left - tabs.pad_right + 1
+    return scores[:, tabs.pad_left : tabs.pad_left + L - 1].contiguous()
+
+
 def serve_bits_plain(tabs: BoundaryTables, cps, cts, lengths,
-                     ws_types: Sequence[int] = ()):
+                     ws_types: Sequence[int] = (), gap_scores: bool = False):
     """The kernel's serve epilogue in plain torch: boundary mask
-    (score > 0, wsconst, in-line gaps) bit-packed column-major."""
+    (score > 0, wsconst, in-line gaps) bit-packed column-major; with
+    ``gap_scores``, ``(bits, gap scores)``."""
     B, L = cps.shape
     scores, _, _ = boundary_scores_plain(tabs, cps, cts, lengths)
     gaps = scores[:, tabs.pad_left : tabs.pad_left + L - 1] > 0
@@ -286,6 +297,8 @@ def serve_bits_plain(tabs: BoundaryTables, cps, cts, lengths,
         gaps = gaps & ~(ws & (ct0 == ct1))
     t_idx = torch.arange(L - 1, device=cps.device)[None, :]
     gaps = gaps & (t_idx < (lengths.to(torch.int32)[:, None] - 1))
+    if gap_scores:
+        return pack_gap_bits(gaps), gap_scores_of(tabs, scores)
     return pack_gap_bits(gaps)
 
 
@@ -310,6 +323,7 @@ class _Args(ctypes.Structure):
         ("bias", 0), ("pad_left", 0), ("S", 0),
         ("scores", 1), ("char_match", 1), ("type_match", 1),
         ("bits", 1), ("W8", 0), ("ws_mask", 0),
+        ("gap_scores", 1), ("gap_stride", 0),
         ("scratch", 1), ("row_bytes", 0), ("sched", 1),
     )]
 
@@ -348,7 +362,7 @@ def _load() -> ctypes.CDLL:
             lib.vt_boundary_smem_limit.argtypes = [c_int]
             lib.vt_boundary_occupancy.restype = c_int
             lib.vt_boundary_occupancy.argtypes = [
-                c_int, c_int, c_int, c_int, ctypes.c_int64, c_int]
+                c_int, c_int, c_int, c_int, c_int, ctypes.c_int64, c_int]
             lib.vt_boundary_max_threads.restype = c_int
             lib.vt_boundary_max_threads.argtypes = []
             _lib = lib
@@ -397,7 +411,7 @@ class Geometry:
 
 
 def launch_geometry(tabs: BoundaryTables, B: int, L: int,
-                    cps_u16: bool = True) -> Geometry:
+                    cps_u16: bool = True, gap: bool = False) -> Geometry:
     """The kernel's launch for a (B, L) batch on ``tabs.device``.
 
     The hot tables are staged when they fit STAGE_BUDGET; a block then
@@ -406,14 +420,15 @@ def launch_geometry(tabs: BoundaryTables, B: int, L: int,
     over every SM; rows wider than the shared memory left run on a global
     scratch slice per warp. Blocks: as many as are resident at once on
     the card, or fewer when the batch has fewer rows. Cached per shape,
-    so a launch at a shape seen before makes no device queries."""
+    so a launch at a shape seen before makes no device queries. ``gap``:
+    the instantiation that also writes gap scores."""
     return _geometry(tabs.stage_bytes(), tabs.pad_left + tabs.pad_right,
-                     B, L, bool(cps_u16), tabs.device.index)
+                     B, L, bool(cps_u16), bool(gap), tabs.device.index)
 
 
 @functools.lru_cache(maxsize=4096)
 def _geometry(stage: int, pad: int, B: int, L: int, cps_u16: bool,
-              device_index: int) -> Geometry:
+              gap: bool, device_index: int) -> Geometry:
     n_sm, max_warps_per_sm, smem_limit, max_warps = _device_limits(
         device_index)
     rb = row_bytes(L, pad + L - 1)
@@ -427,8 +442,8 @@ def _geometry(stage: int, pad: int, B: int, L: int, cps_u16: bool,
     warps = max(warps, 1)
     smem = fixed + (0 if scratch else warps * rb)
     per_sm = _load().vt_boundary_occupancy(int(cps_u16), int(staged),
-                                           int(scratch), 32 * warps, smem,
-                                           device_index)
+                                           int(scratch), int(gap), 32 * warps,
+                                           smem, device_index)
     if per_sm < 1:
         raise RuntimeError(f"boundary kernel cannot run {32 * warps} threads "
                            f"with {smem} B of shared memory (code {per_sm})")
@@ -453,7 +468,8 @@ def _check(name, t, dtypes, shape, device):
 
 def boundary(tabs: BoundaryTables, cps: torch.Tensor,
              cts: Optional[torch.Tensor], lengths: torch.Tensor, *,
-             serve: bool = False, ws_types: Sequence[int] = ()):
+             serve: bool = False, ws_types: Sequence[int] = (),
+             gap_scores: bool = False):
     """Boundary scoring of a (B, L) batch.
 
     ``cps``: uint16 or int32 codepoints, 0 at and past each row's length
@@ -472,11 +488,15 @@ def boundary(tabs: BoundaryTables, cps: torch.Tensor,
     char_match (B, L) int32 or None, type_match (B, L) int32 or None).
     Serve epilogue: returns the uint8 (B, ceil((L-1)/8)) column-major
     boundary bits with ``ws_types`` same-type gaps suppressed.
+    ``gap_scores``: either epilogue also returns, last, the (B, L-1) int32
+    gap scores (:func:`gap_scores_of`; wsconst leaves them as they are).
     """
     if cps.device.type == "cpu":
         if serve:
-            return serve_bits_plain(tabs, cps, cts, lengths, ws_types)
-        return boundary_scores_plain(tabs, cps, cts, lengths)
+            return serve_bits_plain(tabs, cps, cts, lengths, ws_types,
+                                    gap_scores)
+        out = boundary_scores_plain(tabs, cps, cts, lengths)
+        return out + (gap_scores_of(tabs, out[0]),) if gap_scores else out
     if cps.device.type != "cuda":
         raise ValueError(f"unsupported device {cps.device}")
     dev = cps.device
@@ -523,10 +543,14 @@ def boundary(tabs: BoundaryTables, cps: torch.Tensor,
         a.scores, a.char_match, a.type_match = (scores.data_ptr(), _ptr(cm),
                                                 _ptr(tm))
         out = (scores, cm, tm)
+    if gap_scores:
+        gap = torch.empty((B, max(L - 1, 0)), dtype=torch.int32, device=dev)
+        a.gap_scores, a.gap_stride = gap.data_ptr(), gap.shape[1]
+        out = (out, gap) if serve else out + (gap,)
     if B == 0:
         return out
     lib = _load()
-    g = launch_geometry(tabs, B, L, bool(a.cps_u16))
+    g = launch_geometry(tabs, B, L, bool(a.cps_u16), gap_scores)
     a.row_bytes = g.row_bytes
     scratch = None
     if g.scratch:

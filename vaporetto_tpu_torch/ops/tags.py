@@ -15,7 +15,9 @@ char and type match ids):
 4. a per-slot masked argmax in which the first maximum wins;
 5. narrow outputs: the column-major gap bits, then a fused uint16
    ``tid + choice`` word when ``n_tokens <= 126, S <= 2, max_cands <= 15``,
-   else an int8/int16/int32 tid and an int8 ``(B, L, S)`` choice.
+   else an int8/int16/int32 tid and an int8 ``(B, L, S)`` choice;
+6. on request (``--tag-scores``), the ``(B, L, C)`` int32 class sums of step
+   3 at each token end (``want_tag_scores``, ``body:853-854``).
 
 What bounds the kernel on an H100 is the latency of dependent gathers
 (trie walk rows, then each probe run, the hit's row index and its weight
@@ -338,25 +340,31 @@ def _choices(tt: TagTables, tid, sc):
 
 
 def serve_tags_plain(tt: TagTables, cps, cts, lengths, scores, char_match,
-                     type_match, ws_types: Sequence[int] = ()):
+                     type_match, ws_types: Sequence[int] = (),
+                     tag_scores: bool = False):
     """The tag pass in plain torch over the boundary kernel's full
     epilogue: ``(bits, word)`` when ``tt.packed_tc``, else ``(bits, tid,
-    choice)`` (dtypes as :func:`tags` documents)."""
+    choice)`` (dtypes as :func:`tags` documents); ``tag_scores`` appends
+    the (B, L, C) int32 class sums at every position (meaningful where a
+    token ends)."""
     cps32 = as_int32(cps)
     cts = _char_types(cps, cts)
     gaps = _gaps(tt, cps32, cts, lengths, scores, ws_types)
     tid = _token_ids(tt, cps32, lengths, gaps)
-    choices = _choices(tt, tid, _class_scores(tt, tid, char_match,
-                                              type_match))
+    sc = _class_scores(tt, tid, char_match, type_match)
+    choices = _choices(tt, tid, sc)
     bits = pack_gap_bits(gaps)
     if tt.packed_tc:
         w = tid + 1
         for s, c in enumerate(choices):
             w = w | ((c + 1) << (7 + 4 * s))
-        return bits, (w & 0xFFFF).to(torch.uint16)
-    choice = torch.stack(choices, dim=-1).to(torch.int8) if choices else \
-        torch.zeros(tid.shape + (0,), dtype=torch.int8, device=tid.device)
-    return bits, tid.to(tag_output_dtype(tt.n_tokens)), choice
+        out = (bits, (w & 0xFFFF).to(torch.uint16))
+    else:
+        choice = torch.stack(choices, dim=-1).to(torch.int8) if choices \
+            else torch.zeros(tid.shape + (0,), dtype=torch.int8,
+                             device=tid.device)
+        out = (bits, tid.to(tag_output_dtype(tt.n_tokens)), choice)
+    return out + (sc,) if tag_scores else out
 
 
 # ----------------------------------------------------------------------
@@ -378,7 +386,7 @@ class _Args(ctypes.Structure):
         ("C", 0), ("S", 0), ("bias", 1), ("slot2", 1),
         ("desc", 1), ("n_tabs", 0), ("keys", 1), ("rows", 1), ("w_rows", 1),
         ("bits", 1), ("W8", 0), ("out_kind", 0), ("tid_out", 1),
-        ("choice_out", 1), ("row_bytes", 0), ("sched", 1),
+        ("choice_out", 1), ("tag_scores", 1), ("row_bytes", 0), ("sched", 1),
     )]
 
 
@@ -408,8 +416,8 @@ def _load() -> ctypes.CDLL:
             lib.vt_tags_smem_limit.restype = c_int
             lib.vt_tags_smem_limit.argtypes = [c_int]
             lib.vt_tags_occupancy.restype = c_int
-            lib.vt_tags_occupancy.argtypes = [c_int, c_int, ctypes.c_int64,
-                                              c_int]
+            lib.vt_tags_occupancy.argtypes = [c_int, c_int, c_int,
+                                              ctypes.c_int64, c_int]
             lib.vt_tags_max_threads.restype = c_int
             lib.vt_tags_max_threads.argtypes = []
             _lib = lib
@@ -463,20 +471,21 @@ class Geometry:
 
 
 def launch_geometry(tt: TagTables, B: int, L: int,
-                    cps_u16: bool = True) -> Geometry:
+                    cps_u16: bool = True, ts: bool = False) -> Geometry:
     """The kernel's launch for a (B, L) batch on ``tt.device``: as many
     warps a block as SMEM_BUDGET holds rows (at most the kernel's 32; one
     at least, up to the block's whole shared memory), but no more than it
     takes to spread the batch over every SM; blocks, as many as are
     resident at once on the card, or fewer when the batch has fewer rows.
     Raises when one row's working set exceeds a block's shared memory.
-    Cached per shape."""
-    return _geometry(tt.C, len(tt.tabs), B, L, bool(cps_u16),
+    Cached per shape. ``ts``: the instantiation that also writes tag
+    scores."""
+    return _geometry(tt.C, len(tt.tabs), B, L, bool(cps_u16), bool(ts),
                      tt.device.index)
 
 
 @functools.lru_cache(maxsize=4096)
-def _geometry(C: int, n_tabs: int, B: int, L: int, cps_u16: bool,
+def _geometry(C: int, n_tabs: int, B: int, L: int, cps_u16: bool, ts: bool,
               device_index: int) -> Geometry:
     n_sm, max_warps_per_sm, smem_limit, max_warps = _device_limits(
         device_index)
@@ -488,8 +497,8 @@ def _geometry(C: int, n_tabs: int, B: int, L: int, cps_u16: bool,
     fit = (min(smem_limit, SMEM_BUDGET) - head) // rb
     warps = max(1, min(max_warps, -(-B // n_sm), fit))
     smem = head + warps * rb
-    per_sm = _load().vt_tags_occupancy(int(cps_u16), 32 * warps, smem,
-                                       device_index)
+    per_sm = _load().vt_tags_occupancy(int(cps_u16), int(ts), 32 * warps,
+                                       smem, device_index)
     if per_sm < 1:
         raise RuntimeError(f"tag kernel cannot run {32 * warps} threads "
                            f"with {smem} B of shared memory (code {per_sm})")
@@ -503,7 +512,7 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
          lengths: torch.Tensor, scores: torch.Tensor,
          char_match: Optional[torch.Tensor],
          type_match: Optional[torch.Tensor], *,
-         ws_types: Sequence[int] = ()):
+         ws_types: Sequence[int] = (), tag_scores: bool = False):
     """The tag pass of a (B, L) batch over the boundary kernel's full
     epilogue (``scores`` (B, pad_left + L - 1 + pad_right) int32, match
     ids (B, L) int32 or None for a side the model lacks).
@@ -517,11 +526,14 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
     4s)`` (``tt.packed_tc``) or the (B, L) tid (int8, int16 or int32 by
     the token count) and the int8 (B, L, S) choice; tid is -1 except at
     the last char of a recognized token, choice -1 except at a
-    recognized token's multi-candidate slots.
+    recognized token's multi-candidate slots. ``tag_scores`` appends the
+    (B, L, C) int32 class sums that the argmax reads (bias plus hits); the
+    kernel writes them only where a recognized token ends, and the values
+    elsewhere are undefined.
     """
     if cps.device.type == "cpu":
         return serve_tags_plain(tt, cps, cts, lengths, scores, char_match,
-                                type_match, ws_types)
+                                type_match, ws_types, tag_scores)
     if cps.device.type != "cuda":
         raise ValueError(f"unsupported device {cps.device}")
     dev = cps.device
@@ -550,6 +562,10 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
                           device=dev)
         choice = torch.empty((B, L, tt.S), dtype=torch.int8, device=dev)
         out = (bits, tid, choice)
+    ts = None
+    if tag_scores:
+        ts = torch.empty((B, L, tt.C), dtype=torch.int32, device=dev)
+        out = out + (ts,)
     if B == 0 or L == 0:
         return out
     a = _Args()
@@ -571,7 +587,8 @@ def tags(tt: TagTables, cps: torch.Tensor, cts: Optional[torch.Tensor],
     a.bits, a.W8 = bits.data_ptr(), W8
     a.out_kind = _OUT_KIND[tid.dtype]
     a.tid_out, a.choice_out = tid.data_ptr(), _ptr(choice)
-    g = launch_geometry(tt, B, L, bool(a.cps_u16))
+    a.tag_scores = _ptr(ts)
+    g = launch_geometry(tt, B, L, bool(a.cps_u16), tag_scores)
     a.row_bytes = g.row_bytes
     stream = torch.cuda.current_stream(dev).cuda_stream
     sched = tt.sched.get(stream)

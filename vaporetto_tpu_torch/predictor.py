@@ -7,7 +7,9 @@ through one boundary kernel launch (:func:`.ops.boundary.boundary`):
 
     project codepoints -> symbols, windowed trie match, weight chunk adds,
     type window scores -> padded int32 scores (full epilogue), or
-    -> threshold, wsconst, in-line mask, bit pack (serve epilogue)
+    -> threshold, wsconst, in-line mask, bit pack (serve epilogue; with
+    the gap scores beside the bits for ``--scores``,
+    :meth:`Predictor.serve_scores_fn`)
 
 and, on the lean tag path (:meth:`Predictor.serve_tags_fn`), one tag kernel
 launch after the full epilogue (:func:`.ops.tags.tags`). The general tag
@@ -71,6 +73,8 @@ class Predictor:
         self.compiled = compiled if compiled is not None else compile_model(
             model, predict_tags
         )
+        #: what :meth:`serialize_to_vec` records (the JAX artifact's flag)
+        self.predict_tags_enabled = predict_tags
         self._store_tag_scores = False
         self._device_tables: Optional[BoundaryTables] = None
         self._tag_dev_obj = False  # False: not built yet
@@ -140,13 +144,7 @@ class Predictor:
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
         def run(cps, cts, lengths):
-            cps = self._to_device(cps)
-            if cps.dtype not in (torch.uint16, torch.int32):
-                cps = cps.to(torch.int32)
-            if cts is not None:
-                cts = self._to_device(cts)
-                if cts.dtype not in (torch.uint8, torch.int32):
-                    cts = cts.to(torch.int32)
+            cps, cts = self._serve_inputs(cps, cts)
             return boundary(tables, cps, cts,
                             self._to_device(lengths, torch.int32),
                             serve=True, ws_types=ws)
@@ -158,6 +156,42 @@ class Predictor:
             return run(cps, None, lengths)
 
         return fn
+
+    def serve_scores_fn(self, wsconst_types: Sequence[int] = (),
+                        host_types: bool = False):
+        """Lean ``--scores`` serving: :meth:`serve_boundaries_fn` that
+        also returns the raw int32 gap scores, ``(bits, gap_scores (B,
+        L-1))``, from the same serve launch (reference predict
+        main.rs:66-75: wsconst changes the boundary labels, never the
+        scores)."""
+        tables = self._tables()
+        ws = tuple(sorted(int(w) for w in wsconst_types))
+
+        def run(cps, cts, lengths):
+            cps, cts = self._serve_inputs(cps, cts)
+            return boundary(tables, cps, cts,
+                            self._to_device(lengths, torch.int32),
+                            serve=True, ws_types=ws, gap_scores=True)
+
+        if host_types:
+            return run
+
+        def fn(cps, lengths):
+            return run(cps, None, lengths)
+
+        return fn
+
+    def _serve_inputs(self, cps, cts):
+        """uint16 or int32 codepoints and uint8 or int32 types (or None)
+        on the device, as the kernels take them."""
+        cps = self._to_device(cps)
+        if cps.dtype not in (torch.uint16, torch.int32):
+            cps = cps.to(torch.int32)
+        if cts is not None:
+            cts = self._to_device(cts)
+            if cts.dtype not in (torch.uint8, torch.int32):
+                cts = cts.to(torch.int32)
+        return cps, cts
 
     # ------------------------------------------------------------------
     # device tag pass (reference predictor.rs:546-637 on the card)
@@ -184,32 +218,38 @@ class Predictor:
         return self._device_tag_tables
 
     def serve_tags_fn(self, wsconst_types: Sequence[int] = (),
-                      host_types: bool = False):
+                      host_types: bool = False,
+                      want_gap_scores: bool = False,
+                      want_tag_scores: bool = False):
         """Lean tag serving: ``fn(cps, cts, lengths)`` (``host_types``) or
         ``fn(cps, lengths)`` -> ``(bits, word)`` when ``fn.packed_tc``,
         else ``(bits, tid, choice)``, on the device (dtypes as
         :func:`.ops.tags.tags` gives them; ``fn.n_tag_slots`` is the
-        choice width).
+        choice width). The rich combinations append, in the JAX order
+        (``serve_tags_traced_fn:851-854``), ``want_gap_scores``' int32
+        (B, L-1) gap scores and ``want_tag_scores``' int32 (B, L, C) class
+        sums (meaningful where a recognized token ends).
 
         Two launches a batch: the boundary kernel's full epilogue (scores
-        and match ids), then the tag kernel over them. ``cps``/``cts`` as
-        :meth:`serve_boundaries_fn` takes them.
+        and match ids, and the gap scores when asked), then the tag kernel
+        over them. ``cps``/``cts`` as :meth:`serve_boundaries_fn` takes
+        them.
         """
         tables = self._tables()
         tt = self._tag_tables()
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
         def run(cps, cts, lengths):
-            cps = self._to_device(cps)
-            if cps.dtype not in (torch.uint16, torch.int32):
-                cps = cps.to(torch.int32)
-            if cts is not None:
-                cts = self._to_device(cts)
-                if cts.dtype not in (torch.uint8, torch.int32):
-                    cts = cts.to(torch.int32)
+            cps, cts = self._serve_inputs(cps, cts)
             lengths = self._to_device(lengths, torch.int32)
-            scores, cm, tm = boundary(tables, cps, cts, lengths)
-            return tags(tt, cps, cts, lengths, scores, cm, tm, ws_types=ws)
+            full = boundary(tables, cps, cts, lengths,
+                            gap_scores=want_gap_scores)
+            out = tags(tt, cps, cts, lengths, *full[:3], ws_types=ws,
+                       tag_scores=want_tag_scores)
+            if not want_gap_scores:
+                return out
+            n = len(out) - want_tag_scores  # the gap scores go before
+            return out[:n] + full[3:] + out[n:]
 
         if host_types:
             fn = run
@@ -361,6 +401,26 @@ class Predictor:
                 cap = max(8, len(meta.bias[token_id]))
                 sentences[si].tag_scores[p] = (meta.tags[token_id],
                                                raw[t, :cap].tolist())
+
+    # ------------------------------------------------------------------
+    # compiled-model artifact (reference predictor.rs:639-664)
+    # ------------------------------------------------------------------
+
+    def serialize_to_vec(self) -> bytes:
+        """The compiled model as the JAX package's artifact bytes
+        (:mod:`.compile.artifact`)."""
+        from .compile.artifact import serialize_compiled
+
+        return serialize_compiled(self.compiled, self.predict_tags_enabled)
+
+    @classmethod
+    def deserialize_from_slice(cls, data: bytes, device=None) -> "Predictor":
+        """A predictor over an artifact's compiled model, with no model
+        compile; ``device`` as the constructor takes it."""
+        from .compile.artifact import deserialize_compiled
+
+        compiled, predict_tags = deserialize_compiled(data)
+        return cls(None, predict_tags, compiled=compiled, device=device)
 
     def _predict_tags_python(self, sentences: Sequence[Sentence]) -> None:
         """:meth:`predict_tags_batch` in plain Python, token by token: the

@@ -20,6 +20,14 @@ kernel's full epilogue (scores and match ids), then the tag kernel
 (``vt_detok_tags2``) appends each token's tags from the tag kernel's token
 ids and choices (or its fused uint16 word, unpacked on the host).
 
+``scores=True`` (``--scores``) reads the gap scores back beside the bits
+from the same serve launch, and ``vt_detok_scores2`` writes each line's
+score block after it. With tags, ``scores`` and ``tag_scores`` (the rich
+combinations) take the gap scores from the full epilogue's launch and the
+class sums from the tag kernel's, and ``vt_detok_tags2`` writes both
+blocks. ``grapheme=True`` (``--wsconst G``) ANDs a host UAX#29 mask into
+the bits read back; it does not compose with tags.
+
 * ~3 B/char crosses the host<->device boundary (uint16 codepoints + uint8
   types in, 1 bit per gap out).
 * Each stage is C++ or the CUDA kernel; Python only orchestrates batches.
@@ -52,8 +60,10 @@ import torch
 
 from .native import (
     TagEmitPlan,
+    TagScoresPlan,
     count_chars_native,
     detok_bits_native,
+    detok_scores2_native,
     detok_tags2_native,
     find_newlines_native,
     tensorize16_native,
@@ -61,7 +71,41 @@ from .native import (
 )
 from .utils.batch import bucket_length
 
-__all__ = ["LeanServer", "pack_separator", "PACK_L", "PACK_MAX_LINE"]
+__all__ = ["LeanServer", "lean_path_supported", "lean_tags_supported",
+           "pack_separator", "PACK_L", "PACK_MAX_LINE"]
+
+#: wsconst flags the lean path takes: the char types fuse into the
+#: kernel, and G (grapheme clusters) is a host mask over the bits read
+#: back (``LeanServer(grapheme=True)``); both only force gaps to
+#: NotWordBoundary, so their order does not matter
+_WSCONST_FAST = {"D", "R", "H", "T", "K", "O", "G"}
+
+
+def lean_path_supported(args_like) -> bool:
+    """Whether a predict-CLI flag set can take the lean path on the
+    device backend: plain boundaries, ``--predict-tags``, ``--scores`` and
+    the rich combinations (``--scores --predict-tags``, ``--tag-scores``
+    with ``--predict-tags``, reference predict main.rs:65-91). These go to
+    the general path: ``--predict-tags`` with wsconst G (the tag pass's
+    token spans come from the boundaries before the host mask), and
+    ``--tag-scores`` without ``--predict-tags`` (the general path raises
+    as the reference does). The port has only the device backend."""
+    if getattr(args_like, "backend", "device") != "device":
+        return False
+    if not all(w in _WSCONST_FAST for w in args_like.wsconst):
+        return False
+    if args_like.predict_tags and "G" in args_like.wsconst:
+        return False
+    if args_like.tag_scores:
+        return bool(args_like.predict_tags)
+    return True
+
+
+def lean_tags_supported(predictor) -> bool:
+    """Whether the lean ``--predict-tags`` path can serve this predictor:
+    its model has device tag tables (:meth:`Predictor.device_tag_tables`;
+    a model over the tables' packing limits has none)."""
+    return predictor.device_tag_tables() is not None
 
 #: rows of this width hold the packed short-line layout
 PACK_L = 512
@@ -103,6 +147,38 @@ def pack_separator(compiled, tag_reach: int = 0) -> int:
     return sep
 
 
+_UNSAFE_TABLE: Optional[np.ndarray] = None
+
+
+def _grapheme_unsafe_table() -> np.ndarray:
+    """bool[65536]: BMP codepoints that can take part in a multi-char
+    UAX#29 extended grapheme cluster.
+
+    A codepoint ``c`` is SAFE iff ``"A" + c + c + "A"`` segments into 4
+    singleton clusters: backward-joiners (Extend, SpacingMark, ZWJ) fail
+    the ``A c`` pair, forward-joiners (Prepend) fail ``c A``, and
+    same-class pairs (Hangul jamo, regional indicators) fail ``c c``. CR
+    is unsafe by hand (the CRLF pair is one cluster and the self-test
+    cannot see pairs across classes). Built once (~0.3 s), when a
+    grapheme-filtered lean server first runs.
+    """
+    global _UNSAFE_TABLE
+    if _UNSAFE_TABLE is None:
+        from .rules.sentence_filters import grapheme_re
+
+        probe = grapheme_re().findall
+        unsafe = np.zeros(65536, dtype=bool)
+        for c in range(65536):
+            if 0xD800 <= c <= 0xDFFF:
+                continue  # surrogates cannot appear in decoded text
+            ch = chr(c)
+            if len(probe("A" + ch + ch + "A")) != 4:
+                unsafe[c] = True
+        unsafe[0x0D] = True
+        _UNSAFE_TABLE = unsafe
+    return _UNSAFE_TABLE
+
+
 def _fullwidth_norm_map() -> np.ndarray:
     """uint16[65536] codepoint map of the KyTea fullwidth filter
     (kytea_fullwidth.rs:13-118); identity elsewhere."""
@@ -139,10 +215,13 @@ class LeanServer:
 
     ``wsconst``: character-type codes (ints) fused as kernel-side
     KyteaWsConst filters. ``tags``: append each token's tags (a predictor
-    built with ``predict_tags``). ``fallback(lines: List[bytes])`` handles
+    built with ``predict_tags``). ``scores``: each line's gap-score block
+    after it (``--scores``); ``tag_scores``: each line's tag-score block
+    (``--tag-scores``, needs ``tags``). ``grapheme``: the
+    ConcatGraphemeClustersFilter (``--wsconst G``) as a host mask over the
+    bits; not with ``tags``. ``fallback(lines: List[bytes])`` handles
     lines the lean path cannot represent (it must write its own output, in
-    order). Scores, grapheme filtering and device meshes are not ported
-    yet: asking for any of them raises.
+    order). ``mesh`` (several cards) is not ported yet and raises.
     """
 
     def __init__(
@@ -152,28 +231,44 @@ class LeanServer:
         normalize: bool = True,
         batch_lines: int = 8192,
         fallback: Optional[Callable[[List[bytes]], None]] = None,
+        mesh=None,
         tags: bool = False,
-        **options,
+        scores: bool = False,
+        grapheme: bool = False,
+        tag_scores: bool = False,
     ):
-        if tags and options.get("grapheme"):
+        if mesh is not None:
+            raise NotImplementedError("lean serving over a device mesh "
+                                      "(several cards) is not ported yet")
+        if tag_scores and not tags:
+            # the general path raises too: --tag-scores needs a tag-enabled
+            # predictor (reference main.rs:112-115)
+            raise ValueError("lean tag_scores requires tags")
+        if tags and grapheme:
             # the tag pass derives token spans from the pre-G boundaries;
             # a post-hoc host mask would desynchronize them
             raise ValueError("lean tag path cannot compose with the "
                              "grapheme filter")
-        asked = sorted(k for k, v in options.items() if v)
-        if asked:  # scores, grapheme, mesh, ...
-            raise NotImplementedError(
-                f"lean serving options not ported: {asked}"
-            )
         self.predictor = predictor
         self.device = predictor.device
         self.tags = bool(tags)
+        self.scores = bool(scores)
+        self.grapheme = bool(grapheme)
+        self.tag_scores = bool(tag_scores)
         ws = tuple(sorted(wsconst))
         c = predictor.compiled
+        self._ts_plan = None
         if self.tags:
-            self.fn = predictor.serve_tags_fn(ws, host_types=True)
+            self.fn = predictor.serve_tags_fn(
+                ws, host_types=True, want_gap_scores=self.scores,
+                want_tag_scores=self.tag_scores)
             self.plan = TagEmitPlan(c.tag_meta, c.n_tags)
+            if self.tag_scores:
+                self._ts_plan = TagScoresPlan(c.tag_meta)
             self._sep = pack_separator(c, predictor._tag_tables().max_rel())
+        elif self.scores:
+            self.fn = predictor.serve_scores_fn(ws, host_types=True)
+            self._sep = pack_separator(c)
         else:
             self.fn = predictor.serve_boundaries_fn(ws, host_types=True)
             self._sep = pack_separator(c)
@@ -186,11 +281,13 @@ class LeanServer:
         #: per-run pipeline breakdown: dispatch counts; host seconds in
         #: tensorize + launch, in waiting for the bits (device->host
         #: readback included), in the native detokenizer and in the
-        #: general path; readback bytes
+        #: general path; readback bytes, and of them the gap scores' and
+        #: the tag scores'
         self.stats = {
             "dispatches": 0, "packed_dispatches": 0, "fallback_lines": 0,
-            "readback_bytes": 0, "t_dispatch_s": 0.0, "t_readback_s": 0.0,
-            "t_detok_s": 0.0, "t_fallback_s": 0.0,
+            "readback_bytes": 0, "readback_gap_score_bytes": 0,
+            "readback_tag_score_bytes": 0, "t_dispatch_s": 0.0,
+            "t_readback_s": 0.0, "t_detok_s": 0.0, "t_fallback_s": 0.0,
         }
 
     # ------------------------------------------------------------------
@@ -241,7 +338,7 @@ class LeanServer:
         res = self._launch(slot, cps, cts, lengths)
         self.stats["dispatches"] += 1
         return (res, blob, starts[:n_valid], ends[:n_valid], None,
-                lengths.numpy()[:n_valid])
+                lengths.numpy()[:n_valid], (cps.numpy(), lengths.numpy()))
 
     def _pack_groups(self, counts: np.ndarray):
         """Split a chunk's lines into dispatch groups: contiguous runs
@@ -319,10 +416,10 @@ class LeanServer:
         self.stats["packed_dispatches"] += 1
         packed = (row[:n_valid], col[:n_valid], max_chars)
         return (res, blob, starts[:n_valid], ends[:n_valid], packed,
-                counts[:n_valid])
+                counts[:n_valid], (cps.numpy(), lengths.numpy()))
 
     def _realize(self, pending, out) -> None:
-        (outs, ready), blob, starts, ends, packed, counts = pending
+        (outs, ready), blob, starts, ends, packed, counts, host = pending
         n = len(starts)
         st = self.stats
         t0 = time.perf_counter()
@@ -331,27 +428,81 @@ class LeanServer:
         raw = [o.numpy() for o in outs]
         st["t_readback_s"] += time.perf_counter() - t0
         st["readback_bytes"] += sum(r.nbytes for r in raw)
+        # the score outputs come last: gap scores, then tag scores
+        k = len(raw) - self.scores - self.tag_scores
+        raw, sc = raw[:k], raw[k:]
+        gap_sc = sc[0] if self.scores else None
+        tag_sc = sc[-1] if self.tag_scores else None
+        st["readback_gap_score_bytes"] += 0 if gap_sc is None else gap_sc.nbytes
+        st["readback_tag_score_bytes"] += 0 if tag_sc is None else tag_sc.nbytes
+        row, col = packed[:2] if packed is not None else (None, None)
+        bits = raw[0]
+        if self.grapheme:
+            bits = self._grapheme_bits(
+                bits, host, bits.shape[0] if packed is not None else n)
         t0 = time.perf_counter()
         if self.tags:
-            data = self._detok_tags(raw, blob, starts, ends, packed, counts)
+            data = self._detok_tags(raw, blob, starts, ends, row, col,
+                                    counts, host[0], gap_sc, tag_sc)
+        elif self.scores:
+            data = detok_scores2_native(
+                blob, starts, ends, bits, counts, host[0], gap_sc, row, col,
+                scratch=self._scratch,
+            )
         elif packed is not None:
-            row, col, max_chars = packed
             data = detok_bits_native(
-                blob, starts, ends, raw[0], max(max_chars - 1, 0), row, col,
+                blob, starts, ends, bits, max(packed[2] - 1, 0), row, col,
                 scratch=self._scratch,
             )
         else:
             data = detok_bits_native(
-                blob, starts, ends, raw[0][:n], raw[0].shape[1] * 8,
+                blob, starts, ends, bits[:n], bits.shape[1] * 8,
                 scratch=self._scratch,
             )
         st["t_detok_s"] += time.perf_counter() - t0
         out.write(data)
 
-    def _detok_tags(self, raw, blob, starts, ends, packed, counts):
+    def _grapheme_bits(self, bits: np.ndarray, host, n_rows: int):
+        """The host grapheme mask over bit-packed gap rows: unpack, mask,
+        repack (the unsafe-codepoint prefilter leaves most rows of CJK text
+        alone)."""
+        from .predictor import pack_gap_bits_np, unpack_gap_bits
+
+        bnd = unpack_gap_bits(bits)
+        self._apply_grapheme(bnd, host, n_rows)
+        return pack_gap_bits_np(bnd)
+
+    def _apply_grapheme(self, bnd: np.ndarray, host, n: int) -> None:
+        """AND the ConcatGraphemeClustersFilter into the boundary mask:
+        gaps strictly inside a UAX#29 extended grapheme cluster of the
+        NORMALIZED text become NotWordBoundary
+        (concat_grapheme_clusters.rs:11-35). Rows without a codepoint that
+        can join a cluster skip the per-row regex. Packed rows hold
+        codepoint-0 separators, which always break a cluster."""
+        from .rules.sentence_filters import grapheme_re
+
+        cps_h, lens_h = host
+        rx = grapheme_re()
+        unsafe = _grapheme_unsafe_table()
+        rows = np.flatnonzero(unsafe[cps_h[:n]].any(axis=1))
+        for i in rows.tolist():
+            ln = int(lens_h[i])
+            if ln < 2:
+                continue
+            text = "".join(map(chr, cps_h[i, :ln].tolist()))
+            start = 0
+            for m in rx.finditer(text):
+                nc = m.end() - m.start()
+                if nc > 1:
+                    bnd[i, start : start + nc - 1] = 0
+                start += nc
+
+    def _detok_tags(self, raw, blob, starts, ends, row, col, counts, cps,
+                    gap_sc, tag_sc):
         """Tag emission (vt_detok_tags2): bit boundaries, the narrow tid
         and choices (unpacked from the fused uint16 word when the model's
-        fields fit it), per-line placement for packed batches."""
+        fields fit it), per-line placement for packed batches, and the
+        score blocks of the rich combinations."""
         bits = raw[0]
         if self.fn.packed_tc:
             # (tid+1) | (c0+1)<<7 | (c1+1)<<11
@@ -363,10 +514,10 @@ class LeanServer:
             ).astype(np.int8)
         else:
             tid, choice = raw[1], raw[2]
-        row, col = packed[:2] if packed is not None else (None, None)
-        return detok_tags2_native(blob, starts, ends, bits, counts, tid,
-                                  choice, self.plan, row, col,
-                                  scratch=self._scratch)
+        return detok_tags2_native(
+            blob, starts, ends, bits, counts, tid, choice, self.plan, row,
+            col, scratch=self._scratch, cps16=cps, gap_scores=gap_sc,
+            tag_scores=tag_sc, ts_plan=self._ts_plan)
 
     # ------------------------------------------------------------------
 
