@@ -4,7 +4,8 @@
 Drives the port's main paths — lean boundary serving, lean ``--scores``,
 lean ``--predict-tags`` serving and its rich combination with
 ``--scores --tag-scores``, bytes in to tokenized (and tagged, scored)
-bytes out, and the predict and evaluate CLIs over them — on one CUDA card, at the full size of the largest model the repo can build
+bytes out, the same streams on the native host engine, and the predict,
+evaluate and manipulate_model CLIs over them — on one CUDA card, at the full size of the largest model the repo can build
 from its own code (the synthetic 50k-word dictionary model, seed 17; for
 tags the same model with 3 000 KyTea-style tag models, seed 23), and holds
 the hand-written boundary and tag kernels against their plain torch
@@ -36,6 +37,12 @@ versions on the same inputs. Phases, each printed on its own line:
    match ids set to the keys' states), and on two small tagged models
    (the fused uint16 word layout, and more than 32 classes), each run
    also with its tag-score output (held to plain where a token ends);
+3d. debug checks on the card (:func:`debug_phase`): with
+   ``VAPORETTO_TPU_DEBUG_CHECKS=1``, ``Predictor.predict_batch`` over 300
+   of [4]'s lines on the 50k model and over lines of the three small
+   models passes the numpy oracle (``ops/host_reference.py``), and a
+   predictor whose tables on the card carry one changed weight raises
+   ``AssertionError`` on the same call;
 4. lean serving: ``LeanServer.run`` over 50 000+ seeded mixed lines, whose
    bytes must equal the port's general path; the kernel's launch count
    during the run must be > 0 and cover every dispatch;
@@ -51,6 +58,10 @@ versions on the same inputs. Phases, each printed on its own line:
    [4t]'s stream, whose bytes must equal the general path with the three
    flags (gap scores from the full epilogue's launch, class sums from the
    tag kernel's);
+4h. the native host engine (:func:`host_phase`): ``LeanServer`` over
+   ``Predictor(backend="host")`` gives [4]'s bytes over [4]'s stream, [4s]'s
+   with ``scores=True`` and, on the tagged model, [4t]'s with ``tags=True``,
+   with no kernel launch; its rates beside the host CPU's name and threads;
 5. timing with CUDA events, kernel and plain version, at the three serve
    shapes ``LeanServer`` dispatches ((8192, 256) unpacked, (4096, 512)
    packed, (8192, 128)) and the full epilogue at (8192, 256), each shape's
@@ -65,10 +76,18 @@ versions on the same inputs. Phases, each printed on its own line:
    each boundary shape also with the gap-score output, each tag shape with
    the tag-score output, beside their plain times and bounds;
 6. the CLIs (:func:`cli_phase`): ``predict --input --output`` on model
-   files written under ``build/chip_smoke``, plain over [4]'s lines and
-   with ``--predict-tags --scores --tag-scores`` over [4t]'s, bytes equal
-   to [4] and [4r]; ``evaluate`` on 3000 lines of [4]'s output as gold;
-   one ``--profile`` run and the kernel launches its trace shows;
+   files written under ``build/chip_smoke``, plain over [4]'s lines with
+   the default ``--backend auto`` (the card) and with ``--backend host``
+   (no launch),
+   and with ``--predict-tags --scores --tag-scores`` over [4t]'s, bytes
+   equal to [4] and [4r]; the same three flags on the host engine's
+   general path over 5000 lines, equal to ``--backend device``;
+   ``evaluate`` on 3000 lines of [4]'s output as gold (``auto``: the
+   card; once with ``--backend host``, no launch); one ``--profile`` run
+   and the kernel launches its trace shows;
+   ``manipulate_model``: the 50k model's dictionary dumped and replaced
+   unchanged gives [4]'s bytes on the card, and one word's edited weights
+   change its segmentation as the general path does;
 7. a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
@@ -1001,27 +1020,183 @@ def zero_counts() -> None:
     boundary.launches = tags.launches = 0
 
 
-def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
-              n_gold=3000, n_profile=2000):
-    """Phase [6]: the predict and evaluate CLIs in this process, through
-    ``main(argv, device)``, on model files written under ``work``:
+def host_cpu() -> str:
+    """The host CPU's model name and the threads this process may use (the
+    host engine's rates depend on them)."""
+    import platform
 
-    - ``predict --input --output`` over ``lines`` with ``model``, whose
-      bytes must equal ``want`` ([4]'s LeanServer output), and with
-      ``--predict-tags --scores --tag-scores`` over ``tlines`` with
-      ``tmodel``, equal to ``twant`` ([4r]'s);
-    - ``evaluate`` (char and word metrics) on the first ``n_gold`` lines
-      of ``want`` as the gold corpus: the system's own output, so every
-      metric must be 1.0;
-    - ``predict --profile`` over ``n_profile`` of ``tlines`` with tags: a
-      Chrome trace, and the launches of both kernels found in it.
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ln.startswith("model name"):
+                    name = ln.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if name in (None, "unknown"):  # some hosts' /proc/cpuinfo names none
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip() for ln in
+                         out.splitlines() if ln.startswith("Model name")),
+                        name)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return (f"{name or 'CPU model not reported'} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} threads ({os.cpu_count()} "
+            "online)")
+
+
+def _tamper_one_weight(pred, sent):
+    """A predictor over ``pred``'s compiled model whose device tables carry
+    one changed weight: +1 on the first weight lane of a char pattern
+    matched in ``sent`` (a sentence ``pred`` predicted) that lands on one
+    of its gaps. The compiled model and ``pred``'s tables stay as they
+    were (on the CPU the tables share the compiled model's memory, so the
+    weights are cloned first)."""
+    import numpy as np
+
+    from vaporetto_tpu_torch import Predictor
+
+    c = pred.compiled
+    m = c.char_matcher
+    n = len(sent)
+    for t, pid in enumerate(np.asarray(sent.char_pma_states).tolist()):
+        if pid < 0:
+            continue
+        first, cnt = int(m.rows_first[pid]), int(m.rows_cnt[pid])
+        for r in range(first, first + cnt):
+            for j in range(8):
+                if 0 <= t + int(m.off[r]) + j < n - 1:
+                    bad = Predictor(compiled=c, device=pred.device)
+                    tabs = bad._tables().char
+                    tabs.w8 = tabs.w8.clone()
+                    tabs.w8[r, j] += 1
+                    return bad
+    raise AssertionError(f"no char pattern scores a gap of {sent.text!r}")
+
+
+def debug_phase(cases):
+    """Phase [3d]: ``VAPORETTO_TPU_DEBUG_CHECKS=1`` holds
+    ``Predictor.predict_batch`` to the numpy oracle
+    (``ops/host_reference.py``). For each ``(name, predictor, lines)`` the
+    run passes; then a predictor over the same compiled model whose device
+    tables carry one changed weight (:func:`_tamper_one_weight`) must raise
+    ``AssertionError`` on the same call (empty lines are left out: a
+    sentence holds at least one char). Returns {name: (lines, chars,
+    seconds of the passing run, the error's first 80 chars)}."""
+    from vaporetto_tpu_torch import Sentence
+
+    old = os.environ.get("VAPORETTO_TPU_DEBUG_CHECKS")
+    os.environ["VAPORETTO_TPU_DEBUG_CHECKS"] = "1"
+    res = {}
+    try:
+        for name, pred, lines in cases:
+            lines = [ln for ln in lines if ln]  # a Sentence holds a char
+            sents = [Sentence.from_raw(ln) for ln in lines]
+            t0 = time.perf_counter()
+            pred.predict_batch(sents)
+            secs = time.perf_counter() - t0
+            bad = _tamper_one_weight(pred, max(sents, key=len))
+            try:
+                bad.predict_batch([Sentence.from_raw(ln) for ln in lines])
+            except AssertionError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"[3d] {name}: a changed weight on the "
+                                     "card passed the debug checks")
+            if not msg.startswith("device/host score mismatch for "):
+                raise AssertionError(f"[3d] {name}: {msg[:200]}")
+            res[name] = (len(lines), sum(map(len, lines)), secs, msg[:80])
+    finally:
+        if old is None:
+            os.environ.pop("VAPORETTO_TPU_DEBUG_CHECKS", None)
+        else:
+            os.environ["VAPORETTO_TPU_DEBUG_CHECKS"] = old
+    return res
+
+
+def host_phase(model, tmodel, lines, tlines, want, swant, twant):
+    """Phase [4h]: the native host engine, ``Predictor(backend="host")``,
+    through ``LeanServer``: over ``lines`` its bytes must equal ``want``
+    ([4]'s), with ``scores=True`` ``swant`` ([4s]'s), and on ``tmodel``
+    with ``tags=True`` over ``tlines`` ``twant`` ([4t]'s); the lines it
+    cannot represent take the host engine's general path. No kernel may
+    launch in any run. Returns per run: chars, seconds, the server's
+    stats, the launches."""
+    from vaporetto_tpu_torch import LeanServer, Predictor
+
+    hpred = Predictor(model, backend="host")
+    htpred = Predictor(tmodel, True, backend="host")
+    res = {}
+    for name, p, ls, w, kw in (
+        ("plain", hpred, lines, want, {}),
+        ("scores", hpred, lines, swant, {"scores": True}),
+        ("tags", htpred, tlines, twant, {"tags": True}),
+    ):
+        blob = ("\n".join(ls) + "\n").encode("utf-8")
+        sink = io.BytesIO()
+
+        def fallback(raw, p=p, kw=kw, sink=sink):
+            sink.write(general_path(p, [b.decode("utf-8") for b in raw],
+                                    **kw))
+
+        server = LeanServer(p, fallback=fallback, **kw)
+        zero_counts()
+        t0 = time.perf_counter()
+        server.run(io.BytesIO(blob), sink)
+        secs = time.perf_counter() - t0
+        launches = kernel_counts()
+        if sink.getvalue() != w:
+            raise AssertionError(f"[4h] host engine ({name}) bytes differ")
+        if launches != (0, 0):
+            raise AssertionError(f"[4h] host engine ({name}) launched "
+                                 f"kernels: {launches}")
+        res[name] = {"chars": sum(map(len, ls)), "seconds": secs,
+                     "stats": dict(server.stats), "launches": launches}
+    return res
+
+
+def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
+              n_gold=3000, n_profile=2000, n_rich=5000):
+    """Phase [6]: the predict, evaluate and manipulate_model CLIs in this
+    process, through ``main(argv[, device])``, on model files written
+    under ``work``:
+
+    - ``predict --input --output`` over ``lines`` with ``model`` and the
+      default ``--backend auto`` (the card), whose bytes must equal
+      ``want`` ([4]'s
+      LeanServer output); the same with ``--backend host`` (the native
+      host engine: no kernel launch); and with ``--predict-tags --scores
+      --tag-scores`` over ``tlines`` with ``tmodel``, equal to ``twant``
+      ([4r]'s);
+    - ``predict --backend host --predict-tags --scores --tag-scores`` (the
+      general path on the host engine) over the first ``n_rich`` of
+      ``tlines``, equal to ``--backend device`` on the same lines;
+    - ``evaluate`` (char and word metrics) with ``auto`` (the card) on
+      the first ``n_gold`` lines of ``want`` as the gold corpus, and the
+      char metric once with ``--backend host``: the system's own output,
+      so every metric must be 1.0;
+    - ``predict --profile`` over ``n_profile`` of
+      ``tlines`` with tags: a Chrome trace, and the launches of both
+      kernels found in it;
+    - ``manipulate_model --dump-dict`` on ``model``, then
+      ``--replace-dict`` with that dump unchanged: ``predict`` on the
+      rewritten file must give ``want`` again; then one
+      dictionary word's inside weights set to -99999 in the dump: the
+      word, a line of its own that the model split, comes out whole, as
+      the general path on the edited model gives it.
 
     Returns a dict of what each run found: the kernel launches counted
-    during each predict run (each run starts from 0), seconds, the metrics
+    during each run (each run starts from 0), seconds, the metrics
     printed, the trace's bytes and kernel events."""
     import contextlib
+    import csv
 
-    from vaporetto_tpu_torch.cli import evaluate, predict
+    from vaporetto_tpu_torch import Predictor
+    from vaporetto_tpu_torch.cli import evaluate, manipulate_model, predict
+    from vaporetto_tpu_torch.models.model import Model
 
     os.makedirs(work, exist_ok=True)
     res = {}
@@ -1051,22 +1226,38 @@ def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
     blob = ("\n".join(lines) + "\n").encode("utf-8")
     if predict_run("plain", ["--model", paths["model"]], blob) != want:
         raise AssertionError("predict CLI bytes differ from [4]")
+    if predict_run("host", ["--model", paths["model"], "--backend", "host"],
+                   blob) != want:
+        raise AssertionError("predict --backend host bytes differ from [4]")
     tblob = ("\n".join(tlines) + "\n").encode("utf-8")
-    if predict_run("rich", ["--model", paths["tagged model"],
-                            "--predict-tags", "--scores", "--tag-scores"],
+    rich = ["--predict-tags", "--scores", "--tag-scores"]
+    if predict_run("rich", ["--model", paths["tagged model"]] + rich,
                    tblob) != twant:
         raise AssertionError("predict CLI bytes (tags, scores, tag scores) "
                              "differ from [4r]")
+    hblob = ("\n".join(tlines[:n_rich]) + "\n").encode("utf-8")
+    host_rich = predict_run("host rich", ["--model", paths["tagged model"],
+                                          "--backend", "host"] + rich, hblob)
+    if host_rich != predict_run("device rich",
+                                ["--model", paths["tagged model"],
+                                 "--backend", "device"] + rich, hblob):
+        raise AssertionError("predict --backend host (tags, scores, tag "
+                             "scores) differs from --backend device")
+    res["host rich"]["bytes"] = len(host_rich)
     gold = os.path.join(work, "gold.txt")
     with open(gold, "wb") as f:
         f.write(b"\n".join(want.split(b"\n")[:n_gold]) + b"\n")
     res["evaluate"] = {}
-    for metric in ("char", "word"):
+    for metric, backend in (("char", "auto"), ("word", "auto"),
+                            ("char", "host")):
         buf = io.StringIO()
+        zero_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = evaluate.main(["--model", paths["model"], "--input", gold,
-                                "--metric", metric], device=device)
+                                "--metric", metric, "--backend", backend],
+                               device=device)
+        sync(device)
         if rc != 0:
             raise AssertionError(f"evaluate exited {rc}")
         printed = dict(ln.split(": ", 1) for ln in buf.getvalue().splitlines()
@@ -1074,8 +1265,9 @@ def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
         if any(float(v) != 1.0 for v in printed.values()) or len(printed) != 3:
             raise AssertionError(f"evaluate {metric} on the system's own "
                                  f"output: {buf.getvalue()!r}")
-        res["evaluate"][metric] = dict(printed,
-                                       seconds=time.perf_counter() - t0)
+        res["evaluate"][f"{metric} {backend}"] = dict(
+            printed, seconds=time.perf_counter() - t0,
+            launches=kernel_counts())
     trace_dir = os.path.join(work, "trace")
     pblob = ("\n".join(tlines[-n_profile:]) + "\n").encode("utf-8")
     predict_run("profile", ["--model", paths["tagged model"],
@@ -1092,6 +1284,49 @@ def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
                     "kernel events": sum(1 for e in events
                                          if e.get("cat") == "kernel"),
                     **found}
+
+    # manipulate_model: the dictionary dumped and put back unchanged
+    dump = os.path.join(work, "dict.csv")
+    replaced = os.path.join(work, "replaced.bin")
+    t0 = time.perf_counter()
+    for argv in (["--dump-dict", dump], ["--replace-dict", dump,
+                                         "--model-out", replaced]):
+        if manipulate_model.main(["--model-in", paths["model"]] + argv):
+            raise AssertionError(f"manipulate_model {argv[0]} failed")
+    res["manipulate"] = {"seconds": time.perf_counter() - t0,
+                         "dict bytes": os.path.getsize(dump),
+                         "model bytes": os.path.getsize(replaced)}
+    if predict_run("replaced", ["--model", replaced], blob) != want:
+        raise AssertionError("predict on the model whose dictionary was "
+                             "dumped and replaced differs from [4]")
+    # one word's inside weights to -99999: the word comes out whole
+    pred = Predictor(model, device=device)
+    word = next(w.word for w in model.dict_model if len(w.word) >= 4
+                and b" " in general_path(pred, [w.word]))
+    with open(dump, newline="", encoding="utf-8") as f:
+        rows = list(csv.reader(f))
+    for row in rows[1:]:
+        if row[0] == word:
+            n = len(word)
+            row[1] = " ".join(["0"] + ["-99999"] * (n - 1) + ["0"])
+    edited_csv = os.path.join(work, "dict_edited.csv")
+    edited = os.path.join(work, "edited.bin")
+    with open(edited_csv, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows(rows)
+    if manipulate_model.main(["--model-in", paths["model"], "--replace-dict",
+                              edited_csv, "--model-out", edited]):
+        raise AssertionError("manipulate_model --replace-dict (edited) "
+                             "failed")
+    with open(edited, "rb") as f:
+        emodel = Model.read(f.read())
+    ewant = general_path(Predictor(emodel, device=device), [word])
+    got = predict_run("edited", ["--model", edited],
+                      (word + "\n").encode("utf-8"))
+    if got != ewant or got != (word + "\n").encode("utf-8"):
+        raise AssertionError(f"edited word {word!r}: {got!r}, general path "
+                             f"{ewant!r}")
+    res["edited"].update(word=word, before=general_path(pred, [word])
+                         .decode("utf-8").strip())
     return res
 
 
@@ -1560,8 +1795,32 @@ def main(argv) -> int:
             f"{'inline rows' if ptt.inline else 'w_rows'}): tag kernel "
             f"equal to plain at (256, 64); {n_tok} tokens")
 
-    # ---- 4. lean serving ----------------------------------------------
+    # ---- 3d. debug checks on the card ---------------------------------
     lines = stream_lines(7, words)
+    rng = np.random.default_rng(31)
+    dcases = [("50k model", pred, lines[:150] + lines[20_000:20_150])]
+    for name, (m, mwords) in (
+        ("type trie (window 4)", small_model(3, 4)),
+        ("1000-char dictionary word", small_model(4, 3, long_word=1000)),
+    ):
+        mw = [w for w in mwords if w]
+        ls = ["".join(rng.choice(mw, int(rng.integers(1, 6))))
+              for _ in range(40)]
+        if "1000" in name:
+            ls.append("あ" + max(mw, key=len) + "い")
+        dcases.append((name, Predictor(m), ls))
+    dcases.append(("golden model", gp, ["この人は地球人だ", "地球人は人だ",
+                                         "この人", "人"]))
+    t0 = time.perf_counter()
+    dres = debug_phase(dcases)
+    log("[3d] VAPORETTO_TPU_DEBUG_CHECKS=1, predict_batch on the card held "
+        "to the numpy oracle: " + "; ".join(
+            f"{k}: {n} lines, {c} chars passed in {t:.2f}s, one changed "
+            f"weight raised AssertionError ({msg!r}...)"
+            for k, (n, c, t, msg) in dres.items())
+        + f" ({time.perf_counter() - t0:.1f}s for the phase)")
+
+    # ---- 4. lean serving ----------------------------------------------
     blob = ("\n".join(lines) + "\n").encode("utf-8")
     n_chars = sum(map(len, lines))
     sink = io.BytesIO()
@@ -1720,6 +1979,23 @@ def main(argv) -> int:
         f"{len(rwant)} bytes out, equal to the general path with the three "
         f"flags ({rgen_s:.3f}s for all lines)")
 
+    # ---- 4h. the native host engine ------------------------------------
+    hres = host_phase(model, tmodel, lines, tlines, want_bytes, swant, twant)
+    cpu = host_cpu()
+    for name, want_of in (("plain", "[4]"), ("scores", "[4s]"),
+                          ("tags", "[4t]")):
+        r = hres[name]
+        hst = r["stats"]
+        log(f"[4h] host engine, {name} (LeanServer over "
+            f"Predictor(backend='host'), {want_of}'s stream): {r['chars']} "
+            f"chars in {r['seconds']:.3f}s = "
+            f"{r['chars'] / r['seconds'] / 1e6:.2f} Mchar/s on {cpu} (card "
+            f"{smi} idle); dispatches {hst['dispatches']}, fallback_lines "
+            f"{hst['fallback_lines']}; host seconds: dispatch (tensorize and "
+            f"engine) {hst['t_dispatch_s']:.3f}, detok {hst['t_detok_s']:.3f}"
+            f", general path {hst['t_fallback_s']:.3f}; kernel launches "
+            f"{r['launches']}; bytes equal to {want_of}")
+
     # ---- 5. timing ----------------------------------------------------
     n_before = (boundary.launches, tag_kernel.launches)
     log(f"[5] ptxas: " + ", ".join(f"{k} {ptxas_summary(v)}"
@@ -1739,23 +2015,62 @@ def main(argv) -> int:
                         "chip_smoke")
     t0 = time.perf_counter()
     cli = cli_phase(work, model, lines, want_bytes, tmodel, tlines, rwant)
-    for name in ("plain", "rich", "profile"):
-        b_n, t_n = cli[name]["launches"]
-        if b_n <= 0 or (name != "plain" and t_n <= 0):
-            raise AssertionError(f"predict CLI ({name}): kernel launches "
-                                 f"{cli[name]['launches']}")
+    # auto is the card: every run but the host engine's launches kernels
+    ev = cli["evaluate"]
+    runs = {name: cli[name]["launches"] for name in (
+        "plain", "rich", "profile", "device rich", "replaced", "edited")}
+    runs.update({f"evaluate {k}": ev[k]["launches"]
+                 for k in ("char auto", "word auto")})
+    for name, (b_n, t_n) in runs.items():
+        if b_n <= 0 or (name in ("rich", "profile", "device rich")
+                        and t_n <= 0):
+            raise AssertionError(f"{name}: kernel launches {(b_n, t_n)}")
+    for name, n in (("predict host", cli["host"]["launches"]),
+                    ("predict host rich", cli["host rich"]["launches"]),
+                    ("evaluate char host", ev["char host"]["launches"])):
+        if n != (0, 0):
+            raise AssertionError(f"{name}: kernel launches {n} on the host "
+                                 "engine")
+    missing = [k for k in ("boundary_kernel", "tags_kernel")
+               if cli["trace"][k] <= 0]
+    if missing:
+        raise AssertionError(f"the --profile trace holds no {missing} event")
     tr = cli["trace"]
     log(f"[6] predict CLI (--input/--output, models written to {work}): "
-        f"[4]'s lines {cli['plain']['seconds']:.3f}s, boundary launches "
-        f"{cli['plain']['launches'][0]}, bytes equal to [4]; [4t]'s lines "
+        f"[4]'s lines with the default --backend auto (the card) "
+        f"{cli['plain']['seconds']:.3f}s, "
+        f"boundary launches {cli['plain']['launches'][0]}, bytes equal to "
+        f"[4]; with --backend host {cli['host']['seconds']:.3f}s, launches "
+        f"{cli['host']['launches']}, bytes equal to [4]; [4t]'s lines "
         f"with --predict-tags --scores --tag-scores "
         f"{cli['rich']['seconds']:.3f}s, launches boundary "
         f"{cli['rich']['launches'][0]}, tags {cli['rich']['launches'][1]}, "
         f"bytes equal to [4r]")
-    log("[6] evaluate CLI on 3000 lines of [4]'s output as gold: " + "; ".join(
-        f"{k}: " + ", ".join(f"{a} {b}" for a, b in v.items() if a != "seconds")
-        + f" ({v['seconds']:.3f}s)" for k, v in cli["evaluate"].items()))
-    log(f"[6] predict --predict-tags --profile on 2000 lines: "
+    log(f"[6] predict --predict-tags --scores --tag-scores on [4t]'s first "
+        f"5000 lines: --backend host (general path on the host engine) "
+        f"{cli['host rich']['seconds']:.3f}s, launches "
+        f"{cli['host rich']['launches']}, {cli['host rich']['bytes']} bytes, "
+        f"equal to --backend device ({cli['device rich']['seconds']:.3f}s, "
+        f"launches {cli['device rich']['launches']})")
+    log("[6] evaluate CLI on 3000 lines of [4]'s output as gold (auto: "
+        "the card): " + "; ".join(
+            f"{k}: " + ", ".join(f"{a} {b}" for a, b in v.items()
+                                 if a not in ("seconds", "launches"))
+            + f" ({v['seconds']:.3f}s, launches {v['launches']})"
+            for k, v in ev.items()))
+    mres = cli["manipulate"]
+    log(f"[6] manipulate_model on the 50k model: --dump-dict then "
+        f"--replace-dict with the dump unchanged {mres['seconds']:.2f}s "
+        f"({mres['dict bytes']} B of CSV, {mres['model bytes']} B of "
+        f"model); predict (auto) on the rewritten file "
+        f"{cli['replaced']['seconds']:.3f}s, launches "
+        f"{cli['replaced']['launches']}, bytes equal to [4]; the word "
+        f"{cli['edited']['word']!r} (alone on a line: "
+        f"{cli['edited']['before']!r}) with inside weights -99999 comes out "
+        f"whole, as the general path on the edited model gives it (launches "
+        f"{cli['edited']['launches']})")
+    log(f"[6] predict --predict-tags --profile on 2000 "
+        f"lines: "
         f"{cli['profile']['seconds']:.3f}s, trace {tr['bytes']} B, "
         f"{tr['events']} events, {tr['kernel events']} kernel events of "
         f"which boundary_kernel {tr['boundary_kernel']}, tags_kernel "

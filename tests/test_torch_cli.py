@@ -8,7 +8,10 @@ output bytes must be equal for every single-process flag set of the
 device backend, the reference's line semantics included (CRLF, a lone CR,
 an unterminated last line, the abort point at invalid UTF-8). ``evaluate``
 must print what the JAX CLI prints. ``--profile`` writes a trace, and the
-flags the port does not serve yet exit with status 2.
+flags the port does not serve yet exit with status 2. With ``--backend
+host`` (or ``VAPORETTO_TPU_BACKEND=host``) both CLIs run the native host
+engine, byte-equal to the JAX CLIs with ``--backend host``, and never reach
+the boundary or tag pass of the device path.
 """
 
 import io
@@ -209,9 +212,7 @@ UNPORTED = [
     (predict.main, ["--num-processes", "2"], "--num-processes"),
     (predict.main, ["--num-processes", "2", "--process-id", "0",
                     "--coordinator", "localhost:1"], "--num-processes"),
-    (predict.main, ["--backend", "host"], "host engine"),
     (evaluate.main, ["--num-processes", "4"], "--num-processes"),
-    (evaluate.main, ["--backend", "host"], "host engine"),
 ]
 
 
@@ -227,22 +228,111 @@ def test_unported_flags_exit_2(model_case, main, argv, says, monkeypatch,
     assert says in capsys.readouterr().err
 
 
+@pytest.fixture
+def no_device_path(monkeypatch):
+    """The device path's boundary and tag passes raise: a run that
+    passes never took them."""
+    import vaporetto_tpu_torch.predictor as tp
+
+    def never(*a, **k):
+        raise AssertionError("the device path ran")
+
+    monkeypatch.setattr(tp, "boundary", never)
+    monkeypatch.setattr(tp, "tags", never)
+
+
+HOST_FLAG_SETS = {
+    "none": [],
+    "scores": ["--scores"],
+    "tags": ["--predict-tags"],
+    "tags wsconst K D": ["--predict-tags", "--wsconst", "K", "--wsconst",
+                         "D"],
+    "scores wsconst G": ["--scores", "--wsconst", "G"],
+    "tags+scores": ["--predict-tags", "--scores"],
+    "all three": ["--predict-tags", "--scores", "--tag-scores"],
+    "no-lean": ["--no-lean", "--predict-tags", "--scores"],
+}
+
+
+@pytest.mark.parametrize("flags", sorted(HOST_FLAG_SETS))
+def test_predict_host_bytes_equal_jax(model_case, flags, monkeypatch,
+                                      no_device_path):
+    """--backend host: the lean combinations (plain, --scores,
+    --predict-tags) on the host engine's lean path, the rich ones on the
+    general path, each byte-equal to the JAX CLI's --backend host."""
+    path, tokens = model_case
+    data = ("\n".join(_lines(tokens)) + "\n").encode()
+    argv = ["--model", path, "--batch-size", "16", "--backend", "host"] \
+        + HOST_FLAG_SETS[flags]
+    rc, got = _run(predict.main, argv, data, monkeypatch)
+    jrc, want = _run(jax_predict.main, argv, data, monkeypatch)
+    assert rc == jrc == 0
+    assert got == want
+    assert got.count(b"\n") >= len(_lines(tokens))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--metric", "char"], ["--metric", "word", "--predict-tags"],
+])
+def test_evaluate_host_prints_what_jax_prints(model_case, gold, flags,
+                                              monkeypatch, no_device_path):
+    path, _ = model_case
+    argv = ["--model", path, "--batch-size", "8", "--input", gold,
+            "--backend", "host"] + flags
+    rc, got = _run(evaluate.main, argv, b"", monkeypatch)
+    jrc, want = _run(jax_evaluate.main, argv, b"", monkeypatch)
+    assert rc == jrc == 0
+    assert got == want and b"F1: " in got
+
+
 @pytest.mark.parametrize("main", [predict.main, evaluate.main])
-def test_host_backend_from_the_environment_exits_2(model_case, main,
-                                                   monkeypatch, capsys):
+def test_host_backend_from_the_environment(model_case, gold, main,
+                                           monkeypatch, no_device_path):
+    """VAPORETTO_TPU_BACKEND=host steers auto to the host engine, even
+    where the caller gave a device."""
     path, _ = model_case
     monkeypatch.setenv("VAPORETTO_TPU_BACKEND", "host")
-    rc, out = _run(main, ["--model", path], "火星\n".encode(), monkeypatch,
-                   device="cpu")
-    assert rc == 2 and out == b""
-    assert "host engine" in capsys.readouterr().err
+    with open(gold, "rb") as f:
+        data = f.read()
+    jmain = jax_predict.main if main is predict.main else jax_evaluate.main
+    rc, got = _run(main, ["--model", path], data, monkeypatch, device="cpu")
+    jrc, want = _run(jmain, ["--model", path, "--backend", "host"], data,
+                     monkeypatch)
+    assert rc == jrc == 0 and got == want and got
+
+
+def test_dp_with_the_host_backend_is_ignored(model_case, monkeypatch,
+                                             capsys, no_device_path):
+    path, tokens = model_case
+    data = ("\n".join(_lines(tokens)) + "\n").encode()
+    argv = ["--model", path, "--backend", "host"]
+    rc, got = _run(predict.main, argv + ["--dp", "2"], data, monkeypatch)
+    assert rc == 0 and "--dp has no effect" in capsys.readouterr().err
+    assert got == _run(predict.main, argv, data, monkeypatch)[1]
+
+
+@pytest.mark.parametrize("main", [predict.main, evaluate.main])
+def test_auto_without_cuda_names_the_host_backend(model_case, main,
+                                                  monkeypatch):
+    """No CUDA device and no device given: auto raises, and the error
+    names --backend host (it never drops to the CPU unasked)."""
+    import torch
+
+    path, _ = model_case
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--backend host"):
+        _run(main, ["--model", path], "火星\n".encode(), monkeypatch)
 
 
 def test_chip_smoke_cli_phase_on_cpu(tmp_path):
     """chip_smoke.py's phase [6] at a small size on the CPU: the CLIs'
-    bytes equal LeanServer's over the same lines (plain, and tags with
-    both score blocks), evaluate finds the system's own output perfect,
-    and --profile writes a trace."""
+    bytes equal LeanServer's over the same lines (plain on either engine,
+    and tags with both score blocks), the host engine's general path
+    equals the device's, evaluate finds the system's own output perfect,
+    --profile writes a trace, and manipulate_model's rewritten models
+    predict as they should; then phases [4h] (the host engine's bytes,
+    no launch) and [3d] (the debug checks pass, and a changed weight
+    raises)."""
     import numpy as np
 
     import chip_smoke
@@ -278,8 +368,29 @@ def test_chip_smoke_cli_phase_on_cpu(tmp_path):
     assert twant == chip_smoke.general_path(tpred, tlines, **rich)
     res = chip_smoke.cli_phase(str(tmp_path / "work"), model, lines, want,
                                tmodel, tlines, twant, device="cpu",
-                               n_gold=80, n_profile=20)
-    assert res["evaluate"]["char"]["F1"] == "1.0"
-    assert res["evaluate"]["word"]["F1"] == "1.0"
+                               n_gold=80, n_profile=20, n_rich=40)
+    for k in ("char auto", "word auto", "char host"):
+        assert res["evaluate"][k]["F1"] == "1.0"
     assert res["trace"]["bytes"] > 0 and res["trace"]["events"] > 0
     assert res["plain"]["launches"] == (0, 0)  # plain versions on the CPU
+    assert res["host rich"]["bytes"] > 0
+    assert " " in res["edited"]["before"]
+    # chip_smoke's phases [3d] and [4h] at a small size
+    sets = {"scores": dict(scores=True), "tags": dict(tags=True)}
+    want_of = {k: chip_smoke.general_path(tpred if k == "tags" else pred,
+                                          tlines if k == "tags" else lines,
+                                          **kw) for k, kw in sets.items()}
+    hres = chip_smoke.host_phase(model, tmodel, lines, tlines, want,
+                                 want_of["scores"], want_of["tags"])
+    assert sorted(hres) == ["plain", "scores", "tags"]
+    assert all(r["launches"] == (0, 0) for r in hres.values())
+    # one group of lines: the astral line's sends it to the general path
+    assert hres["plain"]["stats"]["fallback_lines"] == len(lines)
+    assert hres["tags"]["stats"]["dispatches"] > 0
+    dres = chip_smoke.debug_phase([
+        ("model", pred, lines[:20]),
+        ("golden", Predictor(chip_smoke.golden_model(), device="cpu"),
+         ["この人は地球人だ", "人"]),
+    ])
+    assert [v[0] for v in dres.values()] == [20, 2]
+    assert "VAPORETTO_TPU_DEBUG_CHECKS" not in __import__("os").environ

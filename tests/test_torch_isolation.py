@@ -7,7 +7,8 @@ JAX package is loaded. An AST scan of every module of the package and of
 The CLIs run as programs in an interpreter where ``jax``, the JAX package
 and ``regex`` cannot be imported at all, as on the card's machine, which
 has no JAX: ``--help``, a whole CPU run of each, and ``--wsconst G``,
-which needs ``regex`` and fails with its ImportError.
+which needs ``regex`` and fails with its ImportError; the model tools'
+``--help`` too.
 """
 
 import ast
@@ -164,6 +165,13 @@ def test_cli_help_without_jax_or_regex(cli):
     res = _blocked(f"vaporetto_tpu_torch.cli.{cli}", "--help")
     assert res.returncode == 0, res.stderr
     assert "--model" in res.stdout and "--backend" in res.stdout
+
+
+@pytest.mark.parametrize("cli", ["convert_kytea_model", "manipulate_model"])
+def test_model_tools_help_without_jax_or_regex(cli):
+    res = _blocked(f"vaporetto_tpu_torch.cli.{cli}", "--help")
+    assert res.returncode == 0, res.stderr
+    assert "--model-in" in res.stdout and "--model-out" in res.stdout
 
 
 def test_cli_runs_without_jax_or_regex(tmp_path):

@@ -1,5 +1,5 @@
 """Shared CLI plumbing (wsconst parsing, filter construction, the
-predictor, and the flags the port does not serve yet)."""
+predictor and its engine, and the flags the port does not serve yet)."""
 
 from __future__ import annotations
 
@@ -43,41 +43,51 @@ def build_post_filters(wsconst_values: List[str]):
 
 BACKEND_HELP = (
     "device = the CUDA kernels on the card; host = the native C++ "
-    "evaluator, not ported yet (rejected); auto (default) = device until "
-    "the host engine is ported (utils/routing.py; VAPORETTO_TPU_BACKEND "
-    "overrides)."
+    "evaluator (bit-identical, no card needed); auto (default) = device "
+    "unless VAPORETTO_TPU_BACKEND=host (utils/routing.py)."
 )
 
 
 def build_predictor(model, predict_tags: bool, backend_flag: str,
                     device=None):
-    """Construct a Predictor on ``device`` (None: the current CUDA device)
-    after resolving ``--backend`` (see utils/routing.py); raises
-    ``routing.HostEngineNotPorted`` when that resolves to the host
-    engine."""
+    """Construct a Predictor after resolving ``--backend`` (see
+    utils/routing.py); ``device`` = the torch device of a device-backend
+    predictor (None: the current CUDA device)."""
     from ..predictor import Predictor
     from ..utils.routing import resolve_backend
 
-    backend = resolve_backend(backend_flag)
-    p = Predictor(model, predict_tags, device=device)
-    p.backend = backend
-    return p
+    return Predictor(model, predict_tags, device=device,
+                     backend=resolve_backend(backend_flag))
+
+
+def write_model_file(model, path: str) -> None:
+    """Write ``model`` to ``path`` zstd-compressed at level 19, as the
+    reference's tools do. Without the optional ``zstandard`` package the
+    file is written uncompressed, with a warning: every reader of this
+    package and of the JAX package takes both forms, the reference's own
+    tools only the compressed one."""
+    level = 19
+    try:
+        import zstandard  # noqa: F401
+    except ImportError:
+        print("warning: the zstandard package is not installed; writing "
+              "the model uncompressed", file=sys.stderr)
+        level = None
+    with open(path, "wb") as f:
+        model.write(f, zstd_level=level)
 
 
 def unported_flag(args) -> Optional[str]:
     """What a flag set asks for that the port does not serve yet, or
-    None: several processes, a data-parallel mesh, the host engine."""
+    None: several processes, or a data-parallel mesh (``--dp`` with
+    ``--backend host`` is served: it has no effect there)."""
     n = getattr(args, "num_processes", None)
     if n is not None and n > 1:
         return ("--num-processes > 1: multi-process runs are not ported "
                 "to vaporetto_tpu_torch yet")
-    if getattr(args, "dp", 0):
+    if getattr(args, "dp", 0) and args.backend != "host":
         return ("--dp: data-parallel serving over several cards is not "
                 "ported to vaporetto_tpu_torch yet")
-    if args.backend == "host":
-        from ..utils.routing import HostEngineNotPorted
-
-        return str(HostEngineNotPorted())
     return None
 
 

@@ -3,8 +3,8 @@
 Mirrors the reference evaluate CLI (evaluate/src/main.rs): gold tokenized
 lines on stdin (or ``--input``), re-predict on (optionally normalized) raw
 text, report char-boundary P/R/F1 or Nagata word-level P/R/F1. Single
-process: ``--num-processes`` above 1 and ``--backend host`` are not
-ported yet and exit with status 2.
+process: ``--num-processes`` above 1 is not ported yet and exits with
+status 2. ``--backend host`` runs the native host engine.
 
     python -m vaporetto_tpu_torch.cli.evaluate --model m.bin < gold.txt
 
@@ -72,14 +72,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
     print("Loading model file...", file=sys.stderr)
     model = Model.read(args.model)
-    from ..utils.routing import HostEngineNotPorted
-
-    try:
-        predictor = build_predictor(model, args.predict_tags, args.backend,
-                                    device=device)
-    except HostEngineNotPorted as e:  # VAPORETTO_TPU_BACKEND=host
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    predictor = build_predictor(model, args.predict_tags, args.backend,
+                                device=device)
 
     print("Start tokenization", file=sys.stderr)
     # Streaming accumulation: the confusion/word counts are additive, so

@@ -10,9 +10,13 @@ the reference's exact format, --tag-scores each token's tag scores.
 Every flag set of the single-process device backend takes the lean path
 (native tensorize -> the CUDA kernels -> native writers; serving.py) unless
 ``--no-lean`` is given or the flags need the general Sentence path; lines
-the lean path cannot represent go to the general path in order. Output is
-byte-identical either way. ``--dp``, ``--num-processes`` above 1 and
-``--backend host`` are not ported yet: they exit with status 2.
+the lean path cannot represent go to the general path in order. With
+``--backend host`` (or ``VAPORETTO_TPU_BACKEND=host`` under ``auto``) the
+native host engine serves plain boundaries, ``--scores`` and
+``--predict-tags`` on the lean path and everything else on the general
+path. Output is byte-identical either way. ``--dp`` and
+``--num-processes`` above 1 are not ported yet: they exit with status 2
+(``--dp`` with ``--backend host`` has no effect and is ignored).
 
     python -m vaporetto_tpu_torch.cli.predict --model m.bin < in.txt
 
@@ -71,7 +75,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                    "combinations.")
     p.add_argument("--dp", type=int, default=0, metavar="N",
                    help="Data-parallel serving over N cards (not ported "
-                   "yet: exits with status 2).")
+                   "yet: exits with status 2; ignored with --backend "
+                   "host).")
     p.add_argument("--input", default=None,
                    help="Input corpus file (default: stdin).")
     p.add_argument("--output", default=None,
@@ -101,8 +106,6 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
 
 def _run(args, device) -> int:
-    from ..utils.routing import HostEngineNotPorted
-
     pre_filter = KyteaFullwidthFilter()
     post_filters = build_post_filters(args.wsconst)
 
@@ -111,13 +114,12 @@ def _run(args, device) -> int:
     # --input/--output are honored in single-process mode too
     in_b = open(args.input, "rb") if args.input else None
     try:
-        try:
-            predictor = build_predictor(
-                model, args.predict_tags, args.backend, device=device)
-        except HostEngineNotPorted as e:  # VAPORETTO_TPU_BACKEND=host
-            print(f"error: {e}", file=sys.stderr)
-            return 2
-        args.backend = predictor.backend
+        predictor = build_predictor(
+            model, args.predict_tags, args.backend, device=device)
+        if args.dp:  # only --backend host lets --dp through
+            print("warning: --dp has no effect with --backend host; "
+                  "ignored", file=sys.stderr)
+        args.backend = predictor.backend  # the engine the lean path takes
         if args.tag_scores:
             predictor.store_tag_scores(True)
         return _tokenize(args, predictor, pre_filter, post_filters, in_b)

@@ -29,7 +29,7 @@ from ..models.model import Model
 from ..native import compile_matcher_native
 
 __all__ = ["CompiledModel", "CompiledMatcher", "CompiledTagMeta",
-           "compile_model", "CACHE_MAX_WINDOW_SIZE"]
+           "compile_model", "char_sym_table", "CACHE_MAX_WINDOW_SIZE"]
 
 # reference type_scorer.rs:34-35
 CACHE_MAX_WINDOW_SIZE = 3
@@ -400,3 +400,16 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
         n_tags=n_tags,
         type_ngrams=type_ngrams,
     )
+
+
+def char_sym_table(compiled: CompiledModel) -> np.ndarray:
+    """int32 dense codepoint -> symbol table (0 = OOV) up to the model's
+    largest codepoint, rebuilt from the hash projection's keys: the
+    projection the JAX package keeps as ``CompiledModel.char_sym_table``,
+    for the host engine and the numpy oracle. Codepoints past its end are
+    OOV."""
+    keys = np.asarray(compiled.char_hash_keys, dtype=np.int64)
+    live = keys >= 0
+    table = np.zeros(int(keys[live].max(initial=0)) + 1, dtype=np.int32)
+    table[keys[live]] = np.asarray(compiled.char_hash_syms)[live]
+    return table

@@ -7,7 +7,9 @@ It holds the one-call matcher compiler (``compile_matcher.cc`` over
 (``tensorizer.cc``): the uint16 tensorizers, the newline and char
 counters, the byte, bit-packed, scores and tag-aware detokenizers (the
 last two with the ``--scores`` / ``--tag-scores`` blocks), and the batched
-tag scorer of the general tag path (``tag_scorer.cc``).
+tag scorer of the general tag path (``tag_scorer.cc``), and the native
+host engine (``host_predictor.cc``, :class:`NativeHostPredictor`) behind
+``--backend host``.
 
 Wrappers that decode input return None when the batch needs the general
 path (invalid UTF-8, an astral codepoint, NUL, or a line longer than the
@@ -28,7 +30,7 @@ from .._build import build_shared
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("trie_builder.cc", "compile_matcher.cc", "tensorizer.cc",
-            "tag_scorer.cc")
+            "tag_scorer.cc", "host_predictor.cc")
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -176,6 +178,45 @@ def _load() -> ctypes.CDLL:
                 I32P, I32P, I32P, I32P, I32P,
                 I64P, I32P, I64P,
                 ctypes.c_int32, ctypes.c_int32,
+            ]
+            lib.vt_host_new.restype = ctypes.c_void_p
+            lib.vt_host_new.argtypes = [ctypes.c_int32, ctypes.c_int32,
+                                        ctypes.c_int32]
+            lib.vt_host_free.restype = None
+            lib.vt_host_free.argtypes = [ctypes.c_void_p]
+            lib.vt_host_set_char.restype = ctypes.c_int
+            lib.vt_host_set_char.argtypes = [
+                ctypes.c_void_p,
+                I32P, I32P, I32P, ctypes.c_int64,  # base, check, inherit
+                I32P, I32P, ctypes.c_int64,  # rows_first, rows_cnt
+                I32P, I32P, ctypes.c_int64,  # w8, off
+                I32P, ctypes.c_int64,  # sym_table
+            ]
+            lib.vt_host_set_type_cache.restype = ctypes.c_int
+            lib.vt_host_set_type_cache.argtypes = [
+                ctypes.c_void_p, I32P, ctypes.c_int64, ctypes.c_int32,
+            ]
+            lib.vt_host_set_type_trie.restype = ctypes.c_int
+            lib.vt_host_set_type_trie.argtypes = [
+                ctypes.c_void_p,
+                I32P, I32P, I32P, ctypes.c_int64,
+                I32P, I32P, ctypes.c_int64,
+                I32P, I32P, ctypes.c_int64,
+            ]
+            lib.vt_host_predict_batch.restype = ctypes.c_int
+            lib.vt_host_predict_batch.argtypes = [
+                ctypes.c_void_p, I32P, U8P, I64P, ctypes.c_int64, I64P,
+                I32P, I32P, I32P, ctypes.c_int32,
+            ]
+            lib.vt_host_serve_padded.restype = ctypes.c_int
+            lib.vt_host_serve_padded.argtypes = [
+                ctypes.c_void_p,
+                U16P, I32P,  # cps (B, L), lengths
+                ctypes.c_int64, ctypes.c_int32,  # B, L
+                I32P, ctypes.c_int32,  # ws_types, n_ws
+                I8P,  # out_bnd
+                I32P, I32P, I32P,  # out_scores, out_cm, out_tm (nullable)
+                ctypes.c_int32,  # n_threads
             ]
             _lib = lib
     return _lib
@@ -1056,4 +1097,189 @@ class NativeTagScorer:
         h = getattr(self, "_h", None)
         if h:
             self._lib.vt_tag_free(h)
+            self._h = None
+
+
+class NativeHostPredictor:
+    """ctypes wrapper for the C++ host engine (native/host_predictor.cc).
+
+    Evaluates a :class:`CompiledModel`'s tables on the CPU with results
+    bit-identical to the boundary kernel — the ``--backend host`` engine
+    and the analogue of the reference's embedded predictor (reference
+    predictor.rs:639-664). The char projection is the dense table
+    :func:`..compile.compiler.char_sym_table` rebuilds from the model's
+    hash keys.
+
+    Thread safety: ``predict_batch`` returns views into
+    per-instance scratch buffers, overwritten by the next call; an
+    internal lock serializes concurrent calls on one instance, but a
+    caller holding a previous result across a later call still sees it
+    overwritten — copy anything kept, or use one instance per thread.
+    """
+
+    def __init__(self, compiled):
+        from ..compile.compiler import char_sym_table
+
+        lib = _load()
+        self._bufs = {}
+        self._lock = threading.Lock()
+        self._lib = lib
+        c = compiled
+        self.pad_left = int(c.pad_left)
+        self.pad_right = int(c.pad_right)
+        self.has_char = c.char_matcher is not None
+        # the device path exposes per-position type states only for the
+        # trie variant (the cache variant has no automaton states)
+        self.has_type = (
+            c.type_matcher is not None and c.type_cache_table is None
+        )
+        self._h = lib.vt_host_new(int(c.bias), self.pad_left,
+                                  self.pad_right)
+        if not self._h:
+            raise RuntimeError("vt_host_new failed")
+
+        def p32(a):
+            return a.ctypes.data_as(I32P)
+
+        # the C++ side copies everything it needs: the contiguous copies
+        # live for the setter calls only
+        if c.char_matcher is not None:
+            m = c.char_matcher
+            arrs = [
+                np.ascontiguousarray(x, dtype=np.int32)
+                for x in (m.base, m.check, m.inherit, m.rows_first,
+                          m.rows_cnt, m.w8, m.off, char_sym_table(c))
+            ]
+            rc = lib.vt_host_set_char(
+                self._h,
+                p32(arrs[0]), p32(arrs[1]), p32(arrs[2]), len(arrs[0]),
+                p32(arrs[3]), p32(arrs[4]), len(arrs[3]),
+                p32(arrs[5]), p32(arrs[6]), len(arrs[6]),
+                p32(arrs[7]), len(arrs[7]),
+            )
+            if rc != 0:
+                raise RuntimeError("host predictor char setup failed")
+        if c.type_cache_table is not None:
+            table = np.ascontiguousarray(c.type_cache_table, dtype=np.int32)
+            lib.vt_host_set_type_cache(
+                self._h, p32(table), len(table), int(c.type_window_size)
+            )
+        elif c.type_matcher is not None:
+            m = c.type_matcher
+            arrs = [
+                np.ascontiguousarray(x, dtype=np.int32)
+                for x in (m.base, m.check, m.inherit, m.rows_first,
+                          m.rows_cnt, m.w8, m.off)
+            ]
+            rc = lib.vt_host_set_type_trie(
+                self._h,
+                p32(arrs[0]), p32(arrs[1]), p32(arrs[2]), len(arrs[0]),
+                p32(arrs[3]), p32(arrs[4]), len(arrs[3]),
+                p32(arrs[5]), p32(arrs[6]), len(arrs[6]),
+            )
+            if rc != 0:
+                raise RuntimeError("host predictor type setup failed")
+
+    def _scratch(self, name: str, size: int, dtype) -> np.ndarray:
+        """Reused per-instance output buffer: the pages stay mapped and
+        warm across calls instead of being faulted in anew each time."""
+        buf = self._bufs.get(name)
+        if buf is None or buf.size < size:
+            buf = np.empty(max(int(size * 5 // 4) + 16, 64), dtype=dtype)
+            self._bufs[name] = buf
+        return buf[:size]
+
+    def predict_batch(self, cps_list, cts_list, n_threads: int = 0):
+        """Score many sentences in one native call (worker threads inside;
+        ``n_threads`` 0 = every core).
+
+        Returns (scores_flat, score_offsets, char_match_flat,
+        type_match_flat, offsets): line i's padded scores are
+        ``scores_flat[score_offsets[i]:score_offsets[i+1]]`` and its match
+        states ``*_flat[offsets[i]:offsets[i+1]]``.
+
+        The returned arrays are views into per-instance scratch buffers
+        and are OVERWRITTEN by the next call — copy anything kept
+        (``Predictor.predict_host_batch`` does).
+        """
+        with self._lock:
+            n = len(cps_list)
+            lens = np.fromiter((len(c) for c in cps_list), np.int64, n)
+            offsets = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(lens, out=offsets[1:])
+            total = int(offsets[-1])
+            cps_flat = self._scratch("cps", max(total, 1), np.int32)
+            cts_flat = self._scratch("cts", max(total, 1), np.uint8)
+            for i, (c, t) in enumerate(zip(cps_list, cts_list)):
+                cps_flat[offsets[i] : offsets[i + 1]] = c
+                cts_flat[offsets[i] : offsets[i + 1]] = t
+            s_sizes = self.pad_left + np.maximum(lens - 1, 0) \
+                + self.pad_right
+            score_offsets = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(s_sizes, out=score_offsets[1:])
+            scores_flat = self._scratch(
+                "scores", max(int(score_offsets[-1]), 1), np.int32
+            )
+            char_flat = self._scratch("char", max(total, 1), np.int32)
+            type_flat = self._scratch("type", max(total, 1), np.int32)
+            rc = self._lib.vt_host_predict_batch(
+                self._h,
+                cps_flat.ctypes.data_as(I32P),
+                cts_flat.ctypes.data_as(U8P),
+                offsets.ctypes.data_as(I64P),
+                n,
+                score_offsets.ctypes.data_as(I64P),
+                scores_flat.ctypes.data_as(I32P),
+                char_flat.ctypes.data_as(I32P),
+                type_flat.ctypes.data_as(I32P),
+                n_threads,
+            )
+        if rc != 0:
+            raise RuntimeError("host batch predict failed")
+        return scores_flat, score_offsets, char_flat, type_flat, offsets
+
+    def serve_padded(self, cps, lengths, ws_types=(), want_scores=False,
+                     want_states=False, n_threads: int = 0):
+        """One-call lean host serving over a padded, unpacked (B, L) uint16
+        batch: returns int8 gap labels (B, L-1) [+ int32 gap scores]
+        [+ (char_match, type_match) padded state rows] — the C++ twin of
+        the boundary kernel's serve epilogue (vt_host_serve_padded). The
+        arrays are fresh, not scratch views."""
+        cps = np.ascontiguousarray(cps, dtype=np.uint16)
+        lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+        B, L = cps.shape
+        ws = np.asarray(sorted(ws_types), dtype=np.int32)
+        bnd = np.empty((B, max(L - 1, 0)), dtype=np.int8)
+        sc = (np.empty((B, max(L - 1, 0)), dtype=np.int32)
+              if want_scores else None)
+        cm = np.empty((B, L), dtype=np.int32) if want_states else None
+        tm = np.empty((B, L), dtype=np.int32) if want_states else None
+        with self._lock:
+            rc = self._lib.vt_host_serve_padded(
+                self._h,
+                cps.ctypes.data_as(U16P),
+                lengths.ctypes.data_as(I32P),
+                B,
+                L,
+                ws.ctypes.data_as(I32P) if len(ws) else None,
+                len(ws),
+                bnd.ctypes.data_as(I8P),
+                sc.ctypes.data_as(I32P) if sc is not None else None,
+                cm.ctypes.data_as(I32P) if cm is not None else None,
+                tm.ctypes.data_as(I32P) if tm is not None else None,
+                n_threads,
+            )
+        if rc != 0:
+            raise RuntimeError("host serve failed")
+        out = [bnd]
+        if want_scores:
+            out.append(sc)
+        if want_states:
+            out.append((cm, tm))
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.vt_host_free(h)
             self._h = None

@@ -17,9 +17,16 @@ path (:meth:`Predictor.predict_tags_batch`) scores the tokens of predicted
 sentences on the host with the native tag scorer.
 
 Integer semantics (int32, wrapping) match the reference exactly. The
-predictor runs on the card unless the caller asks for another device:
-``Predictor(model)`` needs CUDA and raises without it; the tests pass
-``device="cpu"``, where the kernel's plain torch version runs instead.
+predictor runs on the card unless the caller asks for another device or
+engine: ``Predictor(model)`` needs CUDA and raises without it; the tests
+pass ``device="cpu"``, where the kernel's plain torch version runs
+instead; ``backend="host"`` runs the native C++ host engine
+(native/host_predictor.cc) over the same compiled tables, bit-identical,
+with no device tables and no device at all.
+
+``VAPORETTO_TPU_DEBUG_CHECKS=1`` holds every device ``predict_batch`` to
+the numpy oracle (:mod:`.ops.host_reference`) and raises
+``AssertionError`` on a difference (:meth:`Predictor.debug_verify`).
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ def _resolve_device(device) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "Predictor runs on a CUDA device and none is available; "
-                "pass device='cpu' to run the plain version on the CPU"
+                "pass device='cpu' to run the plain version on the CPU, or "
+                "backend='host' (--backend host) for the native host engine"
             )
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -64,12 +72,21 @@ class Predictor:
 
     def __init__(self, model: Optional[Model] = None,
                  predict_tags: bool = False, *,
-                 compiled: Optional[CompiledModel] = None, device=None):
+                 compiled: Optional[CompiledModel] = None, device=None,
+                 backend: str = "device"):
         """``predict_tags``: compile the model's tag models too (tags need
         it; a given ``compiled`` model carries its own tag side).
         ``device``: where the tables live and the batches run; None means
-        the current CUDA device."""
-        self.device = _resolve_device(device)
+        the current CUDA device. ``backend``: ``"device"`` (the kernels) or
+        ``"host"`` (the native host engine: ``predict``/``predict_batch``
+        and the ``serve_*_host_fn`` run on the CPU, and the device is
+        resolved only if a device function is asked for)."""
+        if backend not in ("device", "host"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self._device_arg = device
+        self._device = _resolve_device(device) if backend == "device" \
+            else None
         self.compiled = compiled if compiled is not None else compile_model(
             model, predict_tags
         )
@@ -80,6 +97,15 @@ class Predictor:
         self._tag_dev_obj = False  # False: not built yet
         self._device_tag_tables: Optional[TagTables] = None
         self._tag_scorer_obj = None
+        self._host_predictor = None
+
+    @property
+    def device(self) -> torch.device:
+        """The torch device of the tables and batches (a host-backend
+        predictor resolves it at first use)."""
+        if self._device is None:
+            self._device = _resolve_device(self._device_arg)
+        return self._device
 
     # ------------------------------------------------------------------
     # device plumbing
@@ -265,6 +291,50 @@ class Predictor:
     # prediction
     # ------------------------------------------------------------------
 
+    def _host(self):
+        """The native host engine over this predictor's compiled tables
+        (built at first use)."""
+        if self._host_predictor is None:
+            from .native import NativeHostPredictor
+
+            self._host_predictor = NativeHostPredictor(self.compiled)
+        return self._host_predictor
+
+    def predict_host_batch(self, sentences: Sequence[Sentence]) -> None:
+        """Predict a batch in place with the native host engine: one
+        native call scores the whole batch (worker threads inside the
+        library), lines of any length whole, with no chunking. Each
+        sentence gets copies of its rows: the engine's outputs are scratch
+        views that its next call overwrites."""
+        host = self._host()
+        pad = self.compiled.pad_left
+        scores_flat, s_offs, char_flat, type_flat, offs = host.predict_batch(
+            [s.codepoints for s in sentences],
+            [s.char_types for s in sentences],
+        )
+        for i, s in enumerate(sentences):
+            n = len(s)
+            lo = int(s_offs[i])
+            s.score_padding = pad
+            s.boundary_scores = scores_flat[
+                lo : lo + pad + max(n - 1, 0) + 1
+            ].copy()
+            exposed = scores_flat[lo + pad : lo + pad + max(n - 1, 0)]
+            s.boundaries = (exposed > 0).astype(np.uint8)
+            clo = int(offs[i])
+            # the match states the device path exposes: the char side's
+            # when the model has tags, the type side's for the trie variant
+            if self.compiled.tag_meta is not None:
+                if host.has_char:
+                    s.char_pma_states = char_flat[clo : clo + n].astype(
+                        np.int32
+                    )
+                if host.has_type:
+                    s.type_pma_states = type_flat[clo : clo + n].astype(
+                        np.int32
+                    )
+            s.set_predictor(self)
+
     def predict(self, sentence: Sentence) -> None:
         """Predict word boundaries of the given sentence in place."""
         self.predict_batch([sentence])
@@ -272,10 +342,19 @@ class Predictor:
     def predict_batch(self, sentences: Sequence[Sentence]) -> None:
         """Predict boundaries for a batch of sentences in place.
 
-        Sentences beyond ``LONG_SENTENCE_THRESHOLD`` are routed through
-        halo-overlap chunking individually (parallel/chunking.py) so one
-        long line cannot inflate the whole batch's device shape.
+        On the host backend, one call of the native host engine
+        (:meth:`predict_host_batch`). On the device, sentences beyond
+        ``LONG_SENTENCE_THRESHOLD`` are routed through halo-overlap
+        chunking individually (parallel/chunking.py) so one long line
+        cannot inflate the whole batch's device shape, and the rest run as
+        one batch, held to the numpy oracle under
+        ``VAPORETTO_TPU_DEBUG_CHECKS=1`` (:meth:`debug_verify`).
         """
+        if not sentences:
+            return
+        if self.backend == "host":
+            self.predict_host_batch(sentences)
+            return
         from .parallel.chunking import predict_long
 
         short = []
@@ -292,6 +371,7 @@ class Predictor:
             self.assign_result_row(s, scores[i],
                                    cm[i] if cm is not None else None,
                                    tm[i] if tm is not None else None)
+        self.debug_verify(short)
 
     def assign_result_row(self, s: Sentence, scores_row,
                           cm_row=None, tm_row=None) -> None:
@@ -308,6 +388,95 @@ class Predictor:
         if tm_row is not None:
             s.type_pma_states = tm_row[:n].astype(np.int32)
         s.set_predictor(self)
+
+    def debug_verify(self, sentences: Sequence[Sentence]) -> None:
+        """Hold device results to the numpy oracle when
+        ``VAPORETTO_TPU_DEBUG_CHECKS=1`` (no-op otherwise): raises
+        ``AssertionError`` naming the first sentence whose scores
+        differ."""
+        from .utils.observe import debug_checks_enabled
+
+        if debug_checks_enabled():
+            from .ops.host_reference import verify_batch
+
+            err = verify_batch(self.compiled, sentences)
+            if err is not None:
+                raise AssertionError(err)
+
+    # ------------------------------------------------------------------
+    # the host engine's lean serving functions
+    # ------------------------------------------------------------------
+
+    def _serve_host_core(self, wsconst_types: Sequence[int],
+                         want_scores: bool):
+        host = self._host()
+        ws = tuple(sorted(int(w) for w in wsconst_types))
+
+        def fn(cps, lengths):
+            # the whole serve (widen, classify, predict, threshold,
+            # wsconst) as one native call over an unpacked batch
+            return host.serve_padded(cps, lengths, ws, want_scores)
+
+        return fn
+
+    def serve_boundaries_host_fn(self, wsconst_types: Sequence[int] = ()):
+        """Host-engine twin of :meth:`serve_boundaries_fn`: ``fn(cps,
+        lengths)`` over an unpacked (B, L) uint16 batch (numpy) -> int8
+        (B, L-1) gap labels, one byte a gap."""
+        return self._serve_host_core(wsconst_types, False)
+
+    def serve_scores_host_fn(self, wsconst_types: Sequence[int] = ()):
+        """Host-engine twin of :meth:`serve_scores_fn`: ``fn(cps,
+        lengths) -> (int8 gap labels, int32 gap scores)``, both (B,
+        L-1)."""
+        return self._serve_host_core(wsconst_types, True)
+
+    def serve_tags_host_fn(self, wsconst_types: Sequence[int] = ()):
+        """Host-engine twin of :meth:`serve_tags_fn`: one native serve
+        call (with the per-position match states) and the batched C++ tag
+        scorer, returning ``(int8 gap labels (B, L-1), int32 token id
+        (B, L), int8 choice (B, L, S))`` — the token id and choices at
+        each recognized token's last char, -1 elsewhere."""
+        host = self._host()
+        scorer = self._tag_scorer()
+        S = max(self.compiled.n_tags, 1)
+        ws = tuple(sorted(int(w) for w in wsconst_types))
+        has_char = scorer.has_char
+        has_type = scorer.has_type
+
+        def fn(cps, lengths):
+            cps = np.asarray(cps)
+            lengths64 = np.asarray(lengths, dtype=np.int64)
+            B, L = cps.shape
+            bnd, (cm, tm) = host.serve_padded(cps, lengths, ws,
+                                              want_states=True)
+            # the native scorer's flat label stream assumes n-1 labels
+            # per sentence, which cannot represent empty lines: it takes
+            # the nonempty rows only (empty lines carry no tokens)
+            nz = np.flatnonzero(lengths64 > 0)
+            lens_nz = lengths64[nz]
+            iota = np.arange(L)
+            mask = iota[None, :] < lens_nz[:, None]
+            sent_off = np.zeros(len(nz) + 1, dtype=np.int64)
+            np.cumsum(lens_nz, out=sent_off[1:])
+            cps_flat = cps[nz][mask].astype(np.int32)
+            gmask = iota[None, : L - 1] < (lens_nz[:, None] - 1)
+            bnd_flat = bnd[nz][gmask].astype(np.uint8)
+            tids, pos, sent, choices, _, _, _ = scorer.predict_batch(
+                cps_flat, bnd_flat, sent_off,
+                cm[nz][mask] if has_char else None,
+                tm[nz][mask] if has_type else None,
+                want_scores=False,
+            )
+            tid = np.full((B, L), -1, dtype=np.int32)
+            choice = np.full((B, L, S), -1, dtype=np.int8)
+            if len(tids):
+                rows = nz[sent]
+                tid[rows, pos] = tids
+                choice[rows, pos, :] = choices[:, :S].astype(np.int8)
+            return bnd, tid, choice
+
+        return fn
 
     # ------------------------------------------------------------------
     # tags, general path (reference predictor.rs:546-637)
@@ -414,13 +583,16 @@ class Predictor:
         return serialize_compiled(self.compiled, self.predict_tags_enabled)
 
     @classmethod
-    def deserialize_from_slice(cls, data: bytes, device=None) -> "Predictor":
+    def deserialize_from_slice(cls, data: bytes, device=None,
+                               backend: str = "device") -> "Predictor":
         """A predictor over an artifact's compiled model, with no model
-        compile; ``device`` as the constructor takes it."""
+        compile; ``device`` and ``backend`` as the constructor takes
+        them."""
         from .compile.artifact import deserialize_compiled
 
         compiled, predict_tags = deserialize_compiled(data)
-        return cls(None, predict_tags, compiled=compiled, device=device)
+        return cls(None, predict_tags, compiled=compiled, device=device,
+                   backend=backend)
 
     def _predict_tags_python(self, sentences: Sequence[Sentence]) -> None:
         """:meth:`predict_tags_batch` in plain Python, token by token: the

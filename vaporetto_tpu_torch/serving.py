@@ -43,6 +43,14 @@ the bits read back; it does not compose with tags.
   from the compiled tables (score spill + type-window isolation), and
   groups target a constant per-dispatch character volume.
 
+On a ``backend="host"`` predictor the same stream runs through the native
+host engine instead (``Predictor.serve_*_host_fn``): unpacked groups of
+``batch_lines`` lines, one native serve call each (and the native tag
+scorer with ``tags``), whose int8 gap labels go to the byte writer
+(``vt_detok``) or, packed into bits on the host, to the same score and tag
+writers. No device is touched. The host engine serves plain boundaries,
+``scores`` and ``tags``; the rich combinations take the general path.
+
 Lines the lean path cannot represent (astral-plane codepoints, NUL bytes,
 invalid UTF-8, lines over ``Predictor.LONG_SENTENCE_THRESHOLD`` chars) go
 to the caller-provided general path, preserving output order — that is
@@ -63,6 +71,7 @@ from .native import (
     TagScoresPlan,
     count_chars_native,
     detok_bits_native,
+    detok_native,
     detok_scores2_native,
     detok_tags2_native,
     find_newlines_native,
@@ -82,29 +91,40 @@ _WSCONST_FAST = {"D", "R", "H", "T", "K", "O", "G"}
 
 
 def lean_path_supported(args_like) -> bool:
-    """Whether a predict-CLI flag set can take the lean path on the
-    device backend: plain boundaries, ``--predict-tags``, ``--scores`` and
+    """Whether a predict-CLI flag set can take the lean path: on the
+    device backend plain boundaries, ``--predict-tags``, ``--scores`` and
     the rich combinations (``--scores --predict-tags``, ``--tag-scores``
-    with ``--predict-tags``, reference predict main.rs:65-91). These go to
-    the general path: ``--predict-tags`` with wsconst G (the tag pass's
-    token spans come from the boundaries before the host mask), and
-    ``--tag-scores`` without ``--predict-tags`` (the general path raises
-    as the reference does). The port has only the device backend."""
-    if getattr(args_like, "backend", "device") != "device":
+    with ``--predict-tags``, reference predict main.rs:65-91); on the host
+    engine the first three. These go to the general path:
+    ``--predict-tags`` with wsconst G (the tag pass's token spans come
+    from the boundaries before the host mask), ``--tag-scores`` without
+    ``--predict-tags`` (the general path raises as the reference does),
+    and the rich combinations on the host engine."""
+    backend = getattr(args_like, "backend", "device")
+    if backend not in ("device", "host"):
         return False
     if not all(w in _WSCONST_FAST for w in args_like.wsconst):
         return False
     if args_like.predict_tags and "G" in args_like.wsconst:
         return False
     if args_like.tag_scores:
-        return bool(args_like.predict_tags)
+        return bool(args_like.predict_tags) and backend == "device"
+    if args_like.scores and args_like.predict_tags:
+        return backend == "device"
     return True
 
 
 def lean_tags_supported(predictor) -> bool:
     """Whether the lean ``--predict-tags`` path can serve this predictor:
-    its model has device tag tables (:meth:`Predictor.device_tag_tables`;
-    a model over the tables' packing limits has none)."""
+    on the device, its model has device tag tables
+    (:meth:`Predictor.device_tag_tables`; a model over the tables' packing
+    limits has none); on the host engine, it has tags and every slot's
+    candidates fit the int8 choice output."""
+    if predictor.backend == "host":
+        meta = predictor.compiled.tag_meta
+        return (meta is not None and predictor.compiled.n_tags > 0
+                and all(len(c) <= 127 for slots in meta.tags
+                        for c in slots))
     return predictor.device_tag_tables() is not None
 
 #: rows of this width hold the packed short-line layout
@@ -221,7 +241,9 @@ class LeanServer:
     ConcatGraphemeClustersFilter (``--wsconst G``) as a host mask over the
     bits; not with ``tags``. ``fallback(lines: List[bytes])`` handles
     lines the lean path cannot represent (it must write its own output, in
-    order). ``mesh`` (several cards) is not ported yet and raises.
+    order). ``mesh`` (several cards) is not ported yet and raises. A
+    ``backend="host"`` predictor serves through the native host engine
+    (not the rich combinations).
     """
 
     def __init__(
@@ -249,8 +271,13 @@ class LeanServer:
             # a post-hoc host mask would desynchronize them
             raise ValueError("lean tag path cannot compose with the "
                              "grapheme filter")
+        #: the native host engine serves the stream, unpacked
+        self.host = predictor.backend == "host"
+        if self.host and tags and (scores or tag_scores):
+            raise ValueError("lean tags+scores combinations run on the "
+                             "device backend")
         self.predictor = predictor
-        self.device = predictor.device
+        self.device = None if self.host else predictor.device
         self.tags = bool(tags)
         self.scores = bool(scores)
         self.grapheme = bool(grapheme)
@@ -258,7 +285,16 @@ class LeanServer:
         ws = tuple(sorted(wsconst))
         c = predictor.compiled
         self._ts_plan = None
-        if self.tags:
+        self._sep = 0
+        if self.host:
+            if self.tags:
+                self.fn = predictor.serve_tags_host_fn(ws)
+                self.plan = TagEmitPlan(c.tag_meta, c.n_tags)
+            elif self.scores:
+                self.fn = predictor.serve_scores_host_fn(ws)
+            else:
+                self.fn = predictor.serve_boundaries_host_fn(ws)
+        elif self.tags:
             self.fn = predictor.serve_tags_fn(
                 ws, host_types=True, want_gap_scores=self.scores,
                 want_tag_scores=self.tag_scores)
@@ -274,7 +310,8 @@ class LeanServer:
             self._sep = pack_separator(c)
         self.norm_map = _fullwidth_norm_map() if normalize else None
         self._scratch: dict = {}  # reused detok output buffer
-        self._slots = [_HostSlot(self.device), _HostSlot(self.device)]
+        self._slots = [] if self.host else [_HostSlot(self.device),
+                                             _HostSlot(self.device)]
         self._n_launched = 0
         self.batch_lines = batch_lines
         self.fallback = fallback
@@ -326,6 +363,16 @@ class LeanServer:
             return None
         L = bucket_length(max_chars + 1)
         B = len(starts)
+        if self.host:
+            t16 = tensorize16_native(blob, starts, ends, L, self.norm_map)
+            if t16 is None:
+                return None
+            cps, lengths, _ = t16
+            res = self.fn(cps, lengths)
+            self.stats["dispatches"] += 1
+            return (((res if isinstance(res, tuple) else (res,)), None),
+                    blob, starts[:n_valid], ends[:n_valid], None,
+                    lengths[:n_valid], (cps, lengths))
         slot = self._slots[self._n_launched % 2]
         cps = slot.tensor("cps", (B, L), torch.uint16)
         lengths = slot.tensor("lengths", (B,), torch.int32)
@@ -422,6 +469,10 @@ class LeanServer:
         (outs, ready), blob, starts, ends, packed, counts, host = pending
         n = len(starts)
         st = self.stats
+        if self.host:
+            self._realize_host(outs, blob, starts, ends, counts, host, n,
+                               out)
+            return
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
@@ -460,6 +511,33 @@ class LeanServer:
                 scratch=self._scratch,
             )
         st["t_detok_s"] += time.perf_counter() - t0
+        out.write(data)
+
+    def _realize_host(self, outs, blob, starts, ends, counts, host, n,
+                      out) -> None:
+        """The host engine's batch: int8 gap labels, one byte a gap, to
+        the byte writer; with scores or tags, packed into bits for the
+        same writers the device path uses."""
+        from .predictor import pack_gap_bits_np
+
+        t0 = time.perf_counter()
+        bnd = outs[0]
+        if self.grapheme:
+            bnd = np.array(bnd)  # the host mask writes into it
+            self._apply_grapheme(bnd, host, n)
+        if self.scores:
+            data = detok_scores2_native(
+                blob, starts, ends, pack_gap_bits_np(bnd[:n].view(np.uint8)),
+                counts, host[0][:n], outs[1][:n], scratch=self._scratch)
+        elif self.tags:
+            data = detok_tags2_native(
+                blob, starts, ends, pack_gap_bits_np(bnd[:n].view(np.uint8)),
+                counts, outs[1][:n], outs[2][:n], self.plan,
+                scratch=self._scratch)
+        else:
+            data = detok_native(blob, starts, ends, bnd[:n],
+                                scratch=self._scratch)
+        self.stats["t_detok_s"] += time.perf_counter() - t0
         out.write(data)
 
     def _grapheme_bits(self, bits: np.ndarray, host, n_rows: int):
@@ -568,8 +646,13 @@ class LeanServer:
                 has_cr[-1] = False
             ends = ends - has_cr.astype(np.int64)
             B = self.batch_lines
-            counts_all = count_chars_native(blob, starts, ends)
-            for lo, hi, packed in self._pack_groups(counts_all):
+            if self.host:  # the host engine runs lines unpacked
+                groups = ((g, min(g + B, len(nl)), False)
+                          for g in range(0, len(nl), B))
+            else:
+                counts_all = count_chars_native(blob, starts, ends)
+                groups = self._pack_groups(counts_all)
+            for lo, hi, packed in groups:
                 sub = [(lo, hi)]
                 if packed:
                     t0 = time.perf_counter()
