@@ -5,14 +5,16 @@ Drives the port's main paths — lean boundary serving, lean ``--scores``,
 lean ``--predict-tags`` serving and its rich combination with
 ``--scores --tag-scores``, bytes in to tokenized (and tagged, scored)
 bytes out, the same streams on the native host engine, and the predict,
-evaluate and manipulate_model CLIs over them — on one CUDA card, at the full size of the largest model the repo can build
+evaluate and manipulate_model CLIs over them, and the train CLI on a
+corpus the model segments — on one CUDA card, at the full size of the
+largest model the repo can build
 from its own code (the synthetic 50k-word dictionary model, seed 17; for
 tags the same model with 3 000 KyTea-style tag models, seed 23), and holds
-the hand-written boundary and tag kernels against their plain torch
-versions on the same inputs. Phases, each printed on its own line:
+the hand-written boundary, tag and solver kernels against their plain
+torch versions on the same inputs. Phases, each printed on its own line:
 
-1. device and build: the card's name and power limit, the g++ and two nvcc
-   build seconds (all three built in parallel, from the sources in the
+1. device and build: the card's name and power limit, the g++ and three
+   nvcc build seconds (all four built in parallel, from the sources in the
    tree), each kernel's ptxas report;
 2. model: compile seconds and the table bytes on the card, for the 50k
    model and the tagged 50k model (tokens, classes, slots, probe tables;
@@ -88,7 +90,21 @@ versions on the same inputs. Phases, each printed on its own line:
    ``manipulate_model``: the 50k model's dictionary dumped and replaced
    unchanged gives [4]'s bytes on the card, and one word's edited weights
    change its segmentation as the general path does;
-7. a ``kernels`` JSON line.
+7. training (:func:`train_phase`, :func:`time_solver`): the train CLI
+   on the card over 10 000 of [4]'s long lines as the 50k model segments
+   them (``--tok``, its words as ``--dict``, ``--solver 5``): the solver
+   kernels (``csrc/solver.cu``) against their plain version on that
+   problem (one iteration within rtol 1e-5), two solves with bitwise-equal
+   weights and byte-equal model files, the plain solve's objective,
+   iterations and held-out F1 beside the kernel's; ``predict`` and
+   ``evaluate`` with the trained model through the boundary kernel on
+   2 000 held-out lines; Crammer-Singer over three labels (``--part``
+   with unknown gaps, ``--solver 4``) and logistic (``--solver 0``); tag
+   training on 3 000 tag-token lines the tagged model tags, and
+   ``--predict-tags`` with the student through both kernels; the
+   kernels' times per iteration beside the plain version's,
+   ``torch.sparse.mm``'s and the byte bound;
+8. a ``kernels`` JSON line (boundary, tags, solver).
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
@@ -618,10 +634,11 @@ def build_all():
     returns {name: seconds} and {kernel: its ptxas report lines}."""
     from vaporetto_tpu_torch import native
     from vaporetto_tpu_torch.ops import boundary as bmod
+    from vaporetto_tpu_torch.ops import solver as smod
     from vaporetto_tpu_torch.ops import tags as tmod
 
     builds = [("g++", native.build), ("boundary", bmod.build),
-              ("tags", tmod.build)]
+              ("tags", tmod.build), ("solver", smod.build)]
     secs, errors, paths = {}, [], {}
 
     def run(name, fn):
@@ -1014,10 +1031,12 @@ def kernel_counts():
 
 
 def zero_counts() -> None:
+    from vaporetto_tpu_torch.ops import solver as ops
     from vaporetto_tpu_torch.ops.boundary import boundary
     from vaporetto_tpu_torch.ops.tags import tags
 
     boundary.launches = tags.launches = 0
+    ops.fista_step.launches = ops.power_step.launches = 0
 
 
 def host_cpu() -> str:
@@ -1327,6 +1346,632 @@ def cli_phase(work, model, lines, want, tmodel, tlines, twant, device=None,
                              f"{ewant!r}")
     res["edited"].update(word=word, before=general_path(pred, [word])
                          .decode("utf-8").strip())
+    return res
+
+
+# ----------------------------------------------------------------------
+# phase [7]: training
+# ----------------------------------------------------------------------
+
+
+def solver_examples(seed, n=2000, d=300, k=12):
+    """A seeded sparse problem laid out as both extractors lay out a row:
+    live (feature id, count) entries first, the bias feature d + 1, then
+    id 0 padding. Returns (idx, val, +1/-1 targets, three class labels,
+    d)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m = rng.integers(1, k, n)
+    idx = np.zeros((n, k), np.int32)
+    val = np.zeros((n, k), np.float32)
+    # Zipf-like ids: a few features in most rows, most in a few
+    ids = np.minimum(rng.zipf(1.3, (n, k)), d).astype(np.int32)
+    for r in range(n):
+        row = np.unique(ids[r])[:m[r]]
+        idx[r, :len(row)] = row
+        val[r, :len(row)] = rng.integers(1, 4, len(row))
+        idx[r, len(row)], val[r, len(row)] = d + 1, 1.0
+    w = rng.normal(size=d + 2)
+    margin = (w[idx] * val).sum(1) + rng.normal(scale=0.5, size=n)
+    labels = np.digitize(margin, np.quantile(margin, [1 / 3, 2 / 3]))
+    return (idx, val, np.where(margin > 0, 1.0, -1.0),
+            labels.astype(np.int32), d)
+
+
+def solver_launches() -> int:
+    """Solver kernel launches (both kernels, FISTA and power steps) since
+    the counts were last set."""
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    return ops.fista_step.launches + ops.power_step.launches
+
+
+class _Recorded:
+    """While active, ``module.name`` is wrapped: each call's arguments,
+    result and seconds are appended to ``log`` (``keep`` maps a call to
+    the record kept: the default keeps them all)."""
+
+    def __init__(self, module, name, log, keep=None):
+        self.module, self.name, self.log, self.keep = module, name, log, keep
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            rec = {"args": args, "kw": kw, "out": out,
+                   "seconds": time.perf_counter() - t0}
+            self.log.append(self.keep(rec) if self.keep else rec)
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self.log
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def _solve_record(keep_problem):
+    """``_Recorded.keep`` for ``train.solver._fista(p, eps, chunk,
+    lip_of)``: the problem's shape, bytes and final (it, delta); the
+    problem itself (its layouts stay on the card) only if asked."""
+
+    def keep(rec):
+        p, eps, chunk, lip_of = rec["args"]
+        it, delta = p.read()
+        out = {"w": rec["out"], "seconds": rec["seconds"], "it": it,
+               "delta": delta, "eps": eps, "chunk": chunk, "lip_of": lip_of,
+               "N": p.N, "nnz": p.nnz, "n_dim": p.n_dim, "C": p.C,
+               "layout_bytes": p.nbytes(), "example_bytes": p.example_bytes}
+        if keep_problem:
+            out["p"] = p
+        return out
+
+    return keep
+
+
+def train_run(argv, device=None, keep_problem=False):
+    """``cli.train.main(argv, device)`` in this process; returns its
+    seconds (whole, and by stage as the CLI prints them), the kernel
+    launches counted during it (the counts start from 0), the problem's
+    shape and every solve's record (:func:`_solve_record`; the first is
+    the boundary solve)."""
+    import contextlib
+    import re
+
+    from vaporetto_tpu_torch.cli import train
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    solves = []
+    err = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), _Recorded(
+            psolver, "_fista", solves, _solve_record(keep_problem)):
+        rc = train.main(argv, device=device)
+    sync(device)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"train {argv} exited {rc}: {err.getvalue()}")
+    text = err.getvalue()
+    m = re.search(r"# of examples: (\d+) \(width (\d+)\); seconds: load "
+                  r"([\d.]+), extraction ([\d.]+), solve ([\d.]+), tags "
+                  r"([\d.]+), assembly ([\d.]+)", text)
+    if m is None:
+        raise AssertionError(f"train printed no stage seconds: {text[-500:]}")
+    n, k, *stages = m.groups()
+    return {"seconds": secs, "solver launches": solver_launches(),
+            "examples": int(n), "width": int(k),
+            "features": int(re.search(r"# of features: (\d+)",
+                                      text).group(1)),
+            "stages": dict(zip(("load", "extraction", "solve", "tags",
+                                "assembly"), map(float, stages))),
+            "solves": solves}
+
+
+def solver_step_check(p, eps, warm=5):
+    """Check (a): from the state after ``warm`` kernel iterations, one
+    kernel iteration against one plain iteration (``index_add_``) on the
+    same device and state. w and z must agree within rtol 1e-5 and atol
+    1e-7 max|g| (float32 sums of at most a column's entries, in other
+    orders), delta the same, and both advance it. Returns the largest
+    |kernel - plain| of w and z. Its launches do not count."""
+    import torch
+
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    before = (ops.fista_step.launches, ops.power_step.launches)
+    p.start(p.step, eps)
+    for _ in range(warm):
+        ops.fista_step(p)
+    start = p.clone_state()
+    ops.fista_step(p)
+    kern = p.clone_state()
+    p.set_state(start)
+    ops.fista_step_plain(p)
+    plain = p.clone_state()
+    z = start["z"] if p.C == 1 else start["z"].view(p.n_dim, p.C)
+    gmax = float(ops.f_grad_plain(p, z)[1].abs().max())
+    err = 0.0
+    for k in ("w", "z"):
+        d = (kern[k] - plain[k]).abs()
+        bad = d > 1e-5 * plain[k].abs() + 1e-7 * gmax
+        if bool(bad.any()):
+            raise AssertionError(f"(a) {k}: kernel and plain differ at "
+                                 f"{int(bad.sum())} entries, most "
+                                 f"{float(d.max())}")
+        err = max(err, float(d.max()))
+    dk, dp = (float(s["state"][2:3].view(torch.float32)) for s in
+              (kern, plain))
+    if abs(dk - dp) > 1e-5 * dp + 1e-7 * gmax or not (
+            int(kern["state"][0]) == int(plain["state"][0]) == warm + 1):
+        raise AssertionError(f"(a) delta {dk} / {dp}, it "
+                             f"{int(kern['state'][0])} / "
+                             f"{int(plain['state'][0])}")
+    ops.fista_step.launches, ops.power_step.launches = before
+    return err
+
+
+def _objective(p, w):
+    """f of the solved objective at w (float64, (n_dim,) or (C, n_dim)),
+    with the L1 term for an L1 problem, on the problem's device."""
+    import numpy as np
+    import torch
+
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    t = torch.from_numpy(np.asarray(w, np.float32) if p.C == 1 else
+                         np.ascontiguousarray(np.asarray(w, np.float32).T))
+    t = t.to(p.device)
+    f = float(ops.f_grad_plain(p, t)[0])
+    return f + (float(t.abs().sum()) if p.l1 else 0.0)
+
+
+def _part_line(tok_line: str) -> str:
+    """A teacher's tokenized line as partial annotation: every fifth gap
+    unknown (' '), the others '|' (boundary) or '-'."""
+    from vaporetto_tpu_torch.sentence import Sentence
+
+    s = Sentence.from_tokenized(tok_line)
+    marks = ["|" if b else "-" for b in s.boundaries]
+    marks[4::5] = [" "] * len(marks[4::5])
+    return "".join(c + m for c, m in zip(s.as_raw_text(), marks + [""]))
+
+
+def _tagged_tokens(tok_line: str):
+    """{(start, end, tags)} of a tokenized line's tagged tokens."""
+    from vaporetto_tpu_torch.sentence import Sentence
+
+    return {(t.start(), t.end(), tuple(t.tags()))
+            for t in Sentence.from_tokenized(tok_line).iter_tokens()
+            if any(x is not None for x in t.tags())}
+
+
+def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
+                n_train=10_000, n_held=2_000, n_part=2_000, n_tag=3_000,
+                n_tag_held=500, n_tag_tokens=100, eps=0.01,
+                batch_lines=8192):
+    """Phase [7]: the train CLI on the card, on corpora a teacher model
+    segments (``pred``, through ``LeanServer`` and its kernel) and tags
+    (``tpred``), in this process through ``main(argv, device)``:
+
+    - boundary: the first ``n_train`` of ``long_lines`` segmented by the
+      teacher as ``--tok``, its dictionary as ``--dict``, ``--solver 5``;
+      (a) one kernel iteration against one plain iteration on that
+      problem; (b) the run's trainer (``Trainer.train``, recorded) solves
+      and assembles again: bitwise-equal weights and a byte-equal model
+      file; (c) the plain solve on the same device: objectives within
+      1e-4 relative, iterations within one chunk, held-out char F1 within
+      0.005 (the trainer assembles the plain weights into a model, which
+      ``LeanServer`` runs on the held-out lines);
+    - ``predict`` and ``evaluate`` (char) with the trained model on the
+      next ``n_held`` lines against the teacher's segmentation, and the
+      word F1 of the predict output;
+    - Crammer-Singer with three labels: ``n_part`` of the training lines
+      as ``--part`` with every fifth gap unknown, ``--solver 4``, (a) and
+      (b); ``--solver 0`` on the same lines as ``--tok``, (a);
+    - tags: ``n_tag`` token lines of the teacher's first ``n_tag_tokens``
+      tag tokens, tagged by ``tpred``, ``--solver 5``: the tag solves'
+      count and seconds, (b) on one token's solve; ``predict
+      --predict-tags`` with the student on ``n_tag_held`` more token
+      lines, and the share of the teacher's tagged tokens it reproduces.
+
+    Every run passes ``--eps eps`` (0.01: the CLI's default); the teachers'
+    ``LeanServer`` runs take ``batch_lines`` (its default). Returns a
+    dict of what each run found, and the boundary problem (``"problem"``:
+    its layouts stay on the device for the timing)."""
+    import contextlib
+
+    import torch
+
+    from vaporetto_tpu_torch import Predictor
+    from vaporetto_tpu_torch.cli import evaluate, predict
+    from vaporetto_tpu_torch.cli.common import write_model_file
+    from vaporetto_tpu_torch.metrics import char_metric, word_metric
+    from vaporetto_tpu_torch.ops import solver as ops
+    from vaporetto_tpu_torch.sentence import Sentence
+    from vaporetto_tpu_torch.train import solver as psolver
+    from vaporetto_tpu_torch.train import tag_trainer as ptag
+    from vaporetto_tpu_torch.train import trainer as ptrainer
+
+    os.makedirs(work, exist_ok=True)
+    res = {"sizes": dict(train=n_train, held=n_held, part=n_part, tag=n_tag,
+                         tag_held=n_tag_held, tag_tokens=n_tag_tokens)}
+
+    def write(name, lines):
+        path = os.path.join(work, name)
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("".join(ln + "\n" for ln in lines))
+        return path
+
+    t0 = time.perf_counter()
+    raw = long_lines[:n_train + n_held]
+    teacher = _serve(pred, raw, batch_lines=batch_lines).decode(
+        "utf-8").split("\n")[:len(raw)]
+    tok = write("train.tok", teacher[:n_train])
+    held_raw = write("held.txt", raw[n_train:])
+    gold = write("held.tok", teacher[n_train:])
+    dic = write("dict.txt", words)
+    res["teacher seconds"] = time.perf_counter() - t0
+
+    # ---- boundary: --solver 5 ------------------------------------------
+    # the CLI run; its trainer (features extracted) is kept for (b), (c)
+    models = [os.path.join(work, f"boundary{i}.bin") for i in (1, 2)]
+    kept = []
+    with _Recorded(ptrainer.Trainer, "train", kept):
+        run = train_run(["--tok", tok, "--dict", dic, "--solver", "5",
+                         "--eps", str(eps), "--model", models[0]], device,
+                         keep_problem=True)
+    trainer, targs, tkw = kept[0]["args"][0], kept[0]["args"][1:], \
+        kept[0]["kw"]
+    solve = run["solves"][0]
+    p = solve.pop("p")
+    res["(a) boundary"] = solver_step_check(p, solve["eps"])
+    # (b) the same problem solved and written again
+    again = []
+    with _Recorded(psolver, "_fista", again, _solve_record(False)):
+        write_model_file(trainer.train(*targs, **tkw), models[1])
+    w1, w2 = solve["w"], again[0]["w"]
+    with open(models[0], "rb") as f1, open(models[1], "rb") as f2:
+        same_file = f1.read() == f2.read()
+    if w1.tobytes() != w2.tobytes() or not same_file:
+        raise AssertionError(f"(b) two boundary solves: weights equal "
+                             f"{w1.tobytes() == w2.tobytes()}, files equal "
+                             f"{same_file}")
+    # (c) the plain solve on the same device and problem
+    saved = ops.fista_step, ops.power_step
+    ops.fista_step, ops.power_step = ops.fista_step_plain, ops.power_step_plain
+    try:
+        t1 = time.perf_counter()
+        w_plain = psolver._fista(p, solve["eps"], solve["chunk"],
+                                 solve["lip_of"])
+        sync(device)
+        plain_s = time.perf_counter() - t1
+    finally:
+        ops.fista_step, ops.power_step = saved
+    it_plain = p.read()[0]
+    f_kernel, f_plain = _objective(p, w1), _objective(p, w_plain)
+    if abs(f_kernel - f_plain) > 1e-4 * abs(f_plain) or abs(
+            solve["it"] - it_plain) > solve["chunk"]:
+        raise AssertionError(f"(c) kernel objective {f_kernel} at "
+                             f"{solve['it']} iterations, plain {f_plain} at "
+                             f"{it_plain}")
+    # the plain weights assembled into a model by the same trainer
+
+    def plain_weights(idx, val, ys, n_features, *a, **kw):
+        return w_plain[1:n_features + 1], float(w_plain[n_features + 1])
+
+    real = ptrainer.train_boundary
+    ptrainer.train_boundary = plain_weights
+    try:
+        plain_model = trainer.train(*targs, **tkw)
+    finally:
+        ptrainer.train_boundary = real
+    del trainer, kept
+
+    def cli(main, name, argv):
+        buf = io.StringIO()
+        zero_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv, device=device)
+        sync(device)
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}")
+        r = {"seconds": time.perf_counter() - t1, "launches": kernel_counts()}
+        r.update(ln.split(": ", 1) for ln in buf.getvalue().splitlines()
+                 if ln.startswith(("Precision", "Recall", "F1")))
+        res[name] = r
+        return r
+
+    held_out = os.path.join(work, "held.out")
+    on_card = torch.device(device or "cuda").type == "cuda"
+    cli(predict.main, "predict held-out", ["--model", models[0], "--input",
+                                           held_raw, "--output", held_out])
+    if on_card and res["predict held-out"]["launches"][0] <= 0:
+        raise AssertionError("predict with the trained model launched no "
+                             "boundary kernel")
+    cli(evaluate.main, "evaluate char",
+        ["--model", models[0], "--input", gold, "--metric", "char"])
+
+    def against_gold(out_lines):
+        """(char, word) metrics of tokenized output lines against the
+        teacher's held-out lines (no tags: an empty list at each char)."""
+        pairs = [(Sentence.from_tokenized(g), Sentence.from_tokenized(o))
+                 for g, o in zip(teacher[n_train:], out_lines)]
+        results = [([int(b) for b in g.boundaries], [[]] * len(g),
+                    [int(b) for b in o.boundaries], [[]] * len(o))
+                   for g, o in pairs]
+        return char_metric(results), word_metric(results)
+
+    # the predict output: the char F1 evaluate printed, and the word F1
+    with open(held_out, encoding="utf-8") as f:
+        char_m, word_m = against_gold(f.read().split("\n"))
+    res["word F1"] = word_m.f1
+    f1_kernel = float(res["evaluate char"]["F1"])
+    if abs(char_m.f1 - f1_kernel) > 1e-12:
+        raise AssertionError(f"predict output's char F1 {char_m.f1}, "
+                             f"evaluate {f1_kernel}")
+    # the plain solve's model through LeanServer on the same lines
+    f1_plain = against_gold(_serve(Predictor(plain_model, device=device),
+                                   raw[n_train:], batch_lines=batch_lines)
+                            .decode("utf-8").split("\n"))[0].f1
+    if abs(f1_kernel - f1_plain) > 0.005:
+        raise AssertionError(f"(c) held-out char F1 {f1_kernel} (kernel) "
+                             f"against {f1_plain} (plain)")
+    res["boundary"] = {**run, "solve": solve, "(b) equal": True,
+                       "(b) seconds": again[0]["seconds"],
+                       "(c)": {"objective kernel": f_kernel,
+                               "objective plain": f_plain,
+                               "it plain": it_plain,
+                               "plain seconds": plain_s,
+                               "F1 kernel": f1_kernel, "F1 plain": f1_plain}}
+
+    # ---- Crammer-Singer over three labels; logistic -------------------
+    part = write("train.part", [_part_line(ln) for ln in teacher[:n_part]])
+    r = train_run(["--part", part, "--solver", "4", "--eps",
+                   str(eps), "--model", os.path.join(work, "cs.bin")], device,
+                  keep_problem=True)
+    cs = r["solves"][0]
+    q = cs.pop("p")
+    if q.C != 3:
+        raise AssertionError(f"--part: {q.C} labels, not 3")
+    res["(a) cs"] = solver_step_check(q, cs["eps"])
+    w_again = psolver._fista(q, cs["eps"], cs["chunk"], cs["lip_of"])
+    if w_again.tobytes() != cs["w"].tobytes():
+        raise AssertionError("(b) two Crammer-Singer solves differ")
+    del q
+    res["cs"] = {**r, "solve": cs}
+    tok2 = write("part.tok", teacher[:n_part])
+    r = train_run(["--tok", tok2, "--solver", "0", "--eps",
+                   str(eps), "--model", os.path.join(work, "logistic.bin")],
+                  device, keep_problem=True)
+    lg = r["solves"][0]
+    res["(a) logistic"] = solver_step_check(lg.pop("p"), lg["eps"])
+    res["logistic"] = {**r, "solve": lg}
+
+    # ---- tags --------------------------------------------------------
+    # a corpus line holds at least one char
+    tlines = [ln for ln in token_lines(41, tokens[:n_tag_tokens], n_tag // 2,
+                                       n_tag - n_tag // 2) if ln]
+    hlines = [ln for ln in token_lines(42, tokens[:n_tag_tokens],
+                                       n_tag_held // 2,
+                                       n_tag_held - n_tag_held // 2) if ln]
+    tteacher = _serve(tpred, tlines + hlines, tags=True,
+                      batch_lines=batch_lines).decode("utf-8").split("\n")
+    ttok = write("tags.tok", tteacher[:len(tlines)])
+    tmodel_path = os.path.join(work, "tagged.bin")
+    ovr = []
+    with _Recorded(ptag, "train_one_vs_rest", ovr):
+        r = train_run(["--tok", ttok, "--solver", "5", "--eps", str(eps),
+                       "--model", tmodel_path], device)
+    n_solves = len(r["solves"]) - 1  # the first is the boundary solve
+    one = max(ovr, key=lambda rec: len(rec["args"][2]))
+    again = [psolver.train_one_vs_rest(*one["args"], **one["kw"])
+             for _ in range(2)]
+    if any(a[0].tobytes() != one["out"][0].tobytes()
+           or a[1].tobytes() != one["out"][1].tobytes() for a in again):
+        raise AssertionError("(b) one token's tag solves differ")
+    held_tag = write("tags_held.txt", hlines)
+    tag_out = os.path.join(work, "tags_held.out")
+    cli(predict.main, "predict tags", ["--model", tmodel_path,
+                                       "--predict-tags", "--input", held_tag,
+                                       "--output", tag_out])
+    if on_card and min(res["predict tags"]["launches"]) <= 0:
+        raise AssertionError(f"predict --predict-tags with the student: "
+                             f"launches {res['predict tags']['launches']}")
+    with open(tag_out, encoding="utf-8") as f:
+        student = f.read().split("\n")
+    want = have = 0
+    for t_line, s_line in zip(tteacher[len(tlines):len(tlines) + len(hlines)],
+                              student):
+        tt = _tagged_tokens(t_line)
+        want += len(tt)
+        have += len(tt & _tagged_tokens(s_line))
+    res["tags"] = {**r, "solves": n_solves, "ovr calls": len(ovr),
+                   "ovr seconds": sum(rec["seconds"] for rec in ovr),
+                   "(b) examples": len(one["args"][2]),
+                   "(b) classes": int(one["args"][3]),
+                   "tagged tokens": want,
+                   "share equal": have / max(want, 1)}
+    res["problem"] = p
+    return res
+
+
+def train_report(tr, st_, smi, train_s):
+    """Phase [7]'s lines: :func:`train_phase`'s results ``tr`` and
+    :func:`time_solver`'s ``st_``, beside the card ``smi``."""
+    b_run = tr["boundary"]
+    bs = b_run["solve"]
+    n = tr["sizes"]
+    log(f"[7] teacher (LeanServer): {n['train'] + n['held']} 65-256-char "
+        f"lines segmented in {tr['teacher seconds']:.2f}s")
+    log(f"[7] train --solver 5 on {n['train']} lines (--tok, --dict of the "
+        f"teacher's words): N {b_run['examples']} examples (padded rows "
+        f"{bs['N']}), "
+        f"K {b_run['width']}, D {b_run['features']} features (n_dim "
+        f"{bs['n_dim']}), {bs['nnz']} live entries; card bytes: (N, K) "
+        f"arrays {bs['example_bytes']} (freed after layout), layouts and "
+        f"targets {bs['layout_bytes']}; seconds: whole run "
+        f"{b_run['seconds']:.2f}, " + ", ".join(
+            f"{k} {v:.2f}" for k, v in b_run["stages"].items())
+        + f"; {bs['it']} iterations (chunk {bs['chunk']}, last delta "
+        f"{bs['delta']:.3e}), solver kernel launches "
+        f"{b_run['solver launches']}")
+    cc = b_run["(c)"]
+    log(f"[7] (a) one iteration, kernel against plain (index_add_) on this "
+        f"problem: w, z, delta within rtol 1e-5, atol 1e-7 max|g|; max "
+        f"|difference| {tr['(a) boundary']:.3e}. (b) the trainer's second "
+        f"solve and assembly ({b_run['(b) seconds']:.2f}s of solve): weights "
+        f"bitwise equal, model files byte-equal. (c) plain solve on the "
+        f"card: objective {cc['objective plain']:.6f} at {cc['it plain']} "
+        f"iterations in {cc['plain seconds']:.2f}s, kernel "
+        f"{cc['objective kernel']:.6f} at {bs['it']}; held-out char F1 "
+        f"{cc['F1 kernel']:.5f} (kernel) against {cc['F1 plain']:.5f} "
+        f"(plain)")
+    ph = tr["predict held-out"]
+    log(f"[7] the trained model: predict on {n['held']} held-out lines "
+        f"{ph['seconds']:.3f}s, boundary launches {ph['launches'][0]}; "
+        f"evaluate against the teacher: char F1 "
+        f"{tr['evaluate char']['F1']} (P {tr['evaluate char']['Precision']},"
+        f" R {tr['evaluate char']['Recall']}; "
+        f"{tr['evaluate char']['seconds']:.3f}s), word F1 of the predict "
+        f"output {tr['word F1']:.5f}")
+    for name, label in (("cs", "--part, every fifth gap unknown, --solver 4 "
+                         "(Crammer-Singer, C = 3)"),
+                        ("logistic", "--tok, --solver 0 (logistic)")):
+        r, s_ = tr[name], tr[name]["solve"]
+        log(f"[7] {label} on {n['part']} lines: N {r['examples']}, D "
+            f"{r['features']}, {s_['it']} iterations (chunk {s_['chunk']}), "
+            f"solve {r['stages']['solve']:.2f}s, solver launches "
+            f"{r['solver launches']}; (a) max |difference| "
+            f"{tr['(a) ' + name]:.3e}"
+            + ("; (b) a second solve bitwise equal" if name == "cs" else ""))
+    tg = tr["tags"]
+    log(f"[7] tags: train --solver 5 on {n['tag']} token lines (the tagged "
+        f"model's first {n['tag_tokens']} tag tokens, empty lines dropped, "
+        f"tagged by it): {tg['solves']} tag "
+        f"solves in {tg['ovr calls']} one-vs-rest calls, "
+        f"{tg['ovr seconds']:.2f}s = "
+        f"{tg['ovr seconds'] / max(tg['solves'], 1) * 1e3:.1f} ms a solve; "
+        f"solver launches {tg['solver launches']}; (b) one token's solve "
+        f"({tg['(b) examples']} examples, {tg['(b) classes']} classes) twice "
+        f"bitwise equal; predict --predict-tags with the student on "
+        f"{n['tag_held']} held-out token lines: launches boundary "
+        f"{tr['predict tags']['launches'][0]}, tags "
+        f"{tr['predict tags']['launches'][1]}; {tg['share equal']:.4f} of "
+        f"the teacher's {tg['tagged tokens']} tagged tokens reproduced")
+    log(f"[7] solver kernels per iteration on the boundary problem (CUDA "
+        f"events, held stream; {smi}): rows {st_['rows_ms']:.4f} ms, cols "
+        f"{st_['cols_ms']:.4f} ms, together {st_['ms']:.4f}; plain "
+        f"{st_['plain_ms']:.4f}; torch.sparse.mm X z {st_['library_x_ms']:.4f}"
+        f" + X^T dl {st_['library_xt_ms']:.4f} = {st_['library_ms']:.4f}; "
+        f"bound {st_['bound_ms']:.4f} ms ({st_['bound_bytes']} B at 3.35 TB/s:"
+        f" {st_['nnz']} entries, {st_['N']} rows, {st_['features']} "
+        f"features; {st_['n_short']} short features, {st_['n_seg']} "
+        f"segments) ({train_s:.1f}s for the phase)")
+
+
+def solver_entry(tr, st_, ptxas_lines):
+    """The solver kernels' entry of the ``kernels`` line."""
+    b_run = tr["boundary"]
+    return {
+        "name": "solver",
+        "route": "cuda",
+        "source": "vaporetto_tpu_torch/csrc/solver.cu",
+        "replaces": "vaporetto_tpu/train/solver.py:158-244,305-354",
+        # the boundary training run (--solver 5), power and FISTA steps
+        "launches": b_run["solver launches"],
+        "matches_plain": True,
+        "max_abs_err": max(tr["(a) boundary"], tr["(a) cs"],
+                           tr["(a) logistic"]),
+        "ms": st_["ms"],
+        "plain_ms": st_["plain_ms"],
+        "bound_ms": st_["bound_ms"],
+        "bound_by": st_["bound_by"],
+        "library_ms": st_["library_ms"],
+        "rows_ms": st_["rows_ms"],
+        "cols_ms": st_["cols_ms"],
+        "library_x_ms": st_["library_x_ms"],
+        "library_xt_ms": st_["library_xt_ms"],
+        "iterations": b_run["solve"]["it"],
+        "cs_launches": tr["cs"]["solver launches"],
+        "logistic_launches": tr["logistic"]["solver launches"],
+        "tag_launches": tr["tags"]["solver launches"],
+        "tag_solves": tr["tags"]["solves"],
+        "ptxas": ptxas_summary(ptxas_lines),
+    }
+
+
+def _serve(p, lines, batch_lines=8192, **kw):
+    """``LeanServer`` over ``lines`` (the general path for the lines it
+    cannot hold), as bytes."""
+    from vaporetto_tpu_torch import LeanServer
+
+    sink = io.BytesIO()
+
+    def fallback(raw):
+        sink.write(general_path(p, [b.decode("utf-8") for b in raw], **kw))
+
+    LeanServer(p, fallback=fallback, batch_lines=batch_lines, **kw).run(
+        io.BytesIO(("\n".join(lines) + "\n").encode("utf-8")), sink)
+    return sink.getvalue()
+
+
+def time_solver(p):
+    """CUDA-event times of one FISTA iteration's kernels on the boundary
+    problem ``p``: ``rows`` and ``cols`` alone (their state held active:
+    threshold below every delta), the plain version's iteration, and the
+    library's products (``torch.sparse.mm``: X as CSR times z, and X^T as
+    CSR, from the CSC copy, times dl); the byte bound at 3.35 TB/s: each
+    live entry (id and value) read once by each kernel, dl written and
+    read, w and z read and written for every feature with an entry. The
+    timing launches do not count."""
+    import numpy as np
+    import torch
+
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    before = (ops.fista_step.launches, ops.power_step.launches)
+    dev = p.device
+    p.start(p.step, np.float32(0.01))
+    a = ops._Args.from_buffer_copy(ops._args(p, False))
+    a.thr = -1.0  # every delta passes: each launch does its whole work
+
+    res = {}
+    for name in ("rows", "cols"):
+        # about 150 launches: each cols launch advances it by one, and it
+        # stays below max_iter (the length of the momentum sequence)
+        p.state[0] = 0
+        res[f"{name}_ms"] = cuda_ms(
+            lambda name=name: ops._launch(f"vt_solver_{name}", a,
+                                          ops._blocks(p, name), dev),
+            [()], 20)
+    res["ms"] = res["rows_ms"] + res["cols_ms"]
+
+    def plain():
+        p.state[1] = 1  # the plain step checks the state on the host
+        ops.fista_step_plain(p)
+
+    p.state[0] = 0
+    res["plain_ms"] = cuda_ms(plain, [()], 5, reps=3, hold=False)
+    nnz, N, C = p.nnz, p.N, p.C
+    X = torch.sparse_csr_tensor(p.row_ptr, p.col, p.val, (N, p.n_dim))
+    col_ptr = p.col_ptr
+    XT = torch.sparse_csr_tensor(col_ptr, p.crow, p.cval, (p.n_dim, N))
+    z, dl = p.z.view(p.n_dim, C), p.dl.view(N, C)
+    res["library_x_ms"] = cuda_ms(lambda: torch.sparse.mm(X, z), [()], 20)
+    res["library_xt_ms"] = cuda_ms(lambda: torch.sparse.mm(XT, dl), [()], 20)
+    res["library_ms"] = res["library_x_ms"] + res["library_xt_ms"]
+    features = int((col_ptr[1:] > col_ptr[:-1]).sum())
+    nbytes = 2 * nnz * 8 + 2 * N * C * 4 + 4 * features * C * 4
+    res.update(bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes", features=features, nnz=nnz, N=N,
+               n_seg=p.n_seg, n_short=p.n_short)
+    ops.fista_step.launches, ops.power_step.launches = before
     return res
 
 
@@ -2079,7 +2724,16 @@ def main(argv) -> int:
         f"{cli['profile']['launches'][1]} ({time.perf_counter() - t0:.1f}s "
         "for the phase)")
 
-    # ---- 7. kernels ---------------------------------------------------
+    # ---- 7. training ---------------------------------------------------
+    t0 = time.perf_counter()
+    tr = train_phase(os.path.join(work, "train"), pred, tpred, words,
+                     lines[20_000:40_000], tokens)
+    prob = tr.pop("problem")
+    st_ = time_solver(prob)
+    del prob
+    train_report(tr, st_, smi, time.perf_counter() - t0)
+
+    # ---- 8. kernels ---------------------------------------------------
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
     log(json.dumps({"kernels": [{
         "name": "boundary",
@@ -2145,7 +2799,7 @@ def main(argv) -> int:
         "ptxas_without_scores": ptxas_summary(ptxas["tags"], False),
         "ptxas_with_scores": ptxas_summary(ptxas["tags"], True),
         "serve_shapes": tshapes,
-    }]}))
+    }, solver_entry(tr, st_, ptxas["solver"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -8,7 +8,7 @@ The CLIs run as programs in an interpreter where ``jax``, the JAX package
 and ``regex`` cannot be imported at all, as on the card's machine, which
 has no JAX: ``--help``, a whole CPU run of each, and ``--wsconst G``,
 which needs ``regex`` and fails with its ImportError; the model tools'
-``--help`` too.
+``--help`` too, and the train CLI's ``--help`` and a whole CPU run.
 """
 
 import ast
@@ -180,3 +180,34 @@ def test_cli_runs_without_jax_or_regex(tmp_path):
     assert "LOADED []" in res.stdout, res.stdout
     # G needs regex: its ImportError, not a quiet skip
     assert "G: No module named 'regex'" in res.stdout, res.stdout
+
+
+#: the train CLI's main on the CPU over a tokenized corpus, in the blocked
+#: interpreter
+TRAIN_RUN = r"""
+import os, sys, tempfile
+from vaporetto_tpu_torch.cli import train
+from vaporetto_tpu_torch.models.model import Model
+
+d = tempfile.mkdtemp(dir=os.getcwd())
+tok = os.path.join(d, "tok.txt")
+with open(tok, "w", encoding="utf-8") as f:
+    f.write("この 人 は 地球 人 だ\nこれ は テスト です\n")
+path = os.path.join(d, "m.bin")
+assert train.main(["--tok", tok, "--solver", "5", "--model", path],
+                  device="cpu") == 0
+assert Model.read(path).char_ngram_model
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "vaporetto_tpu", "regex"))
+print("LOADED", bad)
+"""
+
+
+def test_train_cli_without_jax_or_regex(tmp_path):
+    res = _blocked("vaporetto_tpu_torch.cli.train", "--help")
+    assert res.returncode == 0, res.stderr
+    assert "--tok" in res.stdout and "--solver" in res.stdout
+    res = _blocked("-c", TRAIN_RUN.replace("os.getcwd()",
+                                           repr(str(tmp_path))))
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout

@@ -1,4 +1,5 @@
-"""The boundary and tag kernels against their plain versions, on a CUDA card.
+"""The boundary, tag and solver kernels against their plain versions, on a
+CUDA card.
 
 The kernels have no CPU form, so every test here is marked ``cuda`` and
 skips without a card. The file imports neither JAX nor the JAX package, so
@@ -7,8 +8,11 @@ JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernel.py
 
-The models and batches are ``chip_smoke.py``'s. Every value is an integer,
-so every comparison is exact (tolerance 0). ``chip_smoke.compare_kernel``
+The models and batches are ``chip_smoke.py``'s. Every value of the
+boundary and tag kernels is an integer, so those comparisons are exact
+(tolerance 0); the solver kernels work in float32 and are held to their
+plain version within rtol 1e-5 (``chip_smoke.solver_step_check``), and to
+themselves bit for bit. ``chip_smoke.compare_kernel``
 and ``compare_tags`` hold each kernel's score output too (the boundary
 kernel's gap scores in both epilogues, the tag kernel's class sums where a
 token ends), so every launch-geometry edge case here covers them.
@@ -214,3 +218,86 @@ def test_rich_serve_outputs_on_card(case):
     bits, gap = pred.serve_scores_fn(KANJI_DIGIT, True)(*args)
     wbits, wgap = cpu.serve_scores_fn(KANJI_DIGIT, True)(*args)
     assert torch.equal(bits.cpu(), wbits) and torch.equal(gap.cpu(), wgap)
+
+
+def _solver_problem(loss, l1, C, seed=3):
+    """A seeded problem on the card with its step size, columns cut into
+    segments of at most 8 entries (the multi-segment path)."""
+    from vaporetto_tpu_torch.ops import solver as ops
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    idx, val, y, labels, d = chip_smoke.solver_examples(seed)
+    n_dim, n_pad, _ = psolver._pads(len(y), idx.shape[1], d)
+    p = ops.Problem(idx, val, labels if C > 1 else y, n_pad, n_dim,
+                    loss=loss, l1=l1, cost=1.0, max_iter=300, C=C,
+                    device="cuda")
+    assert int((p.col_seg[1:] - p.col_seg[:-1]).max()) > 1
+    p.start(np.float32(1.0 / (100.0 * psolver._sigma2(p, 32) + 1.0)),
+            np.float32(0.01))
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,l1,C", [(1, False, 1), (1, True, 1),
+                                       (0, False, 1), (0, True, 1),
+                                       (2, False, 1), (3, False, 3)])
+def test_solver_step_matches_plain_on_card(loss, l1, C, monkeypatch):
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    monkeypatch.setattr(ops, "SEG", 8)
+    p = _solver_problem(loss, l1, C)
+    assert chip_smoke.solver_step_check(p, np.float32(0.01)) < 1e-3
+    v = torch.randn(p.n_dim, device="cuda")
+    got = ops.power_step(p, v).clone()
+    want = ops.power_step_plain(p, v)
+    scale = float(want.abs().max())
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", [5, 0, 4])
+def test_solver_solves_are_bitwise_equal_on_card(solver, monkeypatch):
+    """Two solves of one problem give the same bits; so does another
+    segment size's layout run twice (sums in a fixed order)."""
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    idx, val, y, labels, d = chip_smoke.solver_examples(4)
+    for seg in (1024, 8):
+        monkeypatch.setattr(ops, "SEG", seg)
+        if solver == 4:
+            runs = [psolver.train_crammer_singer(idx, val, labels, 3, d, 1.0,
+                                                 0.01, 200) for _ in "ab"]
+        else:
+            runs = [psolver.train_binary(idx, val, y, d, 1.0, 0.01, solver,
+                                         200) for _ in "ab"]
+        (w1, b1), (w2, b2) = runs
+        assert np.asarray(w1).tobytes() == np.asarray(w2).tobytes()
+        assert np.asarray(b1).tobytes() == np.asarray(b2).tobytes()
+        assert np.abs(w1).max() > 0
+
+
+@pytest.mark.cuda
+def test_solver_state_stops_where_plain_stops_on_card():
+    """The on-card stopping state gives the plain loop's iteration count
+    whatever the chunk."""
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    its = set()
+    for chunk in (1, 7, 32):
+        p = _solver_problem(1, False, 1, seed=6)
+        while True:
+            for _ in range(chunk):
+                ops.fista_step(p)
+            it, delta = p.read()
+            if it >= p.max_iter or (it >= 8 and not np.float32(delta)
+                                    > p.thr):
+                break
+        its.add(it)
+    p = _solver_problem(1, False, 1, seed=6)
+    while p.read()[0] < p.max_iter and bool(p.state[1]):
+        ops.fista_step_plain(p)
+    assert len(its) == 1 and abs(its.pop() - p.read()[0]) <= 1

@@ -60,9 +60,10 @@ def build_predictor(model, predict_tags: bool, backend_flag: str,
                      backend=resolve_backend(backend_flag))
 
 
-def write_model_file(model, path: str) -> None:
+def write_model_file(model, path: str, zstd_workers: int = 0) -> None:
     """Write ``model`` to ``path`` zstd-compressed at level 19, as the
-    reference's tools do. Without the optional ``zstandard`` package the
+    reference's tools do (``zstd_workers``: libzstd's compression threads,
+    0 = single-threaded). Without the optional ``zstandard`` package the
     file is written uncompressed, with a warning: every reader of this
     package and of the JAX package takes both forms, the reference's own
     tools only the compressed one."""
@@ -74,19 +75,20 @@ def write_model_file(model, path: str) -> None:
               "the model uncompressed", file=sys.stderr)
         level = None
     with open(path, "wb") as f:
-        model.write(f, zstd_level=level)
+        model.write(f, zstd_level=level, zstd_workers=zstd_workers)
 
 
 def unported_flag(args) -> Optional[str]:
     """What a flag set asks for that the port does not serve yet, or
     None: several processes, or a data-parallel mesh (``--dp`` with
-    ``--backend host`` is served: it has no effect there)."""
+    ``--backend host`` is served: it has no effect there; the train CLI
+    has no ``--backend``)."""
     n = getattr(args, "num_processes", None)
     if n is not None and n > 1:
         return ("--num-processes > 1: multi-process runs are not ported "
                 "to vaporetto_tpu_torch yet")
-    if getattr(args, "dp", 0) and args.backend != "host":
-        return ("--dp: data-parallel serving over several cards is not "
+    if getattr(args, "dp", 0) and getattr(args, "backend", None) != "host":
+        return ("--dp: data-parallel runs over several cards are not "
                 "ported to vaporetto_tpu_torch yet")
     return None
 

@@ -7,9 +7,10 @@ It holds the one-call matcher compiler (``compile_matcher.cc`` over
 (``tensorizer.cc``): the uint16 tensorizers, the newline and char
 counters, the byte, bit-packed, scores and tag-aware detokenizers (the
 last two with the ``--scores`` / ``--tag-scores`` blocks), and the batched
-tag scorer of the general tag path (``tag_scorer.cc``), and the native
+tag scorer of the general tag path (``tag_scorer.cc``), the native
 host engine (``host_predictor.cc``, :class:`NativeHostPredictor`) behind
-``--backend host``.
+``--backend host``, and the trainer's boundary-feature extractor
+(``feature_extractor.cc``, :class:`NativeExtractor`).
 
 Wrappers that decode input return None when the batch needs the general
 path (invalid UTF-8, an astral codepoint, NUL, or a line longer than the
@@ -30,7 +31,7 @@ from .._build import build_shared
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("trie_builder.cc", "compile_matcher.cc", "tensorizer.cc",
-            "tag_scorer.cc", "host_predictor.cc")
+            "tag_scorer.cc", "host_predictor.cc", "feature_extractor.cc")
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -218,6 +219,27 @@ def _load() -> ctypes.CDLL:
                 I32P, I32P, I32P,  # out_scores, out_cm, out_tm (nullable)
                 ctypes.c_int32,  # n_threads
             ]
+            lib.vt_extr_new.restype = ctypes.c_void_p
+            lib.vt_extr_new.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, I32P, I64P, ctypes.c_int64,
+            ]
+            lib.vt_extr_add.restype = ctypes.c_int
+            lib.vt_extr_add.argtypes = [ctypes.c_void_p, I32P, U8P, U8P,
+                                        ctypes.c_int64]
+            for name in ("vt_extr_n_features", "vt_extr_n_examples",
+                         "vt_extr_max_nnz", "vt_extr_keys_size"):
+                getattr(lib, name).restype = ctypes.c_int64
+                getattr(lib, name).argtypes = [ctypes.c_void_p]
+            lib.vt_extr_export.restype = ctypes.c_int
+            lib.vt_extr_export.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, I32P,
+                ctypes.POINTER(ctypes.c_float), I32P,
+            ]
+            lib.vt_extr_export_keys.restype = None
+            lib.vt_extr_export_keys.argtypes = [ctypes.c_void_p, U8P, I64P]
+            lib.vt_extr_free.restype = None
+            lib.vt_extr_free.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
 
@@ -1283,3 +1305,105 @@ class NativeHostPredictor:
         if h:
             self._lib.vt_host_free(h)
             self._h = None
+
+
+class NativeExtractor:
+    """The trainer's boundary-feature extractor (``feature_extractor.cc``):
+    per-gap char/type n-gram and dictionary features interned to ids in
+    first-seen order, the same ids and order as the Python extractor
+    (``train.trainer.Trainer.gen_features``)."""
+
+    def __init__(self, charw, charn, typew, typen, dictn, dict_words):
+        self._lib = _load()
+        offsets = np.zeros(len(dict_words) + 1, dtype=np.int64)
+        np.cumsum([len(w) for w in dict_words], out=offsets[1:])
+        flat = np.fromiter((ord(c) for w in dict_words for c in w),
+                           dtype=np.int32, count=int(offsets[-1]))
+        self._h = self._lib.vt_extr_new(
+            charw, charn, typew, typen, dictn, _buf32(flat).ctypes.data_as(
+                I32P), offsets.ctypes.data_as(I64P), len(dict_words))
+
+    def add(self, codepoints: np.ndarray, char_types: np.ndarray,
+            boundaries: np.ndarray) -> None:
+        """Extract one sentence's gaps (labels = its boundaries)."""
+        cps = np.ascontiguousarray(codepoints, dtype=np.int32)
+        cts = np.ascontiguousarray(char_types, dtype=np.uint8)
+        bnd = np.ascontiguousarray(boundaries, dtype=np.uint8)
+        if len(cts) != len(cps) or len(bnd) != max(len(cps) - 1, 0):
+            raise ValueError("codepoints, char types and boundaries of "
+                             "different lengths")
+        rc = self._lib.vt_extr_add(
+            self._h, _buf32(cps).ctypes.data_as(I32P),
+            _buf(cts).ctypes.data_as(U8P), _buf(bnd).ctypes.data_as(U8P),
+            len(cps))
+        if rc != 0:
+            raise RuntimeError("native extractor failed")
+
+    @property
+    def n_features(self) -> int:
+        return self._lib.vt_extr_n_features(self._h)
+
+    @property
+    def n_examples(self) -> int:
+        return self._lib.vt_extr_n_examples(self._h)
+
+    def export(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(idx (n, K) int32, val (n, K) float32, labels (n,) int32): each
+        example's (feature id, count) pairs in id order, then 0 padding;
+        K = the most pairs an example has (at least 1)."""
+        n = self.n_examples
+        K = max(self._lib.vt_extr_max_nnz(self._h), 1)
+        idx = np.zeros((n, K), dtype=np.int32)
+        val = np.zeros((n, K), dtype=np.float32)
+        y = np.zeros(n, dtype=np.int32)
+        rc = self._lib.vt_extr_export(
+            self._h, K, _buf32(idx).ctypes.data_as(I32P),
+            (val if val.size else np.zeros(1, np.float32)).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)),
+            _buf32(y).ctypes.data_as(I32P))
+        if rc != 0:
+            raise RuntimeError("native extractor export failed")
+        return idx, val, y
+
+    def export_keys(self) -> list:
+        """The feature key of each id, in id order (id = index + 1), decoded
+        to the Python extractor's tuples: ("c", ngram, rel), ("t", type
+        bytes, rel), ("dl" | "di" | "dr", length)."""
+        return self.keys(range(1, self.n_features + 1))
+
+    def keys(self, fids) -> list:
+        """The decoded keys (as :meth:`export_keys`) of the 1-based feature
+        ids ``fids``, in their order: model assembly decodes only the
+        features whose quantized weight is not 0."""
+        nf = self.n_features
+        blob = np.zeros(max(self._lib.vt_extr_keys_size(self._h), 1),
+                        dtype=np.uint8)
+        offsets = np.zeros(nf + 1, dtype=np.int64)
+        self._lib.vt_extr_export_keys(self._h, blob.ctypes.data_as(U8P),
+                                      offsets.ctypes.data_as(I64P))
+        raw, off = blob.tobytes(), offsets.tolist()
+        kinds = {0x03: "dl", 0x04: "di", 0x05: "dr"}
+        keys = []
+        for fid in fids:
+            if not 1 <= fid <= nf:
+                raise IndexError(f"feature id {fid} outside 1..{nf}")
+            lo, hi = off[fid - 1], off[fid]
+            kind = raw[lo]
+            if kind == 0x01:  # int32 codepoints, then the int32 rel
+                keys.append(("c", raw[lo + 1:hi - 4].decode(
+                    "utf-32-le", "surrogatepass"),
+                             int.from_bytes(raw[hi - 4:hi], "little",
+                                            signed=True)))
+            elif kind == 0x02:  # uint8 types, then the int32 rel
+                keys.append(("t", raw[lo + 1:hi - 4],
+                             int.from_bytes(raw[hi - 4:hi], "little",
+                                            signed=True)))
+            else:
+                keys.append((kinds[kind], int.from_bytes(
+                    raw[lo + 1:lo + 5], "little", signed=True)))
+        return keys
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.vt_extr_free(h)
