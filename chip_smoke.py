@@ -1437,21 +1437,35 @@ def train_run(argv, device=None, keep_problem=False):
     """``cli.train.main(argv, device)`` in this process; returns its
     seconds (whole, and by stage as the CLI prints them), the kernel
     launches counted during it (the counts start from 0), the problem's
-    shape and every solve's record (:func:`_solve_record`; the first is
-    the boundary solve)."""
+    shape, every solve's record (:func:`_solve_record`; the first is the
+    boundary solve) and the seconds each solve's ``Problem`` took to lay
+    out its example matrix (``"build seconds"``, in the same order)."""
     import contextlib
     import re
 
     from vaporetto_tpu_torch.cli import train
     from vaporetto_tpu_torch.train import solver as psolver
 
-    solves = []
+    solves, builds = [], []
+    real_problem = psolver.Problem
+
+    def timed_problem(*args, **kw):
+        t1 = time.perf_counter()
+        p = real_problem(*args, **kw)
+        sync(p.device)
+        builds.append(time.perf_counter() - t1)
+        return p
+
     err = io.StringIO()
     zero_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err), _Recorded(
-            psolver, "_fista", solves, _solve_record(keep_problem)):
-        rc = train.main(argv, device=device)
+    psolver.Problem = timed_problem
+    try:
+        with contextlib.redirect_stderr(err), _Recorded(
+                psolver, "_fista", solves, _solve_record(keep_problem)):
+            rc = train.main(argv, device=device)
+    finally:
+        psolver.Problem = real_problem
     sync(device)
     secs = time.perf_counter() - t0
     if rc != 0:
@@ -1469,7 +1483,7 @@ def train_run(argv, device=None, keep_problem=False):
                                       text).group(1)),
             "stages": dict(zip(("load", "extraction", "solve", "tags",
                                 "assembly"), map(float, stages))),
-            "solves": solves}
+            "solves": solves, "build seconds": builds}
 
 
 def solver_step_check(p, eps, warm=5):
@@ -1815,7 +1829,8 @@ def train_report(tr, st_, smi, train_s):
         f"K {b_run['width']}, D {b_run['features']} features (n_dim "
         f"{bs['n_dim']}), {bs['nnz']} live entries; card bytes: (N, K) "
         f"arrays {bs['example_bytes']} (freed after layout), layouts and "
-        f"targets {bs['layout_bytes']}; seconds: whole run "
+        f"targets {bs['layout_bytes']}, laid out in "
+        f"{b_run['build seconds'][0]:.4f}s; seconds: whole run "
         f"{b_run['seconds']:.2f}, " + ", ".join(
             f"{k} {v:.2f}" for k, v in b_run["stages"].items())
         + f"; {bs['it']} iterations (chunk {bs['chunk']}, last delta "
@@ -1856,7 +1871,8 @@ def train_report(tr, st_, smi, train_s):
         f"tagged by it): {tg['solves']} tag "
         f"solves in {tg['ovr calls']} one-vs-rest calls, "
         f"{tg['ovr seconds']:.2f}s = "
-        f"{tg['ovr seconds'] / max(tg['solves'], 1) * 1e3:.1f} ms a solve; "
+        f"{tg['ovr seconds'] / max(tg['solves'], 1) * 1e3:.1f} ms a solve, "
+        f"of which {tag_build_ms(tg):.2f} ms its Problem's layout; "
         f"solver launches {tg['solver launches']}; (b) one token's solve "
         f"({tg['(b) examples']} examples, {tg['(b) classes']} classes) twice "
         f"bitwise equal; predict --predict-tags with the student on "
@@ -1865,14 +1881,27 @@ def train_report(tr, st_, smi, train_s):
         f"{tr['predict tags']['launches'][1]}; {tg['share equal']:.4f} of "
         f"the teacher's {tg['tagged tokens']} tagged tokens reproduced")
     log(f"[7] solver kernels per iteration on the boundary problem (CUDA "
-        f"events, held stream; {smi}): rows {st_['rows_ms']:.4f} ms, cols "
-        f"{st_['cols_ms']:.4f} ms, together {st_['ms']:.4f}; plain "
-        f"{st_['plain_ms']:.4f}; torch.sparse.mm X z {st_['library_x_ms']:.4f}"
-        f" + X^T dl {st_['library_xt_ms']:.4f} = {st_['library_ms']:.4f}; "
-        f"bound {st_['bound_ms']:.4f} ms ({st_['bound_bytes']} B at 3.35 TB/s:"
-        f" {st_['nnz']} entries, {st_['N']} rows, {st_['features']} "
-        f"features; {st_['n_short']} short features, {st_['n_seg']} "
-        f"segments) ({train_s:.1f}s for the phase)")
+        f"events, held stream; {smi}): rows {st_['rows_ms']:.4f} ms beside "
+        f"torch.sparse.mm X z {st_['library_x_ms']:.4f} (its half of the "
+        f"bound {st_['rows_bound_ms']:.4f}: {st_['rows_bound_bytes']} B), "
+        f"cols {st_['cols_ms']:.4f} beside X^T dl "
+        f"{st_['library_xt_ms']:.4f} (bound {st_['cols_bound_ms']:.4f}: "
+        f"{st_['cols_bound_bytes']} B); together {st_['ms']:.4f} against "
+        f"{st_['library_ms']:.4f}; plain {st_['plain_ms']:.4f}; bound "
+        f"{st_['bound_ms']:.4f} ms ({st_['bound_bytes']} B at 3.35 TB/s: "
+        f"{st_['nnz']} entries, {st_['N']} rows, {st_['features']} "
+        f"features; layouts: {st_['row_slices']} slices of examples, "
+        f"{st_['row_steps']} steps; {st_['n_short']} short features in "
+        f"{st_['col_slices']} slices, {st_['col_steps']} steps; "
+        f"{st_['n_seg']} segments of {st_['long_entries']} entries) "
+        f"({train_s:.1f}s for the phase)")
+
+
+def tag_build_ms(tg):
+    """Mean ms a tag solve's ``Problem`` took to lay out (the run's first
+    build is its boundary solve's)."""
+    tags = tg["build seconds"][1:]
+    return sum(tags) / max(len(tags), 1) * 1e3
 
 
 def solver_entry(tr, st_, ptxas_lines):
@@ -1897,12 +1926,20 @@ def solver_entry(tr, st_, ptxas_lines):
         "cols_ms": st_["cols_ms"],
         "library_x_ms": st_["library_x_ms"],
         "library_xt_ms": st_["library_xt_ms"],
+        "rows_bound_ms": st_["rows_bound_ms"],
+        "cols_bound_ms": st_["cols_bound_ms"],
+        "layout_bytes": b_run["solve"]["layout_bytes"],
+        "layout_build_s": b_run["build seconds"][0],
+        "tag_solve_ms": tr["tags"]["ovr seconds"]
+        / max(tr["tags"]["solves"], 1) * 1e3,
+        "tag_build_ms": tag_build_ms(tr["tags"]),
         "iterations": b_run["solve"]["it"],
         "cs_launches": tr["cs"]["solver launches"],
         "logistic_launches": tr["logistic"]["solver launches"],
         "tag_launches": tr["tags"]["solver launches"],
         "tag_solves": tr["tags"]["solves"],
         "ptxas": ptxas_summary(ptxas_lines),
+        "ptxas_by_instantiation": solver_ptxas(ptxas_lines),
     }
 
 
@@ -1925,10 +1962,11 @@ def time_solver(p):
     """CUDA-event times of one FISTA iteration's kernels on the boundary
     problem ``p``: ``rows`` and ``cols`` alone (their state held active:
     threshold below every delta), the plain version's iteration, and the
-    library's products (``torch.sparse.mm``: X as CSR times z, and X^T as
-    CSR, from the CSC copy, times dl); the byte bound at 3.35 TB/s: each
-    live entry (id and value) read once by each kernel, dl written and
-    read, w and z read and written for every feature with an entry. The
+    library's products (``torch.sparse.mm``: X as CSR times z for rows,
+    X^T as CSR times dl for cols, both from the plain version's entries);
+    the byte bound at 3.35 TB/s, by kernel: each live entry (id and value)
+    read once by each kernel, dl written by rows and read by cols, w and
+    z read and written by cols for every feature with an entry. The
     timing launches do not count."""
     import numpy as np
     import torch
@@ -1959,20 +1997,48 @@ def time_solver(p):
     p.state[0] = 0
     res["plain_ms"] = cuda_ms(plain, [()], 5, reps=3, hold=False)
     nnz, N, C = p.nnz, p.N, p.C
-    X = torch.sparse_csr_tensor(p.row_ptr, p.col, p.val, (N, p.n_dim))
-    col_ptr = p.col_ptr
-    XT = torch.sparse_csr_tensor(col_ptr, p.crow, p.cval, (p.n_dim, N))
+    row, col, val = p.coo()  # row-major
+
+    def csr(major, minor, values, n_major, n_minor):
+        """int32 CSR with contiguous values (cuSPARSE's fast case)."""
+        ptr = torch.zeros(n_major + 1, dtype=torch.int64, device=dev)
+        ptr[1:] = torch.cumsum(torch.bincount(major, minlength=n_major), 0)
+        return torch.sparse_csr_tensor(
+            ptr.to(torch.int32), minor.to(torch.int32), values.contiguous(),
+            (n_major, n_minor))
+
+    X = csr(row, col, val, N, p.n_dim)
+    order = torch.argsort(col, stable=True)
+    XT = csr(col[order], row[order], val[order], p.n_dim, N)
+    del order
     z, dl = p.z.view(p.n_dim, C), p.dl.view(N, C)
     res["library_x_ms"] = cuda_ms(lambda: torch.sparse.mm(X, z), [()], 20)
     res["library_xt_ms"] = cuda_ms(lambda: torch.sparse.mm(XT, dl), [()], 20)
     res["library_ms"] = res["library_x_ms"] + res["library_xt_ms"]
-    features = int((col_ptr[1:] > col_ptr[:-1]).sum())
-    nbytes = 2 * nnz * 8 + 2 * N * C * 4 + 4 * features * C * 4
+    del X, XT
+    features = p.n_short + len(p.long_feat)
+    rows_bytes = nnz * 8 + N * C * 4
+    cols_bytes = rows_bytes + 4 * features * C * 4
+    nbytes = rows_bytes + cols_bytes
     res.update(bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               rows_bound_ms=rows_bytes / HBM_BYTES_PER_S * 1e3,
+               cols_bound_ms=cols_bytes / HBM_BYTES_PER_S * 1e3,
+               rows_bound_bytes=rows_bytes, cols_bound_bytes=cols_bytes,
                bound_by="bytes", features=features, nnz=nnz, N=N,
-               n_seg=p.n_seg, n_short=p.n_short)
+               n_seg=p.n_seg, n_short=p.n_short,
+               row_slices=p.n_row_slices, col_slices=p.n_col_slices,
+               long_entries=len(p.long_ent),
+               row_steps=int(p.row_slice[-1]), col_steps=int(p.col_slice[-1]))
     ops.fista_step.launches, ops.power_step.launches = before
     return res
+
+
+def solver_ptxas(lines):
+    """{instantiation: ptxas summary} of the solver kernels: rows and cols,
+    each binary (and power mode) and Crammer-Singer."""
+    return {f"{k}<{'cs' if cs else 'binary'}>": ptxas_summary(
+        [ln for ln in lines if f"{k}_kernelILb{int(cs)}E" in ln])
+        for k in ("rows", "cols") for cs in (False, True)}
 
 
 def sync(device=None) -> None:
@@ -2732,6 +2798,8 @@ def main(argv) -> int:
     st_ = time_solver(prob)
     del prob
     train_report(tr, st_, smi, time.perf_counter() - t0)
+    log("[7] solver ptxas by instantiation: " + ", ".join(
+        f"{k} {v}" for k, v in solver_ptxas(ptxas["solver"]).items()))
 
     # ---- 8. kernels ---------------------------------------------------
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]

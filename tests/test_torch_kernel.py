@@ -220,18 +220,33 @@ def test_rich_serve_outputs_on_card(case):
     assert torch.equal(bits.cpu(), wbits) and torch.equal(gap.cpu(), wgap)
 
 
-def _solver_problem(loss, l1, C, seed=3):
+def _solver_problem(loss, l1, C, seed=3, mixed=False):
     """A seeded problem on the card with its step size, columns cut into
-    segments of at most 8 entries (the multi-segment path)."""
+    segments of at most 8 entries (the multi-segment path). ``mixed``:
+    each slice's rows cut to 1 to 40 entries (slices 1 to 27 steps wide),
+    and labels over all C classes."""
     from vaporetto_tpu_torch.ops import solver as ops
     from vaporetto_tpu_torch.train import solver as psolver
 
-    idx, val, y, labels, d = chip_smoke.solver_examples(seed)
+    if mixed:
+        idx, val, y, labels, d = chip_smoke.solver_examples(seed, k=41)
+        rng = np.random.default_rng(seed)
+        keep = np.repeat(rng.integers(1, 41, len(y) // 32 + 1), 32)
+        for r in range(len(y)):
+            live = int((idx[r] != 0).sum())
+            if live > keep[r]:
+                idx[r, keep[r]:], val[r, keep[r]:] = 0, 0.0
+        labels = rng.integers(0, C, len(y)).astype(np.int32)
+    else:
+        idx, val, y, labels, d = chip_smoke.solver_examples(seed)
     n_dim, n_pad, _ = psolver._pads(len(y), idx.shape[1], d)
     p = ops.Problem(idx, val, labels if C > 1 else y, n_pad, n_dim,
                     loss=loss, l1=l1, cost=1.0, max_iter=300, C=C,
                     device="cuda")
-    assert int((p.col_seg[1:] - p.col_seg[:-1]).max()) > 1
+    assert int((p.long_seg[1:] - p.long_seg[:-1]).max()) > 1
+    if mixed:
+        widths = (p.row_slice[1:] - p.row_slice[:-1]).tolist()
+        assert min(widths) < 5 and max(widths) > 20
     p.start(np.float32(1.0 / (100.0 * psolver._sigma2(p, 32) + 1.0)),
             np.float32(0.01))
     return p
@@ -253,6 +268,35 @@ def test_solver_step_matches_plain_on_card(loss, l1, C, monkeypatch):
     want = ops.power_step_plain(p, v)
     scale = float(want.abs().max())
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,l1,C", [(1, True, 1), (0, False, 1),
+                                       (3, False, 3), (3, False, 11)])
+def test_solver_step_matches_plain_on_mixed_slices_on_card(loss, l1, C,
+                                                           monkeypatch):
+    """Slices of many widths, and Crammer-Singer with more classes than a
+    thread keeps in registers (CLASS_BLOCK 8: 11 classes take two class
+    blocks and the margins kept in dl): one iteration and one power step
+    against the plain version, and two solves bit for bit."""
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    monkeypatch.setattr(ops, "SEG", 8)
+    p = _solver_problem(loss, l1, C, seed=7, mixed=True)
+    assert chip_smoke.solver_step_check(p, np.float32(0.01)) < 1e-3
+    v = torch.randn(p.n_dim, device="cuda")
+    got = ops.power_step(p, v).clone()
+    want = ops.power_step_plain(p, v)
+    scale = float(want.abs().max())
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+    runs = []
+    for _ in "ab":
+        p.start(p.step, np.float32(0.01))
+        for _ in range(40):
+            ops.fista_step(p)
+        runs.append(p.w.cpu().numpy().tobytes())
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.cuda

@@ -53,3 +53,16 @@ def test_args_struct_matches_its_ctypes_mirror(source, struct, mirror):
     got = [(n, kinds[t]) for n, t in mirror._fields_]
     assert got == want
     assert ctypes.sizeof(mirror) == 8 * len(want)
+
+
+@pytest.mark.parametrize("name,mirror", [
+    ("SLICE", solver.SLICE),
+    ("CLASS_BLOCK", solver.CLASS_BLOCK),
+])
+def test_solver_layout_constants_match_the_kernel(name, mirror):
+    """The solver's sliced layouts hold SLICE examples (short features) a
+    slice, a warp's lanes, and the numpy mirror blocks Crammer-Singer's
+    classes as the kernel does; both constants are the source's."""
+    with open(os.path.join(_CSRC, "solver.cu")) as f:
+        m = re.search(r"constexpr int %s = (\d+);" % name, f.read())
+    assert m is not None and int(m.group(1)) == mirror

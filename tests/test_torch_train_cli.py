@@ -149,11 +149,15 @@ def test_chip_smoke_train_phase_on_cpu(tmp_path):
     # the phase's report and its kernels entry, with made-up times
     timing = dict.fromkeys(("rows_ms", "cols_ms", "ms", "plain_ms",
                             "library_x_ms", "library_xt_ms", "library_ms",
-                            "bound_ms"), 1.0)
+                            "bound_ms", "rows_bound_ms", "cols_bound_ms"),
+                           1.0)
     timing.update(bound_by="bytes", bound_bytes=1, nnz=1, N=1, features=1,
-                  n_seg=1, n_short=1)
+                  n_seg=1, n_short=1, rows_bound_bytes=1, cols_bound_bytes=1,
+                  row_slices=1, row_steps=1, col_slices=1, col_steps=1,
+                  long_entries=1)
     res.pop("problem")
     chip_smoke.train_report(res, timing, "no card", 1.0)
     entry = chip_smoke.solver_entry(res, timing, [])
     assert entry["name"] == "solver" and entry["launches"] == 0
+    assert entry["layout_bytes"] > 0 and entry["layout_build_s"] > 0
     assert json.loads(json.dumps(entry))["bound_by"] == "bytes"

@@ -7,25 +7,28 @@ JAX package's solver (``vaporetto_tpu/train/solver.py``: ``_binary_ops``
 ``_fista_cs_advance`` :305): the sparse products X.z and X^T r, the loss
 derivative, the L2 term or the L1 prox, the FISTA momentum step and the
 largest |w_new - w|, for the three binary losses and the smoothed
-Crammer-Singer objective. One iteration is two launches (``rows``, a warp
-per example; ``cols``, a warp per segment of a feature's column, which
-also applies the update); the source's header gives the design.
+Crammer-Singer objective. One iteration is two launches (``rows``, a
+thread per example; ``cols``, a thread per feature of at most
+:data:`SHORT` entries and a warp per segment of a longer one, which also
+applies the update); the source's header gives the design.
 
-:class:`Problem` holds one solve on one device: the example matrix in two
-layouts built once (CSR without the pad entries, for ``rows``; a stable
-feature-major copy for ``cols``, whose features of at most :data:`SHORT`
-entries take a thread each and longer ones segments of at most
-:data:`SEG` entries, a warp each), the targets, and the FISTA state (w, z, and the stopping flag
-``state`` that the kernels keep). Sums run in a fixed order and the state
-carries the JAX ``while_loop`` cond, so a solve on the card gives the same
-bits every run and stops at the iteration the JAX loop stops at.
+:class:`Problem` holds one solve on one device: the example matrix in the
+kernels' sliced layouts, built once by torch ops on the device (the
+examples in slices of :data:`SLICE` rows for ``rows``; the short features
+sorted by entry count in slices of SLICE, and the longer features' entries
+in segments of at most :data:`SEG`, for ``cols``), the targets, and the
+FISTA state (w, z, and the stopping flag ``state`` that the kernels
+keep). Sums run in a fixed order and the state carries the JAX
+``while_loop`` cond, so a solve on the card gives the same bits every run
+and stops at the iteration the JAX loop stops at.
 
 :func:`fista_step` and :func:`power_step` are the entry points. For a
 problem on the CPU they run the plain version (:func:`fista_step_plain`,
-:func:`power_step_plain`: gathers, ``index_add_`` and elementwise torch,
-the same functions); for a problem on a CUDA device they launch the kernels
-or raise; nothing falls back. ``fista_step.launches`` and
-``power_step.launches`` count kernel launches.
+:func:`power_step_plain`: gathers, ``index_add_`` and elementwise torch
+over :meth:`Problem.coo`, the same functions); for a problem on a CUDA
+device they launch the kernels or raise; nothing falls back.
+``fista_step.launches`` and ``power_step.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -39,11 +42,13 @@ import numpy as np
 import torch
 
 from .._build import build_shared
+from ..predictor import _resolve_device
 from .boundary import _nvcc
 
 __all__ = ["Problem", "fista_step", "power_step", "fista_step_plain",
            "power_step_plain", "f_grad_plain", "losses", "momentum_sequence",
-           "build", "SEG", "SHORT", "LOGISTIC", "L2_HINGE", "L1_HINGE",
+           "build", "SEG", "SHORT", "SLICE", "CLASS_BLOCK",
+           "COLS_BLOCKS_PER_SM", "LOGISTIC", "L2_HINGE", "L1_HINGE",
            "CRAMMER_SINGER", "HINGE_SMOOTHING_MU", "CS_SMOOTHING_MU"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -70,6 +75,16 @@ SHORT = 32
 #: most entries of a longer column's segment, a warp of ``cols`` each (the
 #: bias column holds every example)
 SEG = 1024
+#: examples (short features) of a slice of the kernels' layouts: a warp
+#: takes a slice, a thread one of its examples (features)
+SLICE = 32
+#: blocks of ``cols`` on each SM whose warps stride over the slices of
+#: short features (8 of 256 threads fill an SM)
+COLS_BLOCKS_PER_SM = 8
+#: Crammer-Singer classes a thread of the kernels keeps in registers
+#: (``CLASS_BLOCK`` in csrc/solver.cu); more classes take a loop over
+#: blocks of this many
+CLASS_BLOCK = 8
 
 
 def losses(kind):
@@ -117,6 +132,26 @@ def momentum_sequence(n: int) -> np.ndarray:
     return t
 
 
+def _offsets(counts: torch.Tensor) -> torch.Tensor:
+    """(len + 1,) int64 exclusive prefix sums of ``counts``, then the
+    total."""
+    out = torch.zeros(len(counts) + 1, dtype=torch.int64,
+                      device=counts.device)
+    out[1:] = torch.cumsum(counts, 0)
+    return out
+
+
+def _entries(dest: torch.Tensor, ids: torch.Tensor, bits: torch.Tensor,
+             size: int, pad: int) -> torch.Tensor:
+    """A (size, 2) int32 entry array: (ids, bits) at ``dest``, (pad, 0)
+    elsewhere."""
+    out = torch.zeros((size, 2), dtype=torch.int32, device=dest.device)
+    out[:, 0] = pad
+    out[dest, 0] = ids.to(torch.int32)
+    out[dest, 1] = bits
+    return out
+
+
 class Problem:
     """One solve of the linear classifier on one device.
 
@@ -125,18 +160,40 @@ class Problem:
     target of a binary loss or the (n,) int class ids of Crammer-Singer
     (``loss`` CRAMMER_SINGER, ``C`` classes). ``n_rows`` >= n rows are
     kept (rows n.. are padding with mask 0, as the JAX package pads them).
-    The example matrix is uploaded as given and laid out on the device;
-    the uploaded (n, K) arrays are freed once the layouts exist."""
+    ``device`` None is the current CUDA device (an error without one);
+    ``"cpu"`` runs the plain version. The example matrix is uploaded as
+    given and laid out on the device by torch ops; the uploaded (n, K)
+    arrays are freed once the layouts exist.
+
+    The kernels' layouts (``csrc/solver.cu`` gives the design), each entry
+    an int32 pair (id, the value's float32 bits):
+
+    - ``row_ent``: the examples in slices of :data:`SLICE` consecutive
+      rows, a slice as wide as its longest row, step-major: step k of
+      slice s, lane l, at (``row_slice[s]`` + k) SLICE + l holds row
+      SLICE s + l's k-th live entry (feature, value), (0, 0) past its end;
+      padded rows are in no slice;
+    - ``col_ent``: the features of at most :data:`SHORT` entries sorted
+      stably by entry count (``short_feat``, -1 past the last), in slices
+      of SLICE laid out the same way (``col_slice``), each feature's
+      entries (example, value) in ascending example order, (-1, 0) past
+      its end;
+    - ``long_ent``: the entries (example, value) of the longer features
+      (``long_feat``, ascending), feature by feature in ascending example
+      order (``long_ptr``), cut into segments of at most :data:`SEG`
+      (``long_seg``: a feature's first segment; ``seg_long``: a segment's
+      feature)."""
 
     def __init__(self, idx: np.ndarray, val: np.ndarray,
                  targets: np.ndarray, n_rows: int, n_dim: int, *, loss: int,
                  l1: bool, cost: float, max_iter: int, C: int = 1,
-                 device="cpu"):
-        dev = torch.device(device)
+                 device=None):
+        dev = _resolve_device(device, "Problem")
         n = len(targets)
         if idx.shape != val.shape or idx.shape[0] != n or n_rows < n:
             raise ValueError("idx, val and targets disagree in shape")
-        self.device, self.N, self.n_dim, self.C = dev, int(n_rows), n_dim, C
+        self.device, self.n, self.N, self.n_dim, self.C = \
+            dev, n, int(n_rows), n_dim, C
         self.loss, self.l1, self.cost, self.max_iter = loss, l1, cost, \
             max_iter
         ids = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
@@ -144,47 +201,84 @@ class Problem:
             dev)
         #: card (or host) bytes of the uploaded (n, K) example arrays
         self.example_bytes = ids.nbytes + vals.nbytes
-        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n_dim):
-            raise ValueError(f"feature ids outside [0, {n_dim})")
-        live = ids != 0
-        counts = live.sum(1)
-        nnz = int(counts.sum())
+        if ids.numel():
+            lo, hi = torch.stack(torch.aminmax(ids)).tolist()
+            if lo < 0 or hi >= n_dim:
+                raise ValueError(f"feature ids outside [0, {n_dim})")
+        counts = (ids != 0).sum(1)
+        # the live entries, row-major: row rr's in order
+        rr, kk = torch.nonzero(ids, as_tuple=True)
+        col, v = ids[rr, kk], vals[rr, kk].view(torch.int32)
+        del ids, vals, kk
+        nnz = len(col)
         if nnz >= 2**31:
             raise ValueError(f"{nnz} entries exceed int32 offsets")
         self.nnz = nnz
-        row_ptr = torch.zeros(self.N + 1, dtype=torch.int64, device=dev)
-        row_ptr[1:n + 1] = torch.cumsum(counts, 0)
-        row_ptr[n + 1:] = nnz
-        self.row_ptr = row_ptr.to(torch.int32)
-        self.col = ids[live]  # row-major: each example's entries in order
-        self.val = vals[live]
-        del ids, vals, live
-        #: each entry's example (the plain version's scatter index)
-        self.row = torch.repeat_interleave(
-            torch.arange(n, dtype=torch.int32, device=dev), counts)
-        order = torch.argsort(self.col, stable=True)
-        self.crow = self.row[order]
-        self.cval = self.val[order]
-        del order
-        col_count = torch.bincount(self.col, minlength=n_dim)
-        col_ptr = torch.zeros(n_dim + 1, dtype=torch.int64, device=dev)
-        col_ptr[1:] = torch.cumsum(col_count, 0)
+        # rows: SLICE consecutive examples a slice
+        n_rs = -(-n // SLICE)
+        width = torch.zeros(n_rs * SLICE, dtype=torch.int64, device=dev)
+        width[:n] = counts
+        row_slice = _offsets(width.view(n_rs, SLICE).amax(1))
+        # columns: entries by feature, examples ascending within one
+        order = torch.argsort(col, stable=True)
+        ccol, crow, cv = col[order], rr[order], v[order]
+        col_count = torch.zeros(n_dim, dtype=torch.int64, device=dev)
+        col_count.index_add_(0, ccol, torch.ones_like(crow))
         short = (col_count > 0) & (col_count <= SHORT)
-        #: the features of at most SHORT entries, ascending
-        self.short_col = torch.nonzero(short).flatten().to(torch.int32)
-        self.n_short = len(self.short_col)
-        # the longer columns, cut into segments of at most SEG entries
-        nseg = torch.where(short, 0, (col_count + SEG - 1) // SEG)
-        col_seg = torch.zeros(n_dim + 1, dtype=torch.int64, device=dev)
-        col_seg[1:] = torch.cumsum(nseg, 0)
-        n_seg = int(col_seg[-1])
-        seg_col = torch.repeat_interleave(
-            torch.arange(n_dim, device=dev), nseg)
-        # segment q of feature j: entries col_ptr[j] + q SEG, at most SEG
-        self.n_seg, self.seg_len = n_seg, SEG
-        self.col_ptr = col_ptr.to(torch.int32)
-        self.seg_col = seg_col.to(torch.int32)
-        self.col_seg = col_seg.to(torch.int32)
+        # the short features, stably by entry count, SLICE a slice
+        short_ids = torch.nonzero(short).flatten()
+        short_ids = short_ids[torch.argsort(col_count[short_ids],
+                                            stable=True)]
+        self.n_short = n_short = len(short_ids)
+        n_cs = -(-n_short // SLICE)
+        width = torch.zeros(n_cs * SLICE, dtype=torch.int64, device=dev)
+        width[:n_short] = col_count[short_ids]
+        col_slice = _offsets(width.view(n_cs, SLICE).amax(1))
+        # the longer features, cut into segments of at most SEG entries
+        long_feat = torch.nonzero(col_count > SHORT).flatten()
+        long_count = col_count[long_feat]
+        nseg = (long_count + SEG - 1) // SEG
+        long_seg = _offsets(nseg)
+        row_steps, col_steps, n_seg = torch.stack(
+            (row_slice[-1], col_slice[-1], long_seg[-1])).tolist()
+        # each entry's place in rows' slices
+        start = torch.cumsum(counts, 0) - counts  # each row's first entry
+        pos = torch.arange(nnz, device=dev) - start[rr]
+        dest = (row_slice[rr // SLICE] + pos) * SLICE + rr % SLICE
+        del start, pos, order, rr
+        self.row_ent = _entries(dest, col, v, row_steps * SLICE, 0)
+        del col, v, dest
+        self.row_slice = row_slice.to(torch.int32)
+        self.n_row_slices = n_rs
+        # ... in cols' slices, for the short features' entries
+        rank = torch.full((n_dim,), -1, dtype=torch.int64, device=dev)
+        rank[short_ids] = torch.arange(n_short, device=dev)
+        col_start = torch.cumsum(col_count, 0) - col_count
+        is_short = short[ccol]
+        es = torch.nonzero(is_short).flatten()
+        j = ccol[es]
+        t = rank[j]
+        dest = (col_slice[t // SLICE] + es - col_start[j]) * SLICE \
+            + t % SLICE
+        self.col_ent = _entries(dest, crow[es], cv[es], col_steps * SLICE,
+                                -1)
+        del rank, col_start, es, j, t, dest
+        self.col_slice = col_slice.to(torch.int32)
+        self.short_feat = torch.full((n_cs * SLICE,), -1, dtype=torch.int32,
+                                     device=dev)
+        self.short_feat[:n_short] = short_ids.to(torch.int32)
+        self.n_col_slices = n_cs
+        # ... and the long features' entries in feature order
+        self.n_seg = n_seg
+        self.seg_long = torch.repeat_interleave(
+            torch.arange(len(long_feat), device=dev), nseg,
+            output_size=n_seg).to(torch.int32)
+        self.long_ent = torch.stack((crow.to(torch.int32), cv), 1)[~is_short]
+        del ccol, crow, cv, is_short
+        self.long_feat = long_feat.to(torch.int32)
+        self.long_ptr = _offsets(long_count).to(torch.int32)
+        self.long_seg = long_seg.to(torch.int32)
+        self.seg_len = SEG
         # targets, padded as the JAX package pads them
         self.mask = torch.zeros(self.N, dtype=torch.float32, device=dev)
         self.mask[:n] = 1.0
@@ -201,19 +295,46 @@ class Problem:
         self.dl = torch.empty(self.N * C, dtype=torch.float32, device=dev)
         self.partial = torch.empty(max(n_seg, 1) * C, dtype=torch.float32,
                                    device=dev)
-        self.col_cnt = torch.zeros(n_dim, dtype=torch.int32, device=dev)
+        self.long_cnt = torch.zeros(max(len(long_feat), 1),
+                                    dtype=torch.int32, device=dev)
         self.power_out = torch.zeros(n_dim, dtype=torch.float32, device=dev)
         self.step = self.thr = None
         self.w = self.z = self.state = self.tseq = None
-        self._args = {}
+        self._args, self._blocks = {}, {}
+        self._coo = None
+
+    #: the kernels' layouts and the targets, in :meth:`nbytes`
+    LAYOUT = ("row_slice", "row_ent", "col_slice", "short_feat", "col_ent",
+              "long_feat", "long_ptr", "long_seg", "seg_long", "long_ent",
+              "mask")
 
     def nbytes(self) -> int:
-        """Bytes of the two layouts and the targets on the device."""
-        return sum(t.nbytes for t in (
-            self.row_ptr, self.col, self.val, self.row, self.crow, self.cval,
-            self.col_ptr, self.short_col, self.seg_col, self.col_seg,
-            self.mask,
-            self.y if self.y is not None else self.labels))
+        """Bytes of the kernels' layouts and the targets on the device."""
+        return sum(getattr(self, k).nbytes for k in self.LAYOUT) + (
+            self.y if self.y is not None else self.labels).nbytes
+
+    def coo(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(row, col, val): the live entries row-major, each row's in
+        order, read back from ``row_ent`` (int64 row, int64 feature,
+        float32 value; made at first use and kept): the plain version's
+        gather and scatter indices."""
+        if self._coo is None:
+            steps = self.row_slice.long()
+            width = steps[1:] - steps[:-1]
+            q = torch.arange(len(self.row_ent), device=self.device)
+            # entry q = (row_slice[s] + k) SLICE + l is row SLICE s + l's
+            s = torch.repeat_interleave(
+                torch.arange(self.n_row_slices, device=self.device),
+                width * SLICE, output_size=len(q))
+            row = s * SLICE + q % SLICE
+            live = self.row_ent[:, 0] != 0
+            row = row[live]
+            # a row's entries come in step order: a stable sort keeps it
+            order = torch.argsort(row, stable=True)
+            e = self.row_ent[live][order]
+            self._coo = (row[order], e[:, 0].long(),
+                         e[:, 1].contiguous().view(torch.float32))
+        return self._coo
 
     def start(self, step: np.float32, eps: np.float32) -> None:
         """Set the step size and the stopping threshold (eps step 100, in
@@ -257,13 +378,14 @@ class Problem:
 
 
 def _spread(p: Problem, name: str) -> torch.Tensor:
-    """``p.row`` or ``p.col`` spread over C classes (index * C + c), made
-    once per problem: a 2-D ``index_add_`` is slow on the CPU, a flat one
-    is not."""
+    """The plain version's row (``"row"``) or feature (``"col"``) index
+    spread over C classes (index * C + c), made once per problem: a 2-D
+    ``index_add_`` is slow on the CPU, a flat one is not."""
     key = "_spread_" + name
     t = p.__dict__.get(key)
     if t is None:
-        t = (getattr(p, name).long()[:, None] * p.C + torch.arange(
+        index = p.coo()[1 if name == "col" else 0]
+        t = (index[:, None] * p.C + torch.arange(
             p.C, device=p.device)).reshape(-1)
         setattr(p, key, t)
     return t
@@ -271,11 +393,11 @@ def _spread(p: Problem, name: str) -> torch.Tensor:
 
 def _matvec(p: Problem, x: torch.Tensor) -> torch.Tensor:
     """X x: (N,) for a (n_dim,) x, (N, C) for a (n_dim, C) x."""
+    row, col, val = p.coo()
     if x.dim() == 1:
         out = torch.zeros(p.N, dtype=torch.float32, device=p.device)
-        return out.index_add_(0, p.row, torch.index_select(x, 0, p.col)
-                              * p.val)
-    xv = torch.index_select(x, 0, p.col) * p.val[:, None]
+        return out.index_add_(0, row, torch.index_select(x, 0, col) * val)
+    xv = torch.index_select(x, 0, col) * val[:, None]
     out = torch.zeros(p.N * p.C, dtype=torch.float32, device=p.device)
     return out.index_add_(0, _spread(p, "row"), xv.reshape(-1)).view(
         p.N, p.C)
@@ -283,11 +405,11 @@ def _matvec(p: Problem, x: torch.Tensor) -> torch.Tensor:
 
 def _rmatvec(p: Problem, r: torch.Tensor) -> torch.Tensor:
     """X^T r: (n_dim,) for an (N,) r, (n_dim, C) for an (N, C) r."""
+    row, col, val = p.coo()
     if r.dim() == 1:
         out = torch.zeros(p.n_dim, dtype=torch.float32, device=p.device)
-        return out.index_add_(0, p.col, torch.index_select(r, 0, p.row)
-                              * p.val)
-    rv = torch.index_select(r, 0, p.row) * p.val[:, None]
+        return out.index_add_(0, col, torch.index_select(r, 0, row) * val)
+    rv = torch.index_select(r, 0, row) * val[:, None]
     out = torch.zeros(p.n_dim * p.C, dtype=torch.float32, device=p.device)
     return out.index_add_(0, _spread(p, "col"), rv.reshape(-1)).view(
         p.n_dim, p.C)
@@ -367,14 +489,15 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(n, {1: ctypes.c_void_p, 0: ctypes.c_int64,
                      2: ctypes.c_double}[k]) for n, k in (
-        ("row_ptr", 1), ("col", 1), ("val", 1),
-        ("col_ptr", 1), ("short_col", 1),
-        ("seg_col", 1), ("col_seg", 1),
-        ("crow", 1), ("cval", 1),
-        ("y", 1), ("labels", 1), ("mask", 1),
+        ("row_slice", 1), ("row_ent", 1),
+        ("col_slice", 1), ("short_feat", 1), ("col_ent", 1),
+        ("long_feat", 1), ("long_ptr", 1), ("long_seg", 1),
+        ("seg_long", 1), ("long_ent", 1),
+        ("y", 1), ("labels", 1),
         ("x", 1), ("w", 1), ("z", 1), ("dl", 1), ("partial", 1),
-        ("col_cnt", 1), ("out", 1), ("state", 1), ("tseq", 1),
-        ("N", 0), ("n_dim", 0), ("C", 0), ("n_seg", 0), ("n_short", 0),
+        ("long_cnt", 1), ("out", 1), ("state", 1), ("tseq", 1),
+        ("n", 0), ("n_dim", 0), ("C", 0),
+        ("n_row_slices", 0), ("n_col_slices", 0), ("n_seg", 0),
         ("seg_len", 0), ("seg_blocks", 0),
         ("power", 0), ("loss", 0), ("l1", 0), ("max_iter", 0),
         ("cost", 2), ("step", 2), ("thr", 2), ("mu", 2),
@@ -420,11 +543,12 @@ def _args(p: Problem, power: bool) -> _Args:
     if a is not None:
         return a
     a = _Args()
-    for name in ("row_ptr", "col", "val", "col_ptr", "short_col", "seg_col",
-                 "col_seg", "crow", "cval", "y", "labels", "mask", "dl",
-                 "partial", "col_cnt"):
+    for name in ("row_slice", "row_ent", "col_slice", "short_feat",
+                 "col_ent", "long_feat", "long_ptr", "long_seg", "seg_long",
+                 "long_ent", "y", "labels", "dl", "partial", "long_cnt"):
         setattr(a, name, _ptr(getattr(p, name)))
-    a.N, a.n_dim, a.n_seg, a.n_short = p.N, p.n_dim, p.n_seg, p.n_short
+    a.n, a.n_dim, a.n_seg = p.n, p.n_dim, p.n_seg
+    a.n_row_slices, a.n_col_slices = p.n_row_slices, p.n_col_slices
     a.seg_len = p.seg_len
     a.seg_blocks = -(-p.n_seg // _load().vt_solver_warps())
     a.power, a.loss, a.l1 = int(power), p.loss, int(p.l1)
@@ -442,12 +566,23 @@ def _args(p: Problem, power: bool) -> _Args:
 
 
 def _blocks(p: Problem, kernel: str) -> int:
-    """Blocks of a launch: a warp per example (rows); a warp per segment,
-    then a thread per short feature (cols)."""
-    warps = _load().vt_solver_warps()
-    if kernel == "rows":
-        return max(1, -(-p.N // warps))
-    return max(1, -(-p.n_seg // warps) + -(-p.n_short // (32 * warps)))
+    """Blocks of a launch (made once per problem): a warp per slice of
+    examples (rows); for cols, a warp per segment, then
+    :data:`COLS_BLOCKS_PER_SM` blocks on each SM (fewer if the slices of
+    short features are fewer) whose warps stride over the slices of short
+    features."""
+    n = p._blocks.get(kernel)
+    if n is None:
+        warps = _load().vt_solver_warps()
+        if kernel == "rows":
+            n = max(1, -(-p.n_row_slices // warps))
+        else:
+            sms = torch.cuda.get_device_properties(
+                p.device).multi_processor_count
+            n = max(1, -(-p.n_seg // warps) + min(
+                -(-p.n_col_slices // warps), COLS_BLOCKS_PER_SM * sms))
+        p._blocks[kernel] = n
+    return n
 
 
 def _launch(name: str, a: _Args, blocks: int, dev: torch.device) -> None:
@@ -459,10 +594,11 @@ def _launch(name: str, a: _Args, blocks: int, dev: torch.device) -> None:
 
 
 def _check_device(p: Problem) -> torch.device:
-    dev = p.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return torch.empty(0, device=dev).device if dev.index is None else dev
+    """The problem's CUDA device (with its index: ``Problem`` resolves
+    it)."""
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    return p.device
 
 
 def power_step(p: Problem, v: torch.Tensor) -> torch.Tensor:

@@ -48,14 +48,17 @@ from .utils.batch import tensorize
 __all__ = ["Predictor", "unpack_gap_bits", "pack_gap_bits_np"]
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, what: str = "Predictor") -> torch.device:
+    """``device``, None being the current CUDA device; raises for CUDA
+    without a card (``what`` names the caller in the message)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "Predictor runs on a CUDA device and none is available; "
-                "pass device='cpu' to run the plain version on the CPU, or "
-                "backend='host' (--backend host) for the native host engine"
+                f"{what} runs on a CUDA device and none is available; "
+                "pass device='cpu' to run the plain version on the CPU"
+                + (", or backend='host' (--backend host) for the native "
+                   "host engine" if what == "Predictor" else "")
             )
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())

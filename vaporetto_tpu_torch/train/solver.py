@@ -39,7 +39,6 @@ from ..ops import solver as kernels
 from ..ops.solver import (CRAMMER_SINGER, CS_SMOOTHING_MU,
                           HINGE_SMOOTHING_MU, L1_HINGE, L2_HINGE, LOGISTIC,
                           Problem)
-from ..predictor import _resolve_device
 
 __all__ = ["train_binary", "train_one_vs_rest", "train_crammer_singer",
            "train_boundary", "LOGISTIC", "L2_HINGE", "L1_HINGE",
@@ -175,7 +174,7 @@ def train_crammer_singer(
     p = Problem(idx, val, np.asarray(labels, dtype=np.int32), n_pad, n_dim,
                 loss=CRAMMER_SINGER, l1=False, cost=float(cost),
                 max_iter=max_iter, C=int(n_classes),
-                device=_resolve_device(device))
+                device=device)
     # Lipschitz: ||X||^2 * (softmax curvature 1/mu) * C + 1 (regularizer)
     W = _fista(p, eps, chunk,
                lambda s2: cost * s2 / CS_SMOOTHING_MU + 1.0 + 1e-6)
@@ -246,7 +245,7 @@ def train_binary(
     n_dim, n_pad, k_pad = _pads(n, idx.shape[1], n_features)
     p = Problem(idx, val, np.asarray(y_pm, dtype=np.float32), n_pad, n_dim,
                 loss=loss_kind, l1=l1, cost=float(cost), max_iter=max_iter,
-                device=_resolve_device(device))
+                device=device)
     # loss-curvature bound: logistic <= 1/4 (we use 1 for safety),
     # squared hinge = 2, smoothed hinge = 1/mu
     if loss_kind == L2_HINGE:
