@@ -5,13 +5,16 @@ Drives the port's main paths — lean boundary serving, lean ``--scores``,
 lean ``--predict-tags`` serving and its rich combination with
 ``--scores --tag-scores``, bytes in to tokenized (and tagged, scored)
 bytes out, the same streams on the native host engine, and the predict,
-evaluate and manipulate_model CLIs over them, and the train CLI on a
-corpus the model segments — on one CUDA card, at the full size of the
+evaluate and manipulate_model CLIs over them, the train CLI on a
+corpus the model segments, and the multi-card and multi-process paths
+(a mesh naming the card twice, two processes sharing it) — on one CUDA
+card, at the full size of the
 largest model the repo can build
 from its own code (the synthetic 50k-word dictionary model, seed 17; for
 tags the same model with 3 000 KyTea-style tag models, seed 23), and holds
-the hand-written boundary, tag and solver kernels against their plain
-torch versions on the same inputs. Phases, each printed on its own line:
+the hand-written boundary, tag and solver kernels (``rows``, ``cols``
+and its ``PART`` instantiation, ``update``) against their plain torch
+versions on the same inputs. Phases, each printed on its own line:
 
 1. device and build: the card's name and power limit, the g++ and three
    nvcc build seconds (all four built in parallel, from the sources in the
@@ -104,7 +107,21 @@ torch versions on the same inputs. Phases, each printed on its own line:
    ``--predict-tags`` with the student through both kernels; the
    kernels' times per iteration beside the plain version's,
    ``torch.sparse.mm``'s and the byte bound;
-8. a ``kernels`` JSON line (boundary, tags, solver).
+9. several cards and several processes, on the one card
+   (:func:`multi_phase`): ``predict --dp 1`` over [4]'s lines equal to
+   [6] (``--dp 2`` exits 2 naming the one card); ``LeanServer`` on a mesh
+   naming the card twice over [4], [4t] and [4r]'s streams, equal to the
+   unsharded runs with two launches a dispatch; two processes sharing the
+   card (gloo) for ``predict --num-processes 2`` (parts concatenated equal
+   to [6]) and ``evaluate`` (process 0 prints one process's metrics);
+   [7]'s boundary problem split over two shards of the card (``rows`` and
+   ``cols<PART>`` a shard, the reduction, ``update``): a second solve
+   bitwise equal, one iteration within rtol 1e-5 of plain, objective and
+   held-out F1 beside the unsharded solve's, each stage's ms; a
+   two-process ``train`` on [7]'s ``--part`` lines, twice (ranks' weights
+   and files bitwise equal);
+10. a ``kernels`` JSON line (boundary, tags, solver with its ``cols<PART>``
+   instantiation, update).
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
@@ -1037,6 +1054,7 @@ def zero_counts() -> None:
 
     boundary.launches = tags.launches = 0
     ops.fista_step.launches = ops.power_step.launches = 0
+    ops.fista_partial.launches = ops.fista_update.launches = 0
 
 
 def host_cpu() -> str:
@@ -1439,17 +1457,21 @@ def train_run(argv, device=None, keep_problem=False):
     launches counted during it (the counts start from 0), the problem's
     shape, every solve's record (:func:`_solve_record`; the first is the
     boundary solve) and the seconds each solve's ``Problem`` took to lay
-    out its example matrix (``"build seconds"``, in the same order)."""
+    out its example matrix (``"build seconds"``, in the same order); with
+    ``keep_problem``, also the first ``Problem``'s arguments (``"problem
+    args"``: its host arrays, for phase [9])."""
     import contextlib
     import re
 
     from vaporetto_tpu_torch.cli import train
     from vaporetto_tpu_torch.train import solver as psolver
 
-    solves, builds = [], []
+    solves, builds, first = [], [], []
     real_problem = psolver.Problem
 
     def timed_problem(*args, **kw):
+        if keep_problem and not first:
+            first.append((args, kw))
         t1 = time.perf_counter()
         p = real_problem(*args, **kw)
         sync(p.device)
@@ -1483,7 +1505,8 @@ def train_run(argv, device=None, keep_problem=False):
                                       text).group(1)),
             "stages": dict(zip(("load", "extraction", "solve", "tags",
                                 "assembly"), map(float, stages))),
-            "solves": solves, "build seconds": builds}
+            "solves": solves, "build seconds": builds,
+            "problem args": first[0] if first else None}
 
 
 def solver_step_check(p, eps, warm=5):
@@ -1526,6 +1549,80 @@ def solver_step_check(p, eps, warm=5):
                              f"{int(kern['state'][0])} / "
                              f"{int(plain['state'][0])}")
     ops.fista_step.launches, ops.power_step.launches = before
+    return err
+
+
+def _solver_counts():
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    return (ops.fista_step.launches, ops.power_step.launches,
+            ops.fista_partial.launches, ops.fista_update.launches)
+
+
+def _set_solver_counts(counts) -> None:
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    (ops.fista_step.launches, ops.power_step.launches,
+     ops.fista_partial.launches, ops.fista_update.launches) = counts
+
+
+def sharded_step_check(sh, eps, warm=5):
+    """Phase [9] (d)'s check on a split solve ``sh``
+    (``train.solver.Shards``): from the state after ``warm`` sharded kernel
+    iterations, one kernel iteration (``rows`` and ``cols<PART>`` on each
+    shard, the reduction, ``update`` on each shard) against one plain
+    iteration (``fista_partial_plain`` and ``fista_update_plain``, the same
+    reduction) on the same devices and state. w and z must agree within
+    rtol 1e-5 and atol 1e-7 max|g| (float32 sums in other orders), delta
+    the same, every shard's state bitwise the first's, and both advance
+    it. Returns the largest |kernel - plain|. Its launches do not count."""
+    import torch
+
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    before = _solver_counts()
+    sh.start(sh.step, eps)
+    for _ in range(warm):
+        sh.fista_iteration()
+    start = [q.clone_state() for q in sh.parts]
+    sh.fista_iteration()
+    kern = [q.clone_state() for q in sh.parts]
+    for q, st in zip(sh.parts, start):
+        q.set_state(st)
+    saved = ops.fista_partial, ops.fista_update
+    ops.fista_partial, ops.fista_update = (ops.fista_partial_plain,
+                                           ops.fista_update_plain)
+    try:
+        sh.fista_iteration()
+    finally:
+        ops.fista_partial, ops.fista_update = saved
+    plain = [q.clone_state() for q in sh.parts]
+    q0 = sh.parts[0]
+    gmax = float((q0.cost * q0.gsum).abs().max()) + float(
+        start[0]["z"].abs().max())
+    err = 0.0
+    for i, (k_, p_) in enumerate(zip(kern, plain)):
+        for k in ("w", "z", "state"):
+            if not torch.equal(k_[k], kern[0][k]):
+                raise AssertionError(f"(d) shard {i}'s {k} differs from "
+                                     "shard 0's")
+        for k in ("w", "z"):
+            d = (k_[k] - p_[k]).abs()
+            bad = d > 1e-5 * p_[k].abs() + 1e-7 * gmax
+            if bool(bad.any()):
+                raise AssertionError(f"(d) {k}: kernels and plain differ at "
+                                     f"{int(bad.sum())} entries, most "
+                                     f"{float(d.max())}")
+            err = max(err, float(d.max()))
+    dk, dp = (float(st["state"][2:3].view(torch.float32)) for st in
+              (kern[0], plain[0]))
+    if abs(dk - dp) > 1e-5 * dp + 1e-7 * gmax or not (
+            int(kern[0]["state"][0]) == int(plain[0]["state"][0])
+            == warm + 1):
+        raise AssertionError(f"(d) delta {dk} / {dp}, it "
+                             f"{int(kern[0]['state'][0])} / "
+                             f"{int(plain[0]['state'][0])}")
+    _set_solver_counts(before)
     return err
 
 
@@ -1595,8 +1692,10 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
 
     Every run passes ``--eps eps`` (0.01: the CLI's default); the teachers'
     ``LeanServer`` runs take ``batch_lines`` (its default). Returns a
-    dict of what each run found, and the boundary problem (``"problem"``:
-    its layouts stay on the device for the timing)."""
+    dict of what each run found, the boundary problem (``"problem"``: its
+    layouts stay on the device for the timing), and for phase [9]
+    (``"for [9]"``) the boundary run's problem arguments and trainer, the
+    held-out teacher lines and the ``--part`` corpus."""
     import contextlib
 
     import torch
@@ -1684,7 +1783,7 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
         plain_model = trainer.train(*targs, **tkw)
     finally:
         ptrainer.train_boundary = real
-    del trainer, kept
+    del kept
 
     def cli(main, name, argv):
         buf = io.StringIO()
@@ -1812,6 +1911,9 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
                    "tagged tokens": want,
                    "share equal": have / max(want, 1)}
     res["problem"] = p
+    res["for [9]"] = {"problem args": run.pop("problem args"),
+                      "trainer": trainer, "held gold": teacher[n_train:],
+                      "part": part, "eps": eps}
     return res
 
 
@@ -1904,8 +2006,9 @@ def tag_build_ms(tg):
     return sum(tags) / max(len(tags), 1) * 1e3
 
 
-def solver_entry(tr, st_, ptxas_lines):
-    """The solver kernels' entry of the ``kernels`` line."""
+def solver_entry(tr, st_, ptxas_lines, mr=None):
+    """The solver kernels' entry of the ``kernels`` line; ``cols<PART>``,
+    the instantiation of a split solve (phase [9] (d)), as a part of it."""
     b_run = tr["boundary"]
     return {
         "name": "solver",
@@ -1940,6 +2043,47 @@ def solver_entry(tr, st_, ptxas_lines):
         "tag_solves": tr["tags"]["solves"],
         "ptxas": ptxas_summary(ptxas_lines),
         "ptxas_by_instantiation": solver_ptxas(ptxas_lines),
+        # the split solve: rows and cols<PART> launches of [9] (d), and
+        # shard 0's times
+        "cols_part": None if mr is None else {
+            "launches": mr["(d)"]["launches"]["rows+cols<PART>"],
+            "power_launches": mr["(d)"]["launches"]["power"],
+            "rows_ms": mr["(d)"]["timing"]["shards"][0]["rows_ms"],
+            "ms": mr["(d)"]["timing"]["shards"][0]["cols_part_ms"],
+            "plain_ms": mr["(d)"]["timing"]["shards"][0]["partial_plain_ms"],
+            "bound_ms": mr["(d)"]["timing"]["shards"][0][
+                "cols_part_bound_ms"],
+            "rows_bound_ms": mr["(d)"]["timing"]["shards"][0][
+                "rows_bound_ms"],
+            "max_abs_err": mr["(d)"]["err"],
+        },
+    }
+
+
+def update_entry(mr):
+    """The ``update`` kernel's entry of the ``kernels`` line (phase [9]
+    (d): launches of the split solve, shard 0's times)."""
+    d = mr["(d)"]
+    s0 = d["timing"]["shards"][0]
+    return {
+        "name": "update",
+        "route": "cuda",
+        "source": "vaporetto_tpu_torch/csrc/solver.cu",
+        "replaces": "vaporetto_tpu/train/solver.py:210 (_fista_advance: "
+                    "the prox, the momentum step and max |w_new - w|, of a "
+                    "solve sharded over a mesh)",
+        "launches": d["launches"]["update"],
+        "matches_plain": True,
+        "max_abs_err": d["err"],
+        "ms": s0["update_ms"],
+        "plain_ms": s0["update_plain_ms"],
+        "bound_ms": s0["update_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "live_features": s0["n_live"],
+        "reduce_ms": d["timing"]["reduce_ms"],
+        "sharded_iteration_ms": d["timing"]["ms"],
+        "sharded_iteration_bound_ms": d["timing"]["bound_ms"],
     }
 
 
@@ -2035,10 +2179,598 @@ def time_solver(p):
 
 def solver_ptxas(lines):
     """{instantiation: ptxas summary} of the solver kernels: rows and cols,
-    each binary (and power mode) and Crammer-Singer."""
-    return {f"{k}<{'cs' if cs else 'binary'}>": ptxas_summary(
-        [ln for ln in lines if f"{k}_kernelILb{int(cs)}E" in ln])
-        for k in ("rows", "cols") for cs in (False, True)}
+    each binary (and power mode) and Crammer-Singer, cols also with PART;
+    and update."""
+    out = {f"rows<{'cs' if cs else 'binary'}>": ptxas_summary(
+        [ln for ln in lines if f"rows_kernelILb{int(cs)}E" in ln])
+        for cs in (False, True)}
+    for cs in (False, True):
+        for part in (False, True):
+            name = f"cols<{'cs' if cs else 'binary'}{', PART' * part}>"
+            out[name] = ptxas_summary(
+                [ln for ln in lines
+                 if f"cols_kernelILb{int(cs)}ELb{int(part)}E" in ln])
+    out["update"] = ptxas_summary([ln for ln in lines
+                                   if "update_kernel" in ln])
+    return out
+
+
+def held_out_f1(trainer, gold_lines, weights_list, n_features):
+    """Phase [9] (d)'s held-out char F1 of solved weights, without a model:
+    the held-out teacher lines (normalized as the train CLI normalizes its
+    corpus) are added to the boundary run's extractor, so their gaps come
+    out in the run's feature ids (a feature the training corpus lacks gets
+    a new id past ``n_features``: weight 0), and each float weight vector
+    (n_dim, the bias at ``n_features + 1``) scores them: a gap is a
+    boundary when its score is above 0. Returns (F1 for each vector, the
+    held-out gaps)."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.cli.train import _normalized
+    from vaporetto_tpu_torch.metrics import char_metric_from_counts
+    from vaporetto_tpu_torch.rules import KyteaFullwidthFilter
+    from vaporetto_tpu_torch.sentence import Sentence
+
+    ex = trainer._native
+    n0 = ex.n_examples
+    fw = KyteaFullwidthFilter()
+    for ln in gold_lines:
+        if ln:
+            s = _normalized(Sentence.from_tokenized(ln), fw, False)
+            ex.add(s.codepoints, s.char_types, s.boundaries)
+    idx, val, ys = ex.export()
+    idx, val, ys = idx[n0:], val[n0:], ys[n0:]
+    known = idx <= n_features
+    out = []
+    for w in weights_list:
+        w = np.asarray(w, np.float64)
+        score = (w[np.where(known, idx, 0)] * np.where(known, val, 0)).sum(
+            1) + w[n_features + 1]
+        pred, gold = score > 0, ys == 1
+        out.append(char_metric_from_counts(
+            int((pred & gold).sum()), int((~pred & ~gold).sum()),
+            int((pred & ~gold).sum()), int((~pred & gold).sum())).f1)
+    return out, len(ys)
+
+
+def time_sharded(sh):
+    """Phase [9] (d): CUDA-event times of one sharded iteration's stages on
+    a split problem ``sh`` (its state held active: threshold below every
+    delta): ``rows``, ``cols<PART>`` and ``update`` on each shard, the
+    reduction (the shards' sums added in shard order into ``gsum``), and
+    the plain versions of a shard's sums and update; with the byte bounds
+    at 3.35 TB/s: rows and cols<PART> as time_solver counts rows and cols
+    but with each visited feature's sums written once in place of w and z
+    (4 C B), update 20 C B for each live feature (g, w and z read, w and z
+    written; its dense pass also visits the others, which need nothing).
+    The timing launches do not count."""
+    import numpy as np
+    import torch
+
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    before = _solver_counts()
+    # the features with an entry on some shard
+    n_live = int(torch.count_nonzero(sum(q.col_count.to(sh.device)
+                                         for q in sh.parts)))
+    sh.start(sh.step, np.float32(0.01))
+    res = {"shards": []}
+    for q in sh.parts:
+        dev = q.device
+        part = ops._Args.from_buffer_copy(ops._args(q, False, "part"))
+        upd = ops._Args.from_buffer_copy(ops._args(q, False, "update"))
+        upd.thr = -1.0  # every delta passes: each launch does its whole work
+        r = {}
+        for name, kernel, a in (("rows", "rows", part),
+                                ("cols_part", "cols", part),
+                                ("update", "update", upd)):
+            q.state[0] = 0
+            r[f"{name}_ms"] = cuda_ms(
+                lambda kernel=kernel, a=a: ops._launch(
+                    f"vt_solver_{kernel}", a, ops._blocks(q, kernel), dev),
+                [()], 20)
+
+        def plain_part(q=q):
+            q.state[1] = 1
+            ops.fista_partial_plain(q)
+
+        def plain_update(q=q):
+            q.state[0], q.state[1] = 0, 1
+            ops.fista_update_plain(q)
+
+        r["partial_plain_ms"] = cuda_ms(plain_part, [()], 3, reps=3,
+                                        hold=False)
+        r["update_plain_ms"] = cuda_ms(plain_update, [()], 3, reps=3,
+                                       hold=False)
+        features = q.n_short + len(q.long_feat)
+        rows_b = q.nnz * 8 + q.N * q.C * 4
+        r.update(rows_bound_ms=rows_b / HBM_BYTES_PER_S * 1e3,
+                 cols_part_bound_ms=(rows_b + features * q.C * 4)
+                 / HBM_BYTES_PER_S * 1e3,
+                 update_bound_bytes=20 * n_live * q.C,
+                 update_bound_ms=20 * n_live * q.C / HBM_BYTES_PER_S * 1e3,
+                 n=q.n, nnz=q.nnz, features=features, n_live=n_live)
+        res["shards"].append(r)
+    res["reduce_ms"] = cuda_ms(
+        lambda: sh._reduce([q.part_g for q in sh.parts],
+                           {q.device: q.gsum for q in sh.parts}), [()], 20)
+    res["reduce_bytes"] = 3 * sh.n_dim * sh.C * 4  # two read, one written
+    sh_ = res["shards"]
+    res["ms"] = sum(r["rows_ms"] + r["cols_part_ms"] + r["update_ms"]
+                    for r in sh_) + res["reduce_ms"]
+    res["bound_ms"] = sum(r["cols_part_bound_ms"] + r["rows_bound_ms"]
+                          for r in sh_) + sh_[0]["update_bound_ms"] + \
+        res["reduce_bytes"] / HBM_BYTES_PER_S * 1e3
+    _set_solver_counts(before)
+    return res
+
+
+def _serve_mesh(p, lines, mesh, general, batch_lines=8192, device=None,
+                **kw):
+    """(bytes, LeanServer.stats, (boundary, tag) launches, seconds) of
+    ``LeanServer`` over ``lines`` with ``mesh``; ``general(raw lines)``
+    writes the lines the lean path gives back."""
+    from vaporetto_tpu_torch import LeanServer
+
+    sink = io.BytesIO()
+
+    def fallback(raw):
+        sink.write(general([b.decode("utf-8") for b in raw]))
+
+    srv = LeanServer(p, fallback=fallback, batch_lines=batch_lines,
+                     mesh=mesh, **kw)
+    sync(device)
+    zero_counts()
+    t0 = time.perf_counter()
+    srv.run(io.BytesIO(("\n".join(lines) + "\n").encode("utf-8")), sink)
+    sync(device)
+    return (sink.getvalue(), srv.stats, kernel_counts(),
+            time.perf_counter() - t0)
+
+
+def multi_phase(work, pred, tpred, lines, tlines, want, twant, rwant, tr,
+                prob, f_kernel, f1_eps=0.005, device=None):
+    """Phase [9]: several cards and several processes, on the one card
+    (``device``: another torch device, ``"cpu"`` for a rehearsal with the
+    plain versions, where the stage times are not taken).
+
+    (a) ``predict --dp 1`` over [4]'s lines (the [6] model file): bytes
+        equal [6]'s; ``--dp 2`` with fewer cards exits 2 naming the cards
+        present (with two or more it must give the same bytes);
+    (b) ``LeanServer`` on ``Mesh([cuda:0, cuda:0])`` over [4]'s, [4t]'s and
+        [4r]'s streams: bytes equal the unsharded runs', each dispatch two
+        blocks (two launches of each kernel);
+    (c) two processes sharing the card (gloo): ``predict --num-processes
+        2`` over [4]'s lines, the parts concatenated equal to [6]'s bytes,
+        and ``evaluate`` (char and word) over [6]'s gold lines, process 0
+        printing what one process prints, process 1 nothing; the three
+        jobs at once;
+    (d) [7]'s boundary problem (its arguments as recorded, no extraction)
+        split over two shards of the card (``train.solver.Shards``): the
+        solve through ``train.solver._fista`` (the main path: power steps,
+        ``rows`` and ``cols<PART>`` on each shard, the reduction,
+        ``update``), a second solve bitwise equal,
+        :func:`sharded_step_check`, the objective within 1e-4 relative of
+        [7]'s kernel solve and the held-out char F1 (:func:`held_out_f1`)
+        within ``f1_eps`` of the unsharded solve's; :func:`time_sharded`;
+    (e) ``train --num-processes 2`` (two processes sharing the card) on
+        [7]'s ``--part`` lines, ``--solver 5``, twice, the two runs at
+        once (each iteration an all_reduce through gloo): the ranks'
+        weight hashes equal (:func:`train_child`), only process 0 writes a
+        model, and the two runs' files byte-equal; meanwhile the same
+        ``train`` in this one process, the reference: the two-process
+        boundary weights' objective on its problem within 1e-4 relative
+        of its own (a split that solved the wrong rows misses it), with
+        the largest float and model weight differences recorded
+        (:func:`model_weight_gap`): the solve stops at ``max_iter``, and
+        sums added in another order move a weight by a few of the model's
+        quanta, as (d) shows.
+
+    Returns a dict of what each stage found."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vaporetto_tpu_torch.cli import evaluate, predict
+    from vaporetto_tpu_torch.ops import solver as ops
+    from vaporetto_tpu_torch.parallel.mesh import Mesh
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    dev = torch.device(device or "cuda:0")
+    on_card = dev.type == "cuda"
+    mdir = os.path.join(work, "multi")
+    os.makedirs(mdir, exist_ok=True)
+    model = os.path.join(work, "model.bin")
+    src = os.path.join(work, "plain.in")  # [6]'s input: [4]'s lines
+    res = {}
+
+    # (a) --dp
+    t0 = time.perf_counter()
+    out = os.path.join(mdir, "dp1.out")
+    zero_counts()
+    if predict.main(["--model", model, "--dp", "1", "--input", src,
+                     "--output", out], device=device) != 0:
+        raise AssertionError("(a) predict --dp 1 failed")
+    sync(device)
+    with open(out, "rb") as f:
+        if f.read() != want:
+            raise AssertionError("(a) predict --dp 1 bytes differ from [6]")
+    res["(a)"] = {"launches": kernel_counts()[0]}
+    err = io.StringIO()
+    cards = torch.cuda.device_count() if on_card else 0
+    with contextlib.redirect_stderr(err):
+        rc = predict.main(["--model", model, "--dp", "2", "--input", src,
+                           "--output", out], device=device)
+    if on_card and cards < 2 and (rc != 2 or f"{cards} present"
+                                  not in err.getvalue()):
+        raise AssertionError(f"(a) --dp 2 on {cards} card(s): exit {rc}, "
+                             f"{err.getvalue()[-300:]!r}")
+    if not on_card or cards >= 2:
+        with open(out, "rb") as f:
+            if rc != 0 or f.read() != want:
+                raise AssertionError("(a) predict --dp 2 bytes differ")
+    res["(a)"].update(dp2_rc=rc, dp2_says=err.getvalue().strip()
+                      .splitlines()[-1] if err.getvalue() else "",
+                      seconds=time.perf_counter() - t0)
+
+    # (b) LeanServer over a mesh naming the card twice
+    mesh = Mesh([dev, dev])
+    res["(b)"] = {}
+    for name, p, ls, wb, kw in (
+            ("[4]", pred, lines, want, {}),
+            ("[4t]", tpred, tlines, twant, {"tags": True}),
+            ("[4r]", tpred, tlines, rwant,
+             {"tags": True, "scores": True, "tag_scores": True})):
+        got, st, launches, secs = _serve_mesh(
+            p, ls, mesh, lambda raw, p=p, kw=kw: general_path(p, raw, **kw),
+            device=device, **kw)
+        if got != wb:
+            raise AssertionError(f"(b) LeanServer on {mesh} over {name}'s "
+                                 "stream differs from the unsharded run")
+        n = st["dispatches"]
+        if st["device_dispatches"] != {str(mesh.devices[0]): 2 * n} or \
+                on_card and (launches[0] < 2 * n
+                             or (kw and launches[1] < 2 * n)):
+            raise AssertionError(f"(b) {name}: {n} dispatches, "
+                                 f"{st['device_dispatches']}, launches "
+                                 f"{launches}")
+        res["(b)"][name] = {"dispatches": n, "launches": launches,
+                            "seconds": secs, "chars": sum(map(len, ls))}
+
+    # (c) two processes sharing the card: predict and evaluate (three
+    # jobs at once)
+    t0 = time.perf_counter()
+    out = os.path.join(mdir, "two.out")
+    gold = os.path.join(work, "gold.txt")
+    ev_argv = {m: ["--model", model, "--input", gold, "--metric", m]
+               for m in ("char", "word")}
+    runs, *ev_runs = run_jobs(
+        [("predict", ["--model", model, "--input", src, "--output", out])]
+        + [("evaluate", a) for a in ev_argv.values()], device=device,
+        timeout=300)
+    for r in runs:
+        if r.returncode != 0:
+            raise AssertionError(f"(c) predict process: {r.stderr[-1500:]}")
+    merged = b"".join(open(f"{out}.part{i}", "rb").read() for i in (0, 1))
+    if merged != want:
+        raise AssertionError("(c) the two processes' parts differ from [6]")
+    backend = [ln for ln in runs[1].stderr.splitlines()
+               if ln.startswith("[distributed]")]
+    ev = {}
+    for (metric, argv), runs in zip(ev_argv.items(), ev_runs):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if evaluate.main(argv, device=device) != 0:
+                raise AssertionError("(c) evaluate failed")
+        if any(r.returncode for r in runs) or runs[0].stdout != \
+                buf.getvalue() or runs[1].stdout != "":
+            raise AssertionError(f"(c) evaluate {metric}: "
+                                 f"{[r.stdout for r in runs]!r} against "
+                                 f"{buf.getvalue()!r}; "
+                                 f"{[r.stderr[-800:] for r in runs]}")
+        ev[metric] = buf.getvalue().splitlines()
+    res["(c)"] = {"bytes": len(merged), "evaluate": ev,
+                  "backend": backend[0] if backend else "",
+                  "seconds": time.perf_counter() - t0}
+
+    # (d) [7]'s boundary problem over two shards of the card
+    t0 = time.perf_counter()
+    f9 = tr["for [9]"]
+    args, kw = f9["problem args"]
+    kw = {k: v for k, v in kw.items() if k != "device"}
+    solve = tr["boundary"]["solve"]
+    t1 = time.perf_counter()
+    sh = psolver.Shards(mesh, *args, **kw)
+    sync(device)
+    build_s = time.perf_counter() - t1
+    zero_counts()
+    t1 = time.perf_counter()
+    w_sh = psolver._fista(sh, solve["eps"], solve["chunk"], solve["lip_of"])
+    sync(device)
+    solve_s = time.perf_counter() - t1
+    it = sh.read()[0]
+    launches = {"rows+cols<PART>": ops.fista_partial.launches,
+                "update": ops.fista_update.launches,
+                "power": ops.power_step.launches}
+    if on_card and (launches["update"] <= 0
+                    or launches["rows+cols<PART>"] <= 0):
+        raise AssertionError(f"(d) launches {launches}")
+    w_again = psolver._fista(sh, solve["eps"], solve["chunk"],
+                             solve["lip_of"])
+    if w_again.tobytes() != w_sh.tobytes():
+        raise AssertionError("(d) two sharded solves differ")
+    err = sharded_step_check(sh, solve["eps"])
+    f_sh = _objective(prob, w_sh)
+    if abs(f_sh - f_kernel) > 1e-4 * abs(f_kernel):
+        raise AssertionError(f"(d) sharded objective {f_sh} against {f_kernel}")
+    D = tr["boundary"]["features"]
+    (f1_one, f1_sh), gaps = held_out_f1(f9["trainer"], f9["held gold"],
+                                        [solve["w"], w_sh], D)
+    if abs(f1_sh - f1_one) > f1_eps:
+        raise AssertionError(f"(d) held-out char F1 {f1_sh} (sharded) "
+                             f"against {f1_one}")
+    timing = time_sharded(sh) if on_card else None
+    res["(d)"] = {"launches": launches, "it": it, "it one": solve["it"],
+                  "w difference": float(np.abs(w_sh - solve["w"]).max()),
+                  "solve seconds": solve_s, "build seconds": build_s,
+                  "objective": f_sh, "objective one": f_kernel,
+                  "F1": f1_sh, "F1 one": f1_one, "held gaps": gaps,
+                  "err": err, "timing": timing,
+                  "rows": [q.n for q in sh.parts],
+                  "layout bytes": [q.nbytes() for q in sh.parts],
+                  "seconds": time.perf_counter() - t0}
+    del sh
+
+    # (e) train --num-processes 2 on [7]'s --part lines, twice (both runs
+    # at once), and the one-process reference here while they run
+    t0 = time.perf_counter()
+    files, hashes = [], []
+    argv = ["--part", f9["part"], "--solver", "5"]
+    jobs = []
+    bg = threading.Thread(target=lambda: jobs.extend(run_jobs([(
+        "train", lambda i, k=k: argv + [
+            "--model", os.path.join(mdir, f"e{k}.rank{i}.bin")])
+        for k in range(2)], device=device, timeout=600)))
+    bg.start()
+    try:
+        one = os.path.join(mdir, "e.one.bin")
+        ref = train_run(argv + ["--model", one], device, keep_problem=True)
+    finally:
+        bg.join()
+    if len(jobs) != 2:
+        raise AssertionError("(e) the two-process runs did not finish")
+    for k, runs in enumerate(jobs):
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"(e) train process: {r.stderr[-2000:]}")
+        printed = [json.loads(r.stdout.strip().splitlines()[-1])
+                   for r in runs]
+        sums = [x["weights"] for x in printed]
+        if sums[0] != sums[1] or not sums[0]:
+            raise AssertionError(f"(e) the ranks' weights differ: {sums}")
+        if os.path.exists(os.path.join(mdir, f"e{k}.rank1.bin")):
+            raise AssertionError("(e) process 1 wrote a model")
+        with open(os.path.join(mdir, f"e{k}.rank0.bin"), "rb") as f:
+            files.append(f.read())
+        hashes.append(sums[0])
+        stage = [ln for ln in runs[0].stderr.splitlines()
+                 if ln.startswith("# of examples")]
+        res.setdefault("(e) stages", []).append(stage[0] if stage else "")
+    if files[0] != files[1] or hashes[0] != hashes[1]:
+        raise AssertionError("(e) two runs' model files differ")
+    rs = ref["solves"][0]
+    w_two = np.load(os.path.join(mdir, "e0.rank0.bin.w0.npy"))
+    f_one, f_two = _objective(rs["p"], rs["w"]), _objective(rs["p"], w_two)
+    if abs(f_two - f_one) > 1e-4 * abs(f_one):
+        raise AssertionError(f"(e) two-process objective {f_two} against "
+                             f"one process's {f_one}")
+    del rs["p"]
+    gap, only = model_weight_gap(os.path.join(mdir, "e0.rank0.bin"), one)
+    res["(e)"] = {"solves": len(hashes[0]), "model bytes": len(files[0]),
+                  "iterations": printed[0]["iterations"],
+                  "objective": f_two, "objective one": f_one,
+                  "it one": rs["it"],
+                  "w difference": float(np.abs(w_two - rs["w"]).max()),
+                  "w max": float(np.abs(rs["w"]).max()),
+                  "weight gap": gap, "n-grams in one model": only,
+                  "seconds": time.perf_counter() - t0}
+    return res
+
+
+def model_weight_gap(path_a, path_b):
+    """The largest difference between two model files' quantized weights
+    (the bias and every char and type n-gram's weights; an n-gram one
+    model lacks, its weights all quantized to 0, counts as zeros) and the
+    n-grams only one model holds."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.models.model import Model
+
+    a, b = Model.read(path_a), Model.read(path_b)
+    gap, only = abs(a.bias - b.bias), 0
+    for side in ("char_ngram_model", "type_ngram_model"):
+        wa = {d.ngram: np.asarray(d.weights, np.int64)
+              for d in getattr(a, side)}
+        wb = {d.ngram: np.asarray(d.weights, np.int64)
+              for d in getattr(b, side)}
+        for k in wa.keys() | wb.keys():
+            x, y = wa.get(k), wb.get(k)
+            only += x is None or y is None
+            x = np.zeros_like(y) if x is None else x
+            y = np.zeros_like(x) if y is None else y
+            gap = max(gap, int(np.max(np.abs(x - y), initial=0)))
+    return int(gap), only
+
+
+def multi_report(mr, smi, phase_s, unsharded_ms):
+    """Phase [9]'s lines; ``unsharded_ms``: [7]'s kernel iteration, for
+    comparison."""
+    a, c, d, e = mr["(a)"], mr["(c)"], mr["(d)"], mr["(e)"]
+    log(f"[9] (a) predict --dp 1 over [4]'s lines: bytes equal to [6], "
+        f"boundary launches {a['launches']}; --dp 2 on "
+        f"{'one card' if a['dp2_rc'] == 2 else 'two or more cards'}: exit "
+        f"{a['dp2_rc']} ({a['dp2_says']!r}) ({a['seconds']:.1f}s)")
+    log("[9] (b) LeanServer on Mesh([cuda:0, cuda:0]), bytes equal to the "
+        "unsharded runs: " + "; ".join(
+            f"{k}: {v['chars']} chars in {v['seconds']:.3f}s = "
+            f"{v['chars'] / v['seconds'] / 1e6:.2f} Mchar/s, {v['dispatches']}"
+            f" dispatches, launches boundary {v['launches'][0]}, tags "
+            f"{v['launches'][1]}" for k, v in mr["(b)"].items()))
+    log(f"[9] (c) two processes sharing the card ({c['backend']}): predict "
+        f"parts concatenated equal to [6] ({c['bytes']} B); evaluate char "
+        f"and word on [6]'s gold lines printed by process 0 as one process "
+        f"prints them ({c['evaluate']['char'][2]}; word "
+        f"{c['evaluate']['word'][2]}) ({c['seconds']:.1f}s)")
+    t = d["timing"]
+    s0, s1 = t["shards"]
+    log(f"[9] (d) [7]'s problem on two shards of the card (rows "
+        f"{d['rows']}, layouts {d['layout bytes']} B, built in "
+        f"{d['build seconds']:.3f}s): {d['it']} iterations (unsharded "
+        f"{d['it one']}) in {d['solve seconds']:.2f}s, launches "
+        f"{d['launches']}; a second solve bitwise equal; one iteration "
+        f"against plain max |difference| {d['err']:.3e}; objective "
+        f"{d['objective']:.6f} against {d['objective one']:.6f} unsharded "
+        f"({abs(d['objective'] - d['objective one']) / abs(d['objective one']):.2e}"
+        f" relative; weights at most {d['w difference']:.3e} from the "
+        f"unsharded solve's); held-out char F1 of the float weights on "
+        f"{d['held gaps']} gaps {d['F1']:.5f} against {d['F1 one']:.5f} "
+        f"({d['seconds']:.1f}s)")
+    log(f"[9] (d) ms per sharded iteration (CUDA events, held stream; "
+        f"{smi}): shard 0 / 1: rows {s0['rows_ms']:.4f} / "
+        f"{s1['rows_ms']:.4f}, cols<PART> {s0['cols_part_ms']:.4f} / "
+        f"{s1['cols_part_ms']:.4f}, update {s0['update_ms']:.4f} / "
+        f"{s1['update_ms']:.4f} (bound {s0['update_bound_ms']:.4f}: "
+        f"{s0['update_bound_bytes']} B, {s0['n_live']} live features; plain "
+        f"{s0['update_plain_ms']:.4f}); reduction {t['reduce_ms']:.4f} "
+        f"({t['reduce_bytes']} B); the iteration {t['ms']:.4f} against the "
+        f"unsharded {unsharded_ms:.4f} ([7]) and its bound "
+        f"{t['bound_ms']:.4f}; plain "
+        f"sums of a shard {s0['partial_plain_ms']:.4f}")
+    log(f"[9] (e) train --num-processes 2 --part (2 000 lines) --solver 5, "
+        f"twice at once, two processes a run sharing the card: {e['solves']} "
+        f"solves ({e['iterations']} iterations), the ranks' weights bitwise "
+        f"equal, process 0 alone wrote "
+        f"the model ({e['model bytes']} B), byte-equal across the runs; "
+        f"{mr['(e) stages'][0]}; against one process ({e['it one']} "
+        f"iterations): objective {e['objective']:.6f} / "
+        f"{e['objective one']:.6f}, float weights up to "
+        f"{e['w difference']:.3e} apart (largest {e['w max']:.4f}), model "
+        f"weights up to {e['weight gap']} apart, "
+        f"{e['n-grams in one model']} n-grams in one model only "
+        f"({e['seconds']:.1f}s)")
+    log(f"[9] phase seconds {phase_s:.1f}")
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, as the OS assigns it."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def child(kind: str, argv, device=None) -> int:
+    """A child process's run: ``cli.<kind>.main(argv, device)`` for
+    predict and evaluate, :func:`train_child` for train. On the CPU each
+    process takes one torch thread: processes that share the host's cores
+    otherwise spin against each other's thread pools."""
+    if device is not None and str(device).startswith("cpu"):
+        import torch
+
+        torch.set_num_threads(1)
+    if kind == "train":
+        return train_child(argv, device)
+    import importlib
+
+    return importlib.import_module(f"vaporetto_tpu_torch.cli.{kind}").main(
+        argv, device=device)
+
+
+def run_jobs(jobs, n: int = 2, device=None, timeout: float = 600):
+    """Multi-process jobs, all started together: each ``(kind, argv)`` in
+    ``jobs`` runs :func:`child` in ``n`` processes, each with
+    ``--num-processes n --process-id i --coordinator 127.0.0.1:<a free
+    port of its own job>``, from this script's directory (``argv`` a list,
+    or a function of the process index giving one). Returns, for each job,
+    its processes' ``subprocess.CompletedProcess`` in process order (a
+    process past ``timeout`` seconds is killed and raises)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    code = ("import sys, chip_smoke; sys.exit(chip_smoke.child(sys.argv[1], "
+            f"sys.argv[2:], {device!r}))")
+    res = [[None] * n for _ in jobs]
+    errors = []
+
+    def run(j, i, kind, argv, port):
+        try:
+            res[j][i] = subprocess.run(
+                [sys.executable, "-c", code, kind]
+                + list(argv(i) if callable(argv) else argv) + [
+                    "--num-processes", str(n), "--process-id", str(i),
+                    "--coordinator", f"127.0.0.1:{port}"],
+                capture_output=True, text=True, timeout=timeout, cwd=here,
+                env=env)
+        except subprocess.TimeoutExpired as e:
+            errors.append(e)
+
+    threads = []
+    for j, (kind, argv) in enumerate(jobs):
+        port = free_port()
+        threads += [threading.Thread(target=run, args=(j, i, kind, argv,
+                                                       port))
+                    for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return res
+
+
+def run_processes(kind: str, argv, n: int = 2, device=None,
+                  timeout: float = 600):
+    """One job of :func:`run_jobs`: its processes' results."""
+    return run_jobs([(kind, argv)], n, device, timeout)[0]
+
+
+def train_child(argv, device=None) -> int:
+    """``cli.train.main(argv, device)`` in a child process of a
+    multi-process run, which also prints, as its last line on stdout, a
+    JSON object {"weights": [...], "iterations": [...]}: the SHA-256 of
+    each solve's weights (``train.solver._fista``'s result) and its
+    iterations, in solve order, so that the ranks' weights can be
+    compared; and writes the first solve's weights (float64) to
+    ``{--model}.w0.npy``, for a reference's objective."""
+    import hashlib
+
+    import numpy as np
+
+    from vaporetto_tpu_torch.cli import train
+    from vaporetto_tpu_torch.train import solver
+
+    sums, its = [], []
+    real = solver._fista
+
+    def wrapper(*a, **kw):
+        w = real(*a, **kw)
+        if not sums:
+            np.save(argv[argv.index("--model") + 1] + ".w0.npy", w)
+        sums.append(hashlib.sha256(np.ascontiguousarray(w).tobytes())
+                    .hexdigest())
+        its.append(a[0].read()[0])
+        return w
+
+    solver._fista = wrapper
+    try:
+        rc = train.main(argv, device=device)
+    finally:
+        solver._fista = real
+    print(json.dumps({"weights": sums, "iterations": its}), flush=True)
+    return rc
 
 
 def sync(device=None) -> None:
@@ -2796,10 +3528,17 @@ def main(argv) -> int:
                      lines[20_000:40_000], tokens)
     prob = tr.pop("problem")
     st_ = time_solver(prob)
-    del prob
     train_report(tr, st_, smi, time.perf_counter() - t0)
     log("[7] solver ptxas by instantiation: " + ", ".join(
         f"{k} {v}" for k, v in solver_ptxas(ptxas["solver"]).items()))
+
+    # ---- 9. several cards and several processes ------------------------
+    t0 = time.perf_counter()
+    mr = multi_phase(work, pred, tpred, lines, tlines, want_bytes, twant,
+                     rwant, tr, prob,
+                     tr["boundary"]["(c)"]["objective kernel"])
+    del prob, tr["for [9]"]
+    multi_report(mr, smi, time.perf_counter() - t0, st_["ms"])
 
     # ---- 8. kernels ---------------------------------------------------
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
@@ -2867,7 +3606,7 @@ def main(argv) -> int:
         "ptxas_without_scores": ptxas_summary(ptxas["tags"], False),
         "ptxas_with_scores": ptxas_summary(ptxas["tags"], True),
         "serve_shapes": tshapes,
-    }, solver_entry(tr, st_, ptxas["solver"])]}))
+    }, solver_entry(tr, st_, ptxas["solver"], mr), update_entry(mr)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

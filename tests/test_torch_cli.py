@@ -7,8 +7,10 @@ device="cpu")`` (the kernels' plain versions) and the JAX package's
 output bytes must be equal for every single-process flag set of the
 device backend, the reference's line semantics included (CRLF, a lone CR,
 an unterminated last line, the abort point at invalid UTF-8). ``evaluate``
-must print what the JAX CLI prints. ``--profile`` writes a trace, and the
-flags the port does not serve yet exit with status 2. With ``--backend
+must print what the JAX CLI prints. ``--profile`` writes a trace; ``--dp``
+runs (over CPU entries here) and the multi-process flags fail as the JAX
+CLIs' do when incomplete (the runs themselves are in
+``test_torch_distributed.py``). With ``--backend
 host`` (or ``VAPORETTO_TPU_BACKEND=host``) both CLIs run the native host
 engine, byte-equal to the JAX CLIs with ``--backend host``, and never reach
 the boundary or tag pass of the device path.
@@ -207,25 +209,59 @@ def test_profile_writes_a_trace(model_case, tmp_path, monkeypatch):
     assert trace["traceEvents"]
 
 
-UNPORTED = [
-    (predict.main, ["--dp", "2"], "--dp"),
-    (predict.main, ["--num-processes", "2"], "--num-processes"),
+#: flag sets that failed as not ported before multi-device runs were, and
+#: what they give now: --dp over CPU entries runs (bytes as without it),
+#: on the lean path and on the general path (--no-lean, --predict-tags
+#: with wsconst G), and the multi-process flags fail with the JAX CLIs' own
+#: errors
+MULTI = [
+    (predict.main, ["--dp", "2"], 0, ""),
+    (predict.main, ["--dp", "4", "--predict-tags", "--scores"], 0, ""),
+    (predict.main, ["--dp", "4", "--no-lean", "--scores"], 0, ""),
+    (predict.main, ["--dp", "3", "--predict-tags", "--wsconst", "G"], 0,
+     ""),
+    (predict.main, ["--num-processes", "2"], 2,
+     "requires --process-id and --coordinator"),
     (predict.main, ["--num-processes", "2", "--process-id", "0",
-                    "--coordinator", "localhost:1"], "--num-processes"),
-    (evaluate.main, ["--num-processes", "4"], "--num-processes"),
+                    "--coordinator", "localhost:1", "--dp", "2"], 2,
+     "--dp cannot combine with --num-processes"),
+    (predict.main, ["--num-processes", "2", "--process-id", "0",
+                    "--coordinator", "localhost:1"], 2,
+     "--input and --output are required"),
+    (evaluate.main, ["--num-processes", "4"], 2,
+     "requires --process-id and --coordinator"),
+    (evaluate.main, ["--num-processes", "2", "--process-id", "1",
+                     "--coordinator", "localhost:1"], 2,
+     "--input is required"),
 ]
 
 
-@pytest.mark.parametrize("main,argv,says", UNPORTED,
+@pytest.mark.parametrize("main,argv,rc,says", MULTI,
                          ids=[f"{m.__module__.split('.')[-1]} {' '.join(a)}"
-                              for m, a, _ in UNPORTED])
-def test_unported_flags_exit_2(model_case, main, argv, says, monkeypatch,
-                               capsys):
-    path, _ = model_case
-    rc, out = _run(main, ["--model", path] + argv, "火星\n".encode(),
-                   monkeypatch, device="cpu")
-    assert rc == 2 and out == b""
-    assert says in capsys.readouterr().err
+                              for m, a, _, _ in MULTI])
+def test_multi_device_flags_run_or_fail_as_jax(model_case, main, argv, rc,
+                                               says, monkeypatch, capsys):
+    from vaporetto_tpu_torch.parallel.mesh import Mesh
+
+    path, tokens = model_case
+    data = ("\n".join(_lines(tokens)) + "\n").encode()
+    splits = []
+    blocks = Mesh.blocks
+    monkeypatch.setattr(Mesh, "blocks",
+                        lambda self, B: splits.append(B) or blocks(self, B))
+    try:
+        got_rc, out = _run(main, ["--model", path] + argv, data,
+                           monkeypatch, device="cpu")
+    except SystemExit as e:  # argparse's error
+        got_rc, out = e.code, b""
+    assert got_rc == rc and says in capsys.readouterr().err
+    if rc == 0:  # --dp: the batches split over CPU entries, same bytes
+        assert splits, "no batch was split over the mesh"
+        plain = [a for a in argv if a not in ("--dp", "2", "3", "4")]
+        assert out == _run(main, ["--model", path] + plain, data,
+                           monkeypatch, device="cpu")[1]
+    else:
+        assert out == b""
 
 
 @pytest.fixture

@@ -8,7 +8,9 @@ The CLIs run as programs in an interpreter where ``jax``, the JAX package
 and ``regex`` cannot be imported at all, as on the card's machine, which
 has no JAX: ``--help``, a whole CPU run of each, and ``--wsconst G``,
 which needs ``regex`` and fails with its ImportError; the model tools'
-``--help`` too, and the train CLI's ``--help`` and a whole CPU run.
+``--help`` too, and the train CLI's ``--help`` and a whole CPU run; the
+three ``parallel`` modules (a mesh's lean serving, the input pipeline, the
+sharded solve) and a two-process predict on gloo.
 """
 
 import ast
@@ -211,3 +213,98 @@ def test_train_cli_without_jax_or_regex(tmp_path):
                                            repr(str(tmp_path))))
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout, res.stdout
+
+
+#: the parallel modules on the CPU in the blocked interpreter: a mesh's
+#: lean serving, the input pipeline, the sharded solve
+PARALLEL_RUN = r"""
+import io, sys
+import vaporetto_tpu_torch as vt
+from vaporetto_tpu_torch.models.model import Model, NgramData, WordWeightRecord
+from vaporetto_tpu_torch.parallel import data, distributed, mesh
+
+m = Model([NgramData("この人", [1, -2, 3, 4]), NgramData("人だ", [-5, 6, 7, 8, 9])],
+          [NgramData(bytes([3, 3, 5]), [10, -11, 12, 13])],
+          [WordWeightRecord("人", [19, 20]), WordWeightRecord("地球", [21, -22, 23])],
+          5, 3, 3)
+p = vt.Predictor(m, device="cpu")
+out = io.BytesIO()
+vt.LeanServer(p, batch_lines=4, mesh=mesh.Mesh(["cpu"] * 2)).run(
+    io.BytesIO("この人は地球人だ\nア\n".encode()), out)
+assert out.getvalue() == "この 人 は 地球 人 だ\nア\n".encode(), out.getvalue()
+b = next(data.batched_lines(enumerate(["この人", "ア"]), 2))
+assert b.lengths.tolist() == [3, 1]
+assert data.host_shard_bounds(10, 1, 2) == (5, 10)
+mesh.train_step_dryrun(mesh.Mesh(["cpu"] * 2))
+assert distributed.process_count() == 1
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "vaporetto_tpu", "regex"))
+print("LOADED", bad)
+"""
+
+#: one process of a two-process predict on the CPU in the blocked
+#: interpreter (PID, PORT and DIR filled in)
+TWO_PROCESS_RUN = r"""
+import os, sys
+from vaporetto_tpu_torch.cli import predict
+from vaporetto_tpu_torch.models.model import Model, NgramData, WordWeightRecord
+
+d = DIR
+path = os.path.join(d, "m.bin")
+if PID == 0:
+    m = Model([NgramData("この人", [1, -2, 3, 4])], [],
+              [WordWeightRecord("地球", [21, -22, 23])], 5, 3, 3)
+    with open(path + ".tmp", "wb") as f:
+        m.write(f)
+    os.replace(path + ".tmp", path)
+    with open(os.path.join(d, "in.txt"), "wb") as f:
+        f.write("この人は地球人だ\nア\n地球\n".encode())
+    os.replace(os.path.join(d, "in.txt"), os.path.join(d, "in"))
+import time
+while not os.path.exists(os.path.join(d, "in")):
+    time.sleep(0.05)
+assert predict.main(["--model", path, "--input", os.path.join(d, "in"),
+                     "--output", os.path.join(d, "out"),
+                     "--num-processes", "2", "--process-id", str(PID),
+                     "--coordinator", f"127.0.0.1:{PORT}"], device="cpu") == 0
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "vaporetto_tpu", "regex"))
+print("LOADED", bad)
+"""
+
+
+def test_parallel_modules_without_jax_or_regex():
+    res = _blocked("-c", PARALLEL_RUN)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+def test_two_process_predict_without_jax_or_regex(tmp_path):
+    import socket
+    import threading
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    res = [None, None]
+
+    def run(pid):
+        res[pid] = _blocked("-c", TWO_PROCESS_RUN.replace(
+            "PID", str(pid)).replace("PORT", str(port)).replace(
+            "DIR", repr(str(tmp_path))))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in res:
+        assert r.returncode == 0, r.stderr
+        assert "LOADED []" in r.stdout, r.stdout
+    parts = b"".join((tmp_path / f"out.part{i}").read_bytes() for i in (0, 1))
+    from vaporetto_tpu_torch.cli import predict
+
+    assert predict.main(["--model", str(tmp_path / "m.bin"), "--input",
+                         str(tmp_path / "in"), "--output",
+                         str(tmp_path / "single")], device="cpu") == 0
+    assert parts == (tmp_path / "single").read_bytes() and b"\n" in parts

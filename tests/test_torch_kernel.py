@@ -345,3 +345,140 @@ def test_solver_state_stops_where_plain_stops_on_card():
     while p.read()[0] < p.max_iter and bool(p.state[1]):
         ops.fista_step_plain(p)
     assert len(its) == 1 and abs(its.pop() - p.read()[0]) <= 1
+
+
+def _sharded_problem(loss, l1, C, mixed=False, n=700, shards=4, seed=8):
+    """A seeded problem split over ``shards`` entries of the card (n 700
+    pads to 1024 rows: with 4 shards of 256 the last holds padding only),
+    started with its step size; ``mixed`` as :func:`_solver_problem`."""
+    from vaporetto_tpu_torch.parallel.mesh import Mesh
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    idx, val, y, labels, d = chip_smoke.solver_examples(
+        seed, n=n, k=41 if mixed else 12)
+    rng = np.random.default_rng(seed)
+    if mixed:
+        keep = np.repeat(rng.integers(1, 41, n // 32 + 1), 32)
+        for r in range(n):
+            live = int((idx[r] != 0).sum())
+            if live > keep[r]:
+                idx[r, keep[r]:], val[r, keep[r]:] = 0, 0.0
+    if C > 3:
+        labels = rng.integers(0, C, n).astype(np.int32)
+    mesh = Mesh(["cuda"] * shards)
+    n_dim, n_pad, _ = psolver._pads(n, idx.shape[1], d, mesh)
+    sh = psolver.Shards(mesh, idx, val,
+                        labels if C > 1 else y.astype(np.float32), n_pad,
+                        n_dim, loss=loss, l1=l1, cost=1.0, max_iter=300, C=C)
+    sh.start(np.float32(1.0 / (100.0 * psolver._sigma2(sh, 32) + 1.0)),
+             np.float32(0.01))
+    return sh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,l1,C,mixed", [(1, True, 1, False),
+                                             (0, False, 1, True),
+                                             (2, False, 1, False),
+                                             (3, False, 3, False),
+                                             (3, False, 11, True)])
+def test_sharded_step_matches_plain_on_card(loss, l1, C, mixed, monkeypatch):
+    """cols<PART> and update against their plain versions on four shards
+    of the card, the last of padding only (its sums all zero): one
+    iteration within rtol 1e-5 (``chip_smoke.sharded_step_check``); mixed
+    slice widths and Crammer-Singer with 11 classes (two class blocks)."""
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    monkeypatch.setattr(ops, "SEG", 8)
+    sh = _sharded_problem(loss, l1, C, mixed)
+    assert [q.n for q in sh.parts][-1] == 0 and sh.parts[-1].nnz == 0
+    assert chip_smoke.sharded_step_check(sh, np.float32(0.01)) < 1e-3
+    assert not bool(sh.parts[-1].part_g.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,l1,C", [(1, True, 1), (0, False, 1),
+                                       (3, False, 3), (3, False, 11)])
+def test_part_and_update_equal_fused_cols_on_one_shard_on_card(
+        loss, l1, C, monkeypatch):
+    """On one shard, cols<PART> then update give the fused cols' w, z and
+    state bit for bit, iteration after iteration."""
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    monkeypatch.setattr(ops, "SEG", 8)
+    idx, val, y, labels, d = chip_smoke.solver_examples(5, k=41)
+    if C > 3:
+        labels = np.random.default_rng(5).integers(0, C, len(y)).astype(
+            np.int32)
+    n_dim, n_pad, _ = psolver._pads(len(y), idx.shape[1], d)
+    kw = dict(loss=loss, l1=l1, cost=1.0, max_iter=300, C=C, device="cuda")
+    t = labels if C > 1 else y
+    p = ops.Problem(idx, val, t, n_pad, n_dim, **kw)
+    q = ops.Problem(idx, val, t, n_pad, n_dim, shard=(0, 1), **kw)
+    q.set_gsum(q.part_g)
+    step = np.float32(1.0 / (100.0 * psolver._sigma2(p, 32) + 1.0))
+    for x in (p, q):
+        x.start(step, np.float32(0.01))
+    for _ in range(12):
+        ops.fista_step(p)
+        ops.fista_partial(q)
+        ops.fista_update(q)
+        for k in ("w", "z", "state"):
+            assert torch.equal(getattr(p, k), getattr(q, k)), k
+    assert float(p.w.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", [5, 4])
+def test_sharded_solves_are_bitwise_equal_on_card(solver):
+    """Two solves split over two shards of the card give the same bits."""
+    _card()
+    from vaporetto_tpu_torch.parallel.mesh import Mesh
+    from vaporetto_tpu_torch.train import solver as psolver
+
+    idx, val, y, labels, d = chip_smoke.solver_examples(4)
+    mesh = Mesh(["cuda", "cuda"])
+    if solver == 4:
+        runs = [psolver.train_crammer_singer(idx, val, labels, 3, d, 1.0,
+                                             0.01, 200, mesh=mesh)
+                for _ in "ab"]
+    else:
+        runs = [psolver.train_binary(idx, val, y, d, 1.0, 0.01, solver, 200,
+                                     mesh=mesh) for _ in "ab"]
+    (w1, b1), (w2, b2) = runs
+    assert np.asarray(w1).tobytes() == np.asarray(w2).tobytes()
+    assert np.asarray(b1).tobytes() == np.asarray(b2).tobytes()
+    assert np.abs(w1).max() > 0
+
+
+@pytest.mark.cuda
+def test_lean_server_on_a_mesh_of_one_card_twice():
+    """LeanServer(mesh=Mesh([cuda:0, cuda:0])) writes the unsharded bytes
+    with two launches a dispatch."""
+    _card()
+    import io
+
+    from vaporetto_tpu_torch import LeanServer
+    from vaporetto_tpu_torch.parallel.mesh import Mesh
+
+    model, words = chip_smoke.small_model(3, 4)
+    pred = Predictor(model)
+    lines = chip_smoke.stream_lines(7, [w for w in words if w])[:3000]
+    blob = ("\n".join(lines) + "\n").encode()
+    outs, stats = [], []
+    for mesh in (None, Mesh(["cuda:0", "cuda:0"])):
+        sink = io.BytesIO()
+
+        def fallback(raw):
+            sink.write(chip_smoke.general_path(
+                pred, [b.decode() for b in raw]))
+
+        srv = LeanServer(pred, batch_lines=512, fallback=fallback, mesh=mesh)
+        srv.run(io.BytesIO(blob), sink)
+        outs.append(sink.getvalue())
+        stats.append(srv.stats)
+    assert outs[0] == outs[1]
+    assert stats[1]["device_dispatches"] == {
+        "cuda:0": 2 * stats[1]["dispatches"]}

@@ -36,6 +36,7 @@ from vaporetto_tpu.serving import LeanServer as JaxLeanServer
 from vaporetto_tpu_torch import LeanServer, Predictor
 from vaporetto_tpu_torch.ops.boundary import boundary
 from vaporetto_tpu_torch.ops.tags import tags
+from vaporetto_tpu_torch.parallel.mesh import Mesh
 
 from test_serving import CORPUS
 from test_torch_ops import port_compiled
@@ -403,8 +404,11 @@ def test_options_that_do_not_compose():
         LeanServer(tp, tag_scores=True)
     with pytest.raises(ValueError, match="grapheme"):
         LeanServer(tp, tags=True, scores=True, grapheme=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LeanServer(tp, mesh=object())
+    with pytest.raises(ValueError, match="divide by the mesh size"):
+        LeanServer(tp, batch_lines=510, mesh=Mesh(["cpu"] * 4))
+    with pytest.raises(ValueError, match="host engine takes no device mesh"):
+        LeanServer(Predictor(TAG_MODELS["golden"]()[0], True,
+                             backend="host"), mesh=Mesh(["cpu"] * 2))
     # everything else constructs
     for kw in ({"scores": True}, {"grapheme": True},
                {"scores": True, "grapheme": True},

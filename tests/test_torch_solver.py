@@ -18,7 +18,11 @@ state. It shows that the sums have one order (units of work visited in
 any order give the same bits), that the stopping state gives the JAX
 loop's iteration count whatever the chunk, and that one of its steps
 agrees with the plain version's; the layout tests hold the layouts
-themselves.
+themselves. For a solve split over shards it also repeats ``cols<PART>``
+(the same sums stored, no update), the shards' sums added in shard order,
+and the ``update`` kernel (a dense pass, a thread per feature and
+class): on one
+shard bitwise the fused ``cols``, on several the plain sharded step.
 """
 
 import numpy as np
@@ -251,6 +255,33 @@ def _thread_sums(x, ids, vals, pad, C, block):
     return g
 
 
+def _beta(p, state):
+    t = ops.momentum_sequence(p.max_iter)
+    return np.float32((t[state["it"]] - np.float32(1)) / t[state["it"] + 1])
+
+
+def _apply(p, k, g, w, z, beta):
+    """The kernels' update() of entry k from its sum g, in place;
+    returns |w_new - w|."""
+    g = np.float32(np.float32(p.cost) * g)
+    if not p.l1:
+        g = np.float32(g + z[k])
+    wn = np.float32(z[k] - p.step * g)
+    if p.l1:
+        wn = np.float32(np.sign(wn) * max(abs(wn) - p.step, 0))
+    d = np.float32(abs(wn - w[k]))
+    z[k] = np.float32(wn + beta * np.float32(wn - w[k]))
+    w[k] = wn
+    return d
+
+
+def _advance(p, state, dmax):
+    """The end of an iteration: it, delta and the JAX cond."""
+    it = state["it"] + 1
+    state.update(it=it, delta=dmax, active=it < p.max_iter and (
+        it < 8 or dmax > p.thr))
+
+
 class _Mirror:
     """csrc/solver.cu's rows and cols kernels on a CPU Problem's layouts:
     a thread per example over the examples' slices, a thread per short
@@ -312,13 +343,15 @@ class _Mirror:
                         c == lab)
         return dl
 
-    def cols(self, dl, state, w, z, power=False):
+    def cols(self, dl, state, w, z, power=False, part=False):
         """One cols launch: updates w, z and state in place (FISTA) or
-        returns X^T dl (power). Its units of work (a long feature's
-        segment, a warp; a slice of short features, a warp) run in layout
-        order, or shuffled when the mirror has an order seed."""
+        returns X^T dl (power) or, as ``cols<PART>``, each visited
+        feature's C sums (n_dim C, zero elsewhere). Its units of work (a
+        long feature's segment, a warp; a slice of short features, a warp)
+        run in layout order, or shuffled when the mirror has an order
+        seed."""
         p, C = self.p, (1 if power else self.C)
-        out = np.zeros(p.n_dim, np.float32)
+        out = np.zeros(p.n_dim * C, np.float32)
         units = [("seg", s) for s in range(len(self.seg_long))] + [
             ("slice", q) for q in range(len(self.short_feat))]
         if self.rng is not None:
@@ -327,24 +360,15 @@ class _Mirror:
         partial = np.zeros(len(self.seg_long) * C, np.float32)
         done = {}
         t = ops.momentum_sequence(p.max_iter)
-        beta = None if power else np.float32(
-            (t[state["it"]] - np.float32(1)) / t[state["it"] + 1])
+        beta = None if power or part else _beta(p, state)
         dmax = [np.float32(0)]
 
         def update(j, c, g):
             k = j * C + c
-            if power:
+            if power or part:
                 out[k] = g
                 return
-            g = np.float32(np.float32(p.cost) * g)
-            if not p.l1:
-                g = np.float32(g + z[k])
-            wn = np.float32(z[k] - p.step * g)
-            if p.l1:
-                wn = np.float32(np.sign(wn) * max(abs(wn) - p.step, 0))
-            dmax[0] = max(dmax[0], np.float32(abs(wn - w[k])))
-            z[k] = np.float32(wn + beta * np.float32(wn - w[k]))
-            w[k] = wn
+            dmax[0] = max(dmax[0], _apply(p, k, g, w, z, beta))
 
         for kind, u in units:
             if kind == "slice":  # a thread a feature, its entries in order
@@ -374,11 +398,22 @@ class _Mirror:
                 else:
                     g = _strided_sum(partial[(s0 + np.arange(ns)) * C + c])
                 update(j, c, g)
-        if power:
+        if power or part:
             return out
-        it = state["it"] + 1
-        state.update(it=it, delta=dmax[0], active=it < p.max_iter and (
-            it < 8 or dmax[0] > p.thr))
+        _advance(p, state, dmax[0])
+
+    def update(self, g, state, w, z):
+        """One update launch over the sums ``g`` of every shard: a thread
+        per feature and class (any order: each is updated once, the max is
+        exact), then the stopping state."""
+        p, C = self.p, self.C
+        beta = _beta(p, state)
+        dmax = np.float32(0)
+        for j in range(p.n_dim):
+            for c in range(C):
+                dmax = max(dmax, _apply(p, int(j) * C + c, g[j * C + c], w,
+                                        z, beta))
+        _advance(p, state, dmax)
 
     def solve(self, step, eps, chunk):
         p = self.p
@@ -719,3 +754,102 @@ def test_cuda_problem_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.fista_step(p)
     assert ops.fista_step.launches == before
+
+
+# ----------------------------------------------------------------------
+# the sharded step: cols<PART>, the reduction, update
+# ----------------------------------------------------------------------
+
+
+def _start_state(p, C, n_dim, seed=10):
+    """A started problem and a seeded (w, z) with 0 where no shard has an
+    entry (as in a solve), set on ``p``."""
+    rng = np.random.default_rng(seed)
+    p.start(np.float32(0.02), np.float32(0.01))
+    z0 = rng.normal(scale=0.2, size=n_dim * C).astype(np.float32)
+    w0 = rng.normal(scale=0.2, size=n_dim * C).astype(np.float32)
+    return w0, z0
+
+
+@pytest.mark.parametrize("loss,l1,C,block", [
+    (ops.L2_HINGE, False, 1, None), (ops.L2_HINGE, True, 1, None),
+    (ops.LOGISTIC, False, 1, None), (ops.CRAMMER_SINGER, False, 3, None),
+    (ops.CRAMMER_SINGER, False, 5, 2)])
+def test_mirror_part_and_update_equal_fused_cols_on_one_shard(
+        loss, l1, C, block, small_segments, monkeypatch):
+    """On one shard, cols<PART> then update give the fused cols' w, z and
+    delta bit for bit (the same sums, the same update()); the sums are
+    the plain version's X^T dl within RTOL."""
+    if block is not None:
+        monkeypatch.setattr(ops, "CLASS_BLOCK", block)
+    idx, val, y, labels, d = _examples(9, n=80, d=25, k=7)
+    n_dim, n_pad, _ = psolver._pads(len(y), idx.shape[1], d)
+    p = ops.Problem(idx, val, labels if C > 1 else y, n_pad, n_dim,
+                    loss=loss, l1=l1, cost=0.8, max_iter=50, C=C,
+                    device="cpu", shard=(0, 1))
+    p.set_gsum(p.part_g)
+    nseg = np.diff(p.long_seg.numpy())
+    assert (nseg > 1).any() and (nseg == 1).any() and p.n_short > 0
+    w0, z0 = _start_state(p, C, n_dim)
+    dead = np.repeat(p.col_count.numpy() == 0, C)
+    w0[dead] = z0[dead] = 0.0
+    st = {"it": 3, "active": True, "delta": np.float32(1.0)}
+    m = _Mirror(p)
+    dl = m.rows(z0)
+    w, z, s = w0.copy(), z0.copy(), dict(st)
+    m.cols(dl, s, w, z)
+    g = m.cols(dl, None, None, None, part=True)
+    w2, z2, s2 = w0.copy(), z0.copy(), dict(st)
+    m.update(g, s2, w2, z2)
+    assert (w.tobytes(), z.tobytes()) == (w2.tobytes(), z2.tobytes())
+    assert s == s2 and s["it"] == 4
+    p.z.copy_(torch.from_numpy(z0))
+    p.state[0], p.state[1] = 3, 1
+    ops.fista_partial_plain(p)
+    _close(g, p.part_g.numpy())
+
+
+@pytest.mark.parametrize("loss,l1,C", [(ops.L2_HINGE, False, 1),
+                                       (ops.LOGISTIC, True, 1),
+                                       (ops.CRAMMER_SINGER, False, 3)])
+def test_mirror_sharded_step_matches_plain(loss, l1, C, small_segments):
+    """Four shards of 32 rows over 70 examples (the last of padding
+    only): each shard's mirrored cols<PART> sums, added in shard order,
+    then the mirrored update, against one plain sharded iteration
+    (``Shards.fista_iteration`` on the CPU) from the same state, within
+    RTOL; every shard's state is the same after it."""
+    from vaporetto_tpu_torch.parallel.mesh import Mesh
+
+    idx, val, y, labels, d = _examples(19, n=70, d=20, k=6)
+    mesh = Mesh(["cpu"] * 4)
+    n_dim, n_pad, _ = psolver._pads(len(y), idx.shape[1], d, mesh)
+    targets = labels if C > 1 else y.astype(np.float32)
+    sh = psolver.Shards(mesh, idx, val, targets, n_pad, n_dim, loss=loss,
+                        l1=l1, cost=0.8, max_iter=50, C=C)
+    assert [q.n for q in sh.parts] == [32, 32, 6, 0]
+    sh.start(np.float32(0.02), np.float32(0.01))
+    w0, z0 = _start_state(sh.parts[0], C, n_dim)
+    dead = np.repeat(sum(q.col_count.numpy() for q in sh.parts) == 0, C)
+    w0[dead] = z0[dead] = 0.0
+    g = np.zeros(n_dim * C, np.float32)
+    for q in sh.parts:  # shard order
+        mq = _Mirror(q)
+        g = (g + mq.cols(mq.rows(z0), None, None, None, part=True)).astype(
+            np.float32)
+    assert not sh.parts[3].part_g.numpy().any()
+    w, z = w0.copy(), z0.copy()
+    st = {"it": 3, "active": True, "delta": np.float32(1.0)}
+    _Mirror(sh.parts[0]).update(g, st, w, z)
+    for q in sh.parts:
+        q.w.copy_(torch.from_numpy(w0))
+        q.z.copy_(torch.from_numpy(z0))
+        q.state[0], q.state[1] = 3, 1
+    sh.fista_iteration()
+    _close(w, sh.parts[0].w.numpy())
+    _close(z, sh.parts[0].z.numpy())
+    it, delta = sh.read()
+    assert it == st["it"] == 4
+    _close(st["delta"], delta)
+    for q in sh.parts[1:]:
+        for k in ("w", "z", "state"):
+            assert torch.equal(getattr(q, k), getattr(sh.parts[0], k))

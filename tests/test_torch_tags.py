@@ -26,6 +26,7 @@ from vaporetto_tpu.predictor import Predictor as JaxPredictor
 from vaporetto_tpu.sentence import CharacterType
 from vaporetto_tpu.sentence import Sentence as JaxSentence
 from vaporetto_tpu_torch import LeanServer, Predictor, Sentence
+from vaporetto_tpu_torch.parallel.mesh import Mesh
 from vaporetto_tpu_torch.compile import compile_model
 from vaporetto_tpu_torch.compile.tagdev import (_MAX_PROBE, _build_hash,
                                                 _hash_slots,
@@ -825,8 +826,11 @@ def test_tags_and_grapheme_do_not_compose():
     tp = Predictor(create_test_model(), True, device="cpu")
     with pytest.raises(ValueError, match="grapheme"):
         LeanServer(tp, tags=True, grapheme=True)
-    with pytest.raises(NotImplementedError):
-        LeanServer(tp, tags=True, mesh=object())
+    with pytest.raises(ValueError, match="divide by the mesh size"):
+        LeanServer(tp, tags=True, batch_lines=100, mesh=Mesh(["cpu"] * 3))
+    with pytest.raises(ValueError, match="host engine takes no device mesh"):
+        LeanServer(Predictor(create_test_model(), True, backend="host"),
+                   tags=True, mesh=Mesh(["cpu"]))
 
 
 def _rel_beyond_separator_model():

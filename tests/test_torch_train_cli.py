@@ -6,9 +6,10 @@ patched to return the same seeded weights (``test_torch_trainer.
 patch_solvers``): the port's ``cli.train.main(argv, device="cpu")`` and
 the JAX package's ``cli.train.main(argv)``. The model files must be equal
 byte for byte, with and without ``--no-norm`` (the fullwidth
-normalization of the training text). The flags the port does not serve
-yet exit with status 2, and without a card and without a device the CLI
-raises the predictor's error before reading anything.
+normalization of the training text). ``--dp`` trains over CPU entries,
+incomplete multi-process flags fail as the JAX CLI's do, and without a
+card and without a device the CLI raises the predictor's error before
+reading anything.
 """
 
 import json
@@ -85,15 +86,40 @@ def test_real_solve_on_the_cpu(corpus, capsys):
     assert "# of examples:" in err and "solve" in err and "assembly" in err
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"],
-                                   ["--num-processes", "2"]])
-def test_unported_flags_exit_2(flags, corpus, capsys):
+@pytest.mark.parametrize("flags,rc,says", [
+    (["--num-processes", "2"], 2, "requires --process-id and --coordinator"),
+    (["--num-processes", "2", "--process-id", "2", "--coordinator",
+      "localhost:1"], 2, "--process-id must be in [0, --num-processes)"),
+])
+def test_multi_process_flags_fail_as_jax(flags, rc, says, corpus, capsys):
+    """Incomplete multi-process flags fail with the JAX CLI's argparse
+    errors before any work (the runs are in test_torch_distributed.py)."""
     tmp, p = corpus
-    rc = train.main(["--tok", str(p["tok"]), "--solver", "5", "--model",
-                     str(tmp / "m.bin")] + flags, device="cpu")
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        train.main(["--tok", str(p["tok"]), "--solver", "5", "--model",
+                    str(tmp / "m.bin")] + flags, device="cpu")
+    assert e.value.code == rc
+    assert says in capsys.readouterr().err
     assert not (tmp / "m.bin").exists()
+
+
+@pytest.mark.parametrize("dp", [2, 3])
+def test_dp_trains_over_cpu_entries(dp, corpus):
+    """--dp N over N CPU entries: every solve split over them; the model
+    file comes out, with weights within 1 of the single-device model's
+    (sums in another order)."""
+    tmp, p = corpus
+    for argv, name in (([], "one.bin"), (["--dp", str(dp)], "dp.bin")):
+        assert train.main(["--tok", str(p["tok"]), "--solver", "5",
+                           "--model", str(tmp / name)] + argv,
+                          device="cpu") == 0
+    one, dp_ = (Model.read(str(tmp / n)) for n in ("one.bin", "dp.bin"))
+    assert abs(one.bias - dp_.bias) <= 1
+    a = {d.ngram: d.weights for d in one.char_ngram_model}
+    b = {d.ngram: d.weights for d in dp_.char_ngram_model}
+    assert a.keys() == b.keys()
+    for k in a:
+        assert max(abs(x - y) for x, y in zip(a[k], b[k])) <= 1, k
 
 
 def test_no_cuda_without_a_device_raises(corpus, monkeypatch):

@@ -1,10 +1,10 @@
 """Shared CLI plumbing (wsconst parsing, filter construction, the
-predictor and its engine, and the flags the port does not serve yet)."""
+predictor and its engine, the ``--dp`` mesh and the multi-process flags)."""
 
 from __future__ import annotations
 
 import sys
-from typing import List, Optional
+from typing import List
 
 from ..rules import (
     ConcatGraphemeClustersFilter,
@@ -78,29 +78,17 @@ def write_model_file(model, path: str, zstd_workers: int = 0) -> None:
         model.write(f, zstd_level=level, zstd_workers=zstd_workers)
 
 
-def unported_flag(args) -> Optional[str]:
-    """What a flag set asks for that the port does not serve yet, or
-    None: several processes, or a data-parallel mesh (``--dp`` with
-    ``--backend host`` is served: it has no effect there; the train CLI
-    has no ``--backend``)."""
-    n = getattr(args, "num_processes", None)
-    if n is not None and n > 1:
-        return ("--num-processes > 1: multi-process runs are not ported "
-                "to vaporetto_tpu_torch yet")
-    if getattr(args, "dp", 0) and getattr(args, "backend", None) != "host":
-        return ("--dp: data-parallel runs over several cards are not "
-                "ported to vaporetto_tpu_torch yet")
-    return None
+def dp_mesh(n: int, device=None):
+    """The ``--dp N`` mesh: the first N cards (an error naming the cards
+    present when there are fewer), or, for a run given the CPU
+    (``main(argv, device="cpu")``), the CPU N times."""
+    import torch
 
+    from ..parallel.mesh import Mesh, make_mesh
 
-def reject_unported(args) -> Optional[int]:
-    """2 after an error message when ``args`` asks for what the port does
-    not serve yet (:func:`unported_flag`), else None."""
-    why = unported_flag(args)
-    if why is None:
-        return None
-    print(f"error: {why}", file=sys.stderr)
-    return 2
+    if device is not None and torch.device(device).type == "cpu":
+        return Mesh([device] * n)
+    return make_mesh(n)
 
 
 def validate_multiprocess_args(parser, args) -> None:

@@ -2,9 +2,15 @@
 
 Mirrors the reference evaluate CLI (evaluate/src/main.rs): gold tokenized
 lines on stdin (or ``--input``), re-predict on (optionally normalized) raw
-text, report char-boundary P/R/F1 or Nagata word-level P/R/F1. Single
-process: ``--num-processes`` above 1 is not ported yet and exits with
-status 2. ``--backend host`` runs the native host engine.
+text, report char-boundary P/R/F1 or Nagata word-level P/R/F1.
+``--backend host`` runs the native host engine.
+
+Several processes: with ``--num-processes N --process-id I --coordinator
+HOST:PORT`` (and ``--input FILE`` instead of stdin) each process joins the
+process group, evaluates its round-robin share of the corpus, and the
+confusion or word counts are summed over the processes
+(``parallel.distributed.metric_allreduce``); process 0 prints the metrics
+of the whole corpus, those of a single-process run.
 
     python -m vaporetto_tpu_torch.cli.evaluate --model m.bin < gold.txt
 
@@ -33,7 +39,6 @@ from .common import (
     build_post_filters,
     build_predictor,
     iter_lines,
-    reject_unported,
     validate_multiprocess_args,
 )
 
@@ -53,19 +58,43 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     p.add_argument("--backend", choices=("device", "host", "auto"),
                    default="auto", help=BACKEND_HELP)
     p.add_argument("--input", default=None,
-                   help="Gold corpus file (default: stdin).")
+                   help="Gold corpus file (default: stdin; required for "
+                   "multi-process runs).")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="Multi-process coordinator address (multi-process "
-                   "runs are not ported yet).")
+                   help="torch.distributed coordinator address (process "
+                   "0's TCP store).")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="Multi-process evaluation (not ported yet: above 1 "
-                   "exits with status 2).")
+                   help="Multi-process evaluation: each process takes a "
+                   "round-robin share of the lines; process 0 prints.")
     p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
-    rc = reject_unported(args)
-    if rc is not None:
-        return rc
     validate_multiprocess_args(p, args)
+
+    distributed = args.num_processes is not None and args.num_processes > 1
+    if not distributed:
+        return _evaluate(args, device)
+    from ..parallel import distributed as dist
+
+    if args.input is None:
+        p.error("--input is required for multi-process evaluation")
+    from ..utils.routing import resolve_backend
+
+    host = resolve_backend(args.backend) == "host"
+    # the host engine needs no card: its processes meet on the CPU
+    dist.initialize(args.coordinator, args.num_processes, args.process_id,
+                    device="cpu" if host and device is None else device)
+    try:
+        if device is None and not host:
+            device = dist.process_device()
+        return _evaluate(args, device, dist)
+    finally:
+        dist.finalize()
+
+
+def _evaluate(args, device, dist=None) -> int:
+    """The evaluation; ``dist``: the ``parallel.distributed`` module of a
+    multi-process run (this process's share, the counts summed, process
+    0 printing)."""
 
     fullwidth = KyteaFullwidthFilter()
     post_filters = build_post_filters(args.wsconst)
@@ -119,7 +148,12 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         else:
             yield from iter_lines(sys.stdin)
 
-    for line in line_stream():
+    lines = line_stream()
+    if dist is not None:
+        pid, count = dist.process_index(), dist.process_count()
+        lines = (ln for i, ln in enumerate(lines) if i % count == pid)
+
+    for line in lines:
         if not line:
             continue
         s = Sentence.from_tokenized(line)
@@ -135,6 +169,17 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             flush()
     flush()
 
+    if dist is not None:
+        keys = ("tp", "tn", "fp", "fn") if args.metric == "char" else (
+            "n_sys", "n_ref", "n_cor")
+        total = dist.metric_allreduce(dict(zip(
+            keys, ccounts if args.metric == "char" else counts)))
+        if args.metric == "char":
+            ccounts = [total[k] for k in keys]
+        else:
+            counts = [total[k] for k in keys]
+        if dist.process_index() != 0:
+            return 0
     if args.metric == "char":
         m = char_metric_from_counts(*ccounts)
         print(f"Precision: {m.precision}")

@@ -14,14 +14,22 @@ the lean path cannot represent go to the general path in order. With
 ``--backend host`` (or ``VAPORETTO_TPU_BACKEND=host`` under ``auto``) the
 native host engine serves plain boundaries, ``--scores`` and
 ``--predict-tags`` on the lean path and everything else on the general
-path. Output is byte-identical either way. ``--dp`` and
-``--num-processes`` above 1 are not ported yet: they exit with status 2
-(``--dp`` with ``--backend host`` has no effect and is ignored).
+path. Output is byte-identical either way.
+
+``--dp N`` splits each lean batch over the first N cards (an error, exit
+status 2, when fewer are present; ignored with ``--backend host``), on
+the lean path and the general path alike. ``--num-processes N --process-id I --coordinator
+HOST:PORT`` runs N processes over one ``--input``: each takes a
+contiguous block of the lines and writes ``{--output}.partI``, so the
+parts concatenated in process order are the single-process output
+(``parallel/distributed.py`` gives the backend rule and each process's
+card).
 
     python -m vaporetto_tpu_torch.cli.predict --model m.bin < in.txt
 
 ``main(argv, device=...)`` runs on another torch device (``"cpu"``: the
-kernels' plain versions); the command line always runs on the card.
+kernels' plain versions, and ``--dp N`` a mesh of N CPU entries); the
+command line always runs on the card.
 """
 
 from __future__ import annotations
@@ -40,8 +48,8 @@ from .common import (
     WSCONST_HELP,
     build_post_filters,
     build_predictor,
+    dp_mesh,
     iter_lines,
-    reject_unported,
     validate_multiprocess_args,
 )
 
@@ -74,40 +82,63 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                    "general Sentence path is then used for all flag "
                    "combinations.")
     p.add_argument("--dp", type=int, default=0, metavar="N",
-                   help="Data-parallel serving over N cards (not ported "
-                   "yet: exits with status 2; ignored with --backend "
-                   "host).")
+                   help="Data-parallel serving: split each batch over the "
+                   "first N cards (model tables copied to each card, no "
+                   "collectives; ignored with --backend host).")
     p.add_argument("--input", default=None,
-                   help="Input corpus file (default: stdin).")
+                   help="Input corpus file (default: stdin; required for "
+                   "multi-process runs).")
     p.add_argument("--output", default=None,
-                   help="Output path (default: stdout).")
+                   help="Output path (default: stdout); multi-process runs "
+                   "write OUTPUT.partN per process (cat in order restores "
+                   "the corpus order).")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="Multi-process coordinator address (multi-process "
-                   "runs are not ported yet).")
+                   help="torch.distributed coordinator address (process "
+                   "0's TCP store).")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="Multi-process predict (not ported yet: above 1 "
-                   "exits with status 2).")
+                   help="Multi-process predict: each process handles a "
+                   "contiguous block of the input lines.")
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="Capture a torch.profiler trace of the run into "
                    "DIR/trace.json (Chrome trace format).")
     args = p.parse_args(argv)
-    rc = reject_unported(args)
-    if rc is not None:
-        return rc
     validate_multiprocess_args(p, args)
 
     if args.profile:
         from ..utils.observe import trace
 
         with trace(args.profile):
-            return _run(args, device)
+            return _dispatch_modes(args, device)
+    return _dispatch_modes(args, device)
+
+
+def _dispatch_modes(args, device) -> int:
+    if args.num_processes is not None and args.num_processes > 1:
+        if args.dp:
+            print("error: --dp cannot combine with --num-processes "
+                  "(each process already takes its own card)",
+                  file=sys.stderr)
+            return 2
+        return _run_dist(args, device)
     return _run(args, device)
 
 
 def _run(args, device) -> int:
+    from ..utils.routing import resolve_backend
+
     pre_filter = KyteaFullwidthFilter()
     post_filters = build_post_filters(args.wsconst)
+    mesh = None
+    if args.dp and resolve_backend(args.backend) == "host":
+        print("warning: --dp has no effect with --backend host; ignored",
+              file=sys.stderr)
+    elif args.dp:
+        try:
+            mesh = dp_mesh(args.dp, device)
+        except ValueError as e:
+            print(f"error: --dp {args.dp}: {e}", file=sys.stderr)
+            return 2
 
     print("Loading model file...", file=sys.stderr)
     model = Model.read(args.model)
@@ -116,37 +147,40 @@ def _run(args, device) -> int:
     try:
         predictor = build_predictor(
             model, args.predict_tags, args.backend, device=device)
-        if args.dp:  # only --backend host lets --dp through
-            print("warning: --dp has no effect with --backend host; "
-                  "ignored", file=sys.stderr)
         args.backend = predictor.backend  # the engine the lean path takes
         if args.tag_scores:
             predictor.store_tag_scores(True)
-        return _tokenize(args, predictor, pre_filter, post_filters, in_b)
+        return _tokenize(args, predictor, pre_filter, post_filters, in_b,
+                         mesh)
     finally:
         if in_b is not None:
             in_b.close()
 
 
-def _tokenize(args, predictor, pre_filter, post_filters, in_b) -> int:
+def _lean_ok(args, predictor) -> bool:
+    """Whether this flag set and predictor take the lean path."""
+    from ..serving import lean_path_supported, lean_tags_supported
+
+    return (not args.no_lean and lean_path_supported(args)
+            and (not args.predict_tags or lean_tags_supported(predictor)))
+
+
+def _tokenize(args, predictor, pre_filter, post_filters, in_b,
+              mesh=None) -> int:
     print("Start tokenization", file=sys.stderr)
     out = open(args.output, "wb") if args.output else sys.stdout.buffer
     start = time.perf_counter()
+    # the general path's batches (and the lean path's fallback lines)
+    # split over the --dp mesh as the lean batches do
+    predictor.mesh = mesh
 
-    from ..serving import lean_path_supported, lean_tags_supported
-
-    if (
-        not args.no_lean
-        and lean_path_supported(args)
-        and (not args.predict_tags or lean_tags_supported(predictor))
-    ):
-        rc = _run_lean(args, predictor, in_b, out)
+    if _lean_ok(args, predictor):
+        rc = _run_lean(args, predictor, in_b, out, mesh)
         if args.output:
             out.close()
         print(f"Elapsed: {time.perf_counter() - start} [sec]",
               file=sys.stderr)
         return rc
-
     def flush_batch(lines: List[str]) -> None:
         sentences: List[Optional[Sentence]] = []
         for line in lines:
@@ -187,7 +221,7 @@ def _tokenize(args, predictor, pre_filter, post_filters, in_b) -> int:
     return 0
 
 
-def _run_lean(args, predictor, infile=None, out_b=None) -> int:
+def _run_lean(args, predictor, infile=None, out_b=None, mesh=None) -> int:
     """The lean serving path: native tensorize (+ fused normalization) ->
     the CUDA kernels (wsconst fused; tag pass, gap scores or tag scores
     when asked) -> native byte-level writers against the original input
@@ -195,6 +229,7 @@ def _run_lean(args, predictor, infile=None, out_b=None) -> int:
     byte-identical to the general path for every flag set
     lean_path_supported accepts; lines it cannot represent (astral chars,
     over-long lines, invalid UTF-8) go to the general path in order.
+    ``mesh``: the ``--dp`` mesh each batch is split over.
     """
     from ..serving import LeanServer
     from .common import _WSCONST_MAP
@@ -247,6 +282,7 @@ def _run_lean(args, predictor, infile=None, out_b=None) -> int:
         normalize=not args.no_norm,
         batch_lines=args.batch_size or 8192,
         fallback=fallback,
+        mesh=mesh,
         tags=args.predict_tags,
         scores=args.scores,
         grapheme="G" in args.wsconst,
@@ -294,6 +330,59 @@ def _emit_outputs(args, line: str, s: Optional[Sentence], out_b) -> None:
                 )
             out_b.write(b"\n")
         out_b.write(b"\n")
+
+
+def _run_dist(args, device) -> int:
+    """Multi-process predict: join the process group, take a CONTIGUOUS
+    block of the input's lines (``parallel.data.host_shard_bounds``), and
+    tokenize it as one process tokenizes its input (:func:`_tokenize`)
+    into ``{output}.part{process_id}``. A block starts at a line boundary
+    and every block but the last ends with ``\\n``, so the parts
+    concatenated in process order are the corpus's output."""
+    import numpy as np
+
+    from ..parallel import distributed
+    from ..parallel.data import host_shard_bounds
+
+    if args.input is None or args.output is None:
+        print("error: --input and --output are required with "
+              "--num-processes", file=sys.stderr)
+        return 2
+    from ..utils.routing import resolve_backend
+
+    host = resolve_backend(args.backend) == "host"
+    # the host engine needs no card: its processes meet on the CPU
+    distributed.initialize(args.coordinator, args.num_processes,
+                           args.process_id,
+                           device="cpu" if host and device is None
+                           else device)
+    try:
+        pid = distributed.process_index()
+        if device is None and not host:
+            device = distributed.process_device()
+
+        print("Loading model file...", file=sys.stderr)
+        model = Model.read(args.model)
+        predictor = build_predictor(model, args.predict_tags, args.backend,
+                                    device=device)
+        args.backend = predictor.backend
+        if args.tag_scores:
+            predictor.store_tag_scores(True)
+
+        with open(args.input, "rb") as f:
+            data = f.read()
+        blob = np.frombuffer(data, dtype=np.uint8)
+        starts = np.concatenate(([0], np.flatnonzero(blob == 0x0A) + 1))
+        if len(data) and not data.endswith(b"\n"):
+            starts = np.concatenate((starts, [len(data)]))
+        lo, hi = host_shard_bounds(len(starts) - 1)
+        shard = data[starts[lo]:starts[hi]]
+        args.output = f"{args.output}.part{pid}"
+        return _tokenize(args, predictor, KyteaFullwidthFilter(),
+                         build_post_filters(args.wsconst),
+                         io.BytesIO(shard))
+    finally:
+        distributed.finalize()
 
 
 if __name__ == "__main__":

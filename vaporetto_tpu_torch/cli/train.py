@@ -10,9 +10,13 @@ boundaries/tags (main.rs:92-101), trains, and writes a zstd-19 model
         --model m.bin
 
 The solves run on the card (``csrc/solver.cu``); ``main(argv,
-device="cpu")`` runs their plain version on the CPU. Single process:
-``--dp`` and ``--num-processes`` above 1 are not ported yet and exit with
-status 2.
+device="cpu")`` runs their plain version on the CPU. ``--dp N`` splits
+every solve's example rows over the first N cards (``train/solver.py``:
+the gradient sums are added between the kernels; with ``device="cpu"``, N
+CPU entries). ``--num-processes N --process-id I --coordinator HOST:PORT``
+runs N processes: each reads and extracts the whole corpus, keeps its
+block of every solve's rows on its card, the sums are reduced over the
+processes, and process 0 alone writes the model.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ..predictor import _resolve_device
 from ..rules import KyteaFullwidthFilter
 from ..sentence import Sentence
 from ..train.trainer import SolverType, Trainer
-from .common import (iter_lines, reject_unported, validate_multiprocess_args,
+from .common import (dp_mesh, iter_lines, validate_multiprocess_args,
                      write_model_file)
 
 
@@ -69,25 +73,53 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                    help="The number of zstd workers (multithreaded "
                    "compression; 0 = single-threaded).")
     p.add_argument("--dp", type=int, default=0, metavar="N",
-                   help="Data-parallel training over N cards (not ported "
-                   "yet: exits with status 2).")
+                   help="Split each solve's example matrix over an N-card "
+                   "data-parallel mesh (0 = one card); the gradient sums "
+                   "are added between the kernels.")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="Multi-process coordinator address (multi-process "
-                   "runs are not ported yet).")
+                   help="torch.distributed coordinator address (process "
+                   "0's TCP store).")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="Multi-process training (not ported yet: above 1 "
-                   "exits with status 2).")
+                   help="Multi-process training: every process loads the "
+                   "same corpus files and extracts the same features, "
+                   "keeps its block of the examples, and the gradient "
+                   "sums are reduced over the processes; process 0 writes "
+                   "the model.")
     p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
 
     if not args.tok and not args.part:
         p.error("at least one of --tok / --part is required")
-    rc = reject_unported(args)
-    if rc is not None:
-        return rc
     validate_multiprocess_args(p, args)
-    # no card and no device given: the predictor's error, before any work
-    device = _resolve_device(device)
+    distributed = args.num_processes is not None and args.num_processes > 1
+    if not distributed:
+        return _train(args, device)
+    from ..parallel import distributed as dist
+
+    dist.initialize(args.coordinator, args.num_processes, args.process_id,
+                    device=device)
+    try:
+        return _train(args, device, dist)
+    finally:
+        dist.finalize()
+
+
+def _train(args, device, dist=None) -> int:
+    """The run; ``dist``: the ``parallel.distributed`` module of a
+    multi-process run."""
+    mesh = None
+    if dist is not None:
+        mesh = dist.global_mesh()
+    elif args.dp:
+        try:
+            mesh = dp_mesh(args.dp, device)
+        except ValueError as e:
+            print(f"error: --dp {args.dp}: {e}", file=sys.stderr)
+            return 2
+    else:
+        # no card and no device given: the predictor's error, before any
+        # work
+        device = _resolve_device(device)
 
     fullwidth = KyteaFullwidthFilter()
 
@@ -135,7 +167,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     print(f"# of features: {trainer.n_features()}", file=sys.stderr)
 
     print("Start training...", file=sys.stderr)
-    model = trainer.train(args.eps, args.cost, args.solver, device=device)
+    model = trainer.train(args.eps, args.cost, args.solver, device=device,
+                          mesh=mesh)
     print("Finish training.", file=sys.stderr)
     st = trainer.stats
     print(f"# of examples: {st['examples']} (width {st['width']}); "
@@ -143,6 +176,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
           f"solve {st['solve_s']:.3f}, tags {st['tags_s']:.3f}, assembly "
           f"{st['assembly_s']:.3f}", file=sys.stderr)
 
+    if dist is not None and dist.process_index() != 0:
+        return 0  # the weights are the same on every process: one writer
     write_model_file(model, args.model, zstd_workers=args.zstd_workers)
     return 0
 

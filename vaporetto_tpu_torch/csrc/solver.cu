@@ -29,8 +29,24 @@
 //          finishes a feature's last segment adds its segment sums in
 //          segment order and applies the update. SHORT and SEG are the
 //          host's (ops/solver.py), as are the layouts.
+// A solve whose examples are split over several shards (a mesh, or
+// several processes; train/solver.py) needs every shard's sums before any
+// update, so its iteration is three launches a shard and a reduction:
+//   rows        - as above, over the shard's examples;
+//   cols<PART>  - the same sums in the same orders, each visited feature's
+//                 (C of them for Crammer-Singer) stored into a dense
+//                 n_dim C buffer (out) in place of the update: no point
+//                 loaded, no delta, no state;
+//   (the host adds the shards' buffers in a fixed order, the same on
+//    every rank, into g)
+//   update      - a dense pass, a thread per (feature, class) strided
+//                 over the grid: the same update() of g, then the delta
+//                 and the stopping state exactly as cols ends an
+//                 iteration, so every shard and rank runs the same
+//                 iterations with no collective for the stop.
 // Features with no entry keep w = z = 0 (their gradient is z, starting
-// at 0), so they are not visited; slot 0 (padding) has no entry. Padded
+// at 0), so cols does not visit them; slot 0 (padding) has no entry. The
+// dense update leaves them at +0 with a delta of 0, the same bits. Padded
 // examples (rows n..N-1, which the JAX package masks out) are in no slice:
 // rows writes no dl for them and no feature's entries name them.
 //
@@ -136,6 +152,8 @@ struct VtSolverArgs {
   float* out;                // (n_dim,) power mode: X^T r
   int32_t* state;            // (8,) it, active, delta, delta acc, ticket
   const float* tseq;         // (max_iter + 1,) t_0 = 1, t_k+1 of t_k
+  const float* g;            // (n_dim * C,) update: the sums of every
+                             // shard, feature-major
   int64_t n, n_dim, C;       // n: the examples (rows n..N-1 are padding)
   int64_t n_row_slices, n_col_slices, n_seg;
   int64_t seg_len;           // SEG: segment q of long feature L holds
@@ -144,6 +162,7 @@ struct VtSolverArgs {
                              // a warp, the others stride over the short
                              // features' slices, a warp a slice
   int64_t power;             // 1: rows writes X x, cols writes X^T dl
+  int64_t part;              // 1: cols<PART> (writes its sums into out)
   int64_t loss;              // 0 logistic, 1 squared hinge, 2 smoothed
                              // hinge, 3 Crammer-Singer
   int64_t l1, max_iter;
@@ -286,28 +305,30 @@ __global__ void __launch_bounds__(WARPS * 32) rows_kernel(const Args a) {
   if (r < a.n) cs_softmax(m, d, C, a.labels[r], mu);
 }
 
-// w and z of feature j, class c (FISTA; unread in power mode), loaded
-// before the feature's sum is known.
+// w and z of feature j, class c (FISTA; unread in power mode and by
+// cols<PART>), loaded before the feature's sum is known.
 struct Point {
   float z, w;
 };
 
+template <bool PART>
 __device__ __forceinline__ Point point(const Args& a, int j, int c, int C) {
-  if (a.power || j < 0) return {0.0f, 0.0f};
+  if (PART || a.power || j < 0) return {0.0f, 0.0f};
   const int64_t k = static_cast<int64_t>(j) * C + c;
   return {a.z[k], a.w[k]};
 }
 
 // The update of feature j, class c, from its sum g of val * dl (or, in
-// power mode, the sum itself as X^T r) and its loaded point; dmax keeps
-// the bits of the largest |w_new - w| (non-negative, so the bits order as
-// the values).
+// power mode and in cols<PART>, the sum itself stored into out) and its
+// loaded point; dmax keeps the bits of the largest |w_new - w|
+// (non-negative, so the bits order as the values).
+template <bool PART>
 __device__ __forceinline__ void update(const Args& a, int j, int c, int C,
                                        float g, Point p, float cost,
                                        float step, float beta,
                                        unsigned& dmax) {
   const int64_t k = static_cast<int64_t>(j) * C + c;
-  if (a.power) {
+  if (PART || a.power) {
     a.out[k] = g;
     return;
   }
@@ -329,7 +350,7 @@ struct Step {
 // A warp per segment of a long feature: lanes add strided entries, the
 // butterfly combines them; the warp that finishes the feature's last
 // segment adds the segment sums in order and updates it.
-template <int NB>
+template <int NB, bool PART>
 __device__ void segment(const Args& a, int64_t s, int lane, int C,
                         const Step& t, unsigned& dmax) {
   const int L = a.seg_long[s];
@@ -357,8 +378,8 @@ __device__ void segment(const Args& a, int64_t s, int lane, int C,
       if (ns > 1) {
         if (lane == 0) a.partial[s * C + c0 + i] = g[i];
       } else if (lane == ((c0 + i) & 31)) {
-        update(a, j, c0 + i, C, g[i], point(a, j, c0 + i, C), t.cost,
-               t.step, t.beta, dmax);
+        update<PART>(a, j, c0 + i, C, g[i], point<PART>(a, j, c0 + i, C),
+                     t.cost, t.step, t.beta, dmax);
       }
     }
   }
@@ -377,14 +398,15 @@ __device__ void segment(const Args& a, int64_t s, int lane, int C,
       h += __ldcg(&a.partial[static_cast<int64_t>(q) * C + c]);
     h = warp_sum(h);
     if (lane == (c & 31))
-      update(a, j, c, C, h, point(a, j, c, C), t.cost, t.step, t.beta, dmax);
+      update<PART>(a, j, c, C, h, point<PART>(a, j, c, C), t.cost, t.step,
+                   t.beta, dmax);
   }
 }
 
 // A warp per slice of 32 short features, a thread per feature: its
 // entries in ascending example order. Its w and z are loaded first, so
 // they arrive with the entries, not after the sum.
-template <int NB>
+template <int NB, bool PART>
 __device__ void short_slice(const Args& a, int64_t q, int lane, int C,
                             const Step& t, unsigned& dmax) {
   const int j = a.short_feat[q * SLICE + lane];
@@ -397,7 +419,7 @@ __device__ void short_slice(const Args& a, int64_t q, int lane, int C,
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       g[i] = 0.0f;
-      pt[i] = point(a, i < nc ? j : -1, c0 + i, C);
+      pt[i] = point<PART>(a, i < nc ? j : -1, c0 + i, C);
     }
     gather_sums<NB, (NB == 1 ? UNROLL : CS_UNROLL)>(a.dl, ent, width, SLICE,
                                                     C, c0, nc, -1, g);
@@ -405,38 +427,19 @@ __device__ void short_slice(const Args& a, int64_t q, int lane, int C,
 #pragma unroll
     for (int i = 0; i < NB; ++i)
       if (i < nc)
-        update(a, j, c0 + i, C, g[i], pt[i], t.cost, t.step, t.beta, dmax);
+        update<PART>(a, j, c0 + i, C, g[i], pt[i], t.cost, t.step, t.beta,
+                     dmax);
   }
 }
 
-template <bool CS>
-__global__ void __launch_bounds__(WARPS * 32) cols_kernel(const Args a) {
-  const bool fista = !a.power;
-  if (fista && !a.state[1]) return;
+// The end of an iteration's last launch (cols, or update in a sharded
+// solve): the block's largest |w_new - w| into the state's accumulator;
+// the last block to finish stores delta, advances it and sets active to
+// the JAX loop's cond. Every thread of the block calls it.
+__device__ __forceinline__ void finish_iteration(const Args& a,
+                                                 unsigned dmax) {
   __shared__ unsigned block_delta[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int C = CS ? static_cast<int>(a.C) : 1;
-  Step t{static_cast<float>(a.cost), static_cast<float>(a.step), 0.0f};
-  if (fista) {
-    const int it = a.state[0];
-    t.beta = (a.tseq[it] - 1.0f) / a.tseq[it + 1];
-  }
-  constexpr int NB = CS ? CLASS_BLOCK : 1;
-  unsigned dmax = 0;
-  if (blockIdx.x < a.seg_blocks) {
-    const int64_t s = static_cast<int64_t>(blockIdx.x) * WARPS + warp;
-    if (s < a.n_seg) segment<NB>(a, s, lane, C, t, dmax);
-  } else {
-    // persistent warps over the slices of short features, the widest (the
-    // last) first: a slice is little work, a block's end costs atomics
-    const int64_t stride =
-        (static_cast<int64_t>(gridDim.x) - a.seg_blocks) * WARPS;
-    for (int64_t u =
-             (static_cast<int64_t>(blockIdx.x) - a.seg_blocks) * WARPS + warp;
-         u < a.n_col_slices; u += stride)
-      short_slice<NB>(a, a.n_col_slices - 1 - u, lane, C, t, dmax);
-  }
-  if (!fista) return;
   dmax = __reduce_max_sync(FULL, dmax);
   if (lane == 0) block_delta[warp] = dmax;
   __syncthreads();
@@ -456,6 +459,60 @@ __global__ void __launch_bounds__(WARPS * 32) cols_kernel(const Args a) {
   a.state[1] =
       it < a.max_iter && (it < 8 || delta > static_cast<float>(a.thr));
   st[4] = 0u;
+}
+
+template <bool CS, bool PART>
+__global__ void __launch_bounds__(WARPS * 32) cols_kernel(const Args a) {
+  const bool fista = !a.power;
+  if (fista && !a.state[1]) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int C = CS ? static_cast<int>(a.C) : 1;
+  Step t{static_cast<float>(a.cost), static_cast<float>(a.step), 0.0f};
+  if (fista) {
+    const int it = a.state[0];
+    t.beta = (a.tseq[it] - 1.0f) / a.tseq[it + 1];
+  }
+  constexpr int NB = CS ? CLASS_BLOCK : 1;
+  unsigned dmax = 0;
+  if (blockIdx.x < a.seg_blocks) {
+    const int64_t s = static_cast<int64_t>(blockIdx.x) * WARPS + warp;
+    if (s < a.n_seg) segment<NB, PART>(a, s, lane, C, t, dmax);
+  } else {
+    // persistent warps over the slices of short features, the widest (the
+    // last) first: a slice is little work, a block's end costs atomics
+    const int64_t stride =
+        (static_cast<int64_t>(gridDim.x) - a.seg_blocks) * WARPS;
+    for (int64_t u =
+             (static_cast<int64_t>(blockIdx.x) - a.seg_blocks) * WARPS + warp;
+         u < a.n_col_slices; u += stride)
+      short_slice<NB, PART>(a, a.n_col_slices - 1 - u, lane, C, t, dmax);
+  }
+  if (!fista || PART) return;
+  finish_iteration(a, dmax);
+}
+
+// A sharded solve's update: a thread per (feature, class), strided over
+// the grid, g the sums of every shard. The same update() as cols applies
+// (the order of the features does not matter: each is updated once, and
+// the max is exact in any order), then the iteration's end. A feature
+// with no entry on any shard has g = w = z = 0 and stays so.
+__global__ void __launch_bounds__(WARPS * 32) update_kernel(const Args a) {
+  if (!a.state[1]) return;
+  const int C = static_cast<int>(a.C);
+  const int it = a.state[0];
+  const float beta = (a.tseq[it] - 1.0f) / a.tseq[it + 1];
+  const float cost = static_cast<float>(a.cost);
+  const float step = static_cast<float>(a.step);
+  unsigned dmax = 0;
+  const int64_t total = a.n_dim * C;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       k < total; k += stride)
+    update<false>(a, static_cast<int>(k / C), static_cast<int>(k % C), C,
+                  __ldcs(a.g + k), Point{a.z[k], a.w[k]}, cost, step, beta,
+                  dmax);
+  finish_iteration(a, dmax);
 }
 
 int launch(const void* kern, const Args* a, int blocks, void* stream,
@@ -492,10 +549,21 @@ int vt_solver_rows(const VtSolverArgs* a, int blocks, void* stream,
 
 int vt_solver_cols(const VtSolverArgs* a, int blocks, void* stream,
                    int device) {
-  const void* k = crammer_singer(a)
-                      ? reinterpret_cast<const void*>(cols_kernel<true>)
-                      : reinterpret_cast<const void*>(cols_kernel<false>);
+  const bool cs = crammer_singer(a), part = a->part != 0;
+  const void* k =
+      cs ? (part ? reinterpret_cast<const void*>(cols_kernel<true, true>)
+                 : reinterpret_cast<const void*>(cols_kernel<true, false>))
+         : (part ? reinterpret_cast<const void*>(cols_kernel<false, true>)
+                 : reinterpret_cast<const void*>(cols_kernel<false, false>));
   return launch(k, a, blocks, stream, device);
+}
+
+// update: any number of blocks (the grid strides over the features'
+// classes).
+int vt_solver_update(const VtSolverArgs* a, int blocks, void* stream,
+                     int device) {
+  return launch(reinterpret_cast<const void*>(update_kernel), a, blocks,
+                stream, device);
 }
 
 int vt_solver_warps() { return WARPS; }

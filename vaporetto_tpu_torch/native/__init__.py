@@ -4,7 +4,8 @@ The library is built from the sources beside this file with ``g++`` at
 first use (see :mod:`vaporetto_tpu_torch._build`); a failed build raises.
 It holds the one-call matcher compiler (``compile_matcher.cc`` over
 ``trie_builder.cc``), the lean serving path's host stages
-(``tensorizer.cc``): the uint16 tensorizers, the newline and char
+(``tensorizer.cc``): the uint16 tensorizers (and the general path's int32
+one, for ``parallel.data``), the newline and char
 counters, the byte, bit-packed, scores and tag-aware detokenizers (the
 last two with the ``--scores`` / ``--tag-scores`` blocks), and the batched
 tag scorer of the general tag path (``tag_scorer.cc``), the native
@@ -89,6 +90,11 @@ def _load() -> ctypes.CDLL:
                 PI32P, PI32P, I64P,  # w8, off, n_rows
                 I32P, I32P,  # max_chunks, max_len
                 PI32P, PI32P, PI32P, PI32P, PI64P, I64P,  # tag entries
+            ]
+            lib.vt_tensorize.restype = ctypes.c_int
+            lib.vt_tensorize.argtypes = [
+                U8P, I64P, ctypes.c_int64, ctypes.c_int32,
+                I32P, U8P, I32P,  # cps, types, lengths
             ]
             lib.vt_tensorize16.restype = ctypes.c_int
             lib.vt_tensorize16.argtypes = [
@@ -404,6 +410,31 @@ def compile_matcher_native(
         nw = int(res["tag_woffs"][-1])
         res["tag_wflat"] = take(tag_ptrs[3], (max(nw, 1),))[:nw]
     return res
+
+
+def tensorize_native(
+    lines: Sequence[bytes], L: int
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The general path's decoder (``parallel.data.batched_lines``): UTF-8
+    lines to (int32 codepoints (n, L), uint8 char types (n, L), int32
+    lengths (n,)), 0-padded, lines clipped at L; None on invalid UTF-8."""
+    lib = _load()
+    n = len(lines)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in lines], out=offsets[1:])
+    buf = np.frombuffer(b"".join(lines), dtype=np.uint8)
+    cps = np.zeros((n, L), dtype=np.int32)
+    types = np.zeros((n, L), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    rc = lib.vt_tensorize(
+        _buf(buf).ctypes.data_as(U8P),
+        offsets.ctypes.data_as(I64P), n, L,
+        cps.ctypes.data_as(I32P), types.ctypes.data_as(U8P),
+        lengths.ctypes.data_as(I32P),
+    )
+    if rc != 0:
+        return None
+    return cps, types, lengths
 
 
 def tensorize16_native(

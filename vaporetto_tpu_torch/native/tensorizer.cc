@@ -26,6 +26,62 @@ extern "C" {
 // ABI version marker: vt_tensorize16* carry the uint8 types output.
 int vt_abi_version() { return 5; }
 
+// The general path's int32 tensorizer (parallel/data.py batched_lines):
+// decode n_lines UTF-8 lines (byte ranges given by line_offsets, length
+// n_lines+1) into row-major (n_lines, L) codepoints (int32, 0-padded) and
+// char types (uint8, 0-padded); lengths receives the char count per line
+// (clipped at L). Returns 0 on success, 1 on invalid UTF-8.
+int vt_tensorize(const uint8_t* utf8, const int64_t* line_offsets,
+                 int64_t n_lines, int32_t L, int32_t* cps, uint8_t* types,
+                 int32_t* lengths) {
+  for (int64_t row = 0; row < n_lines; ++row) {
+    const uint8_t* p = utf8 + line_offsets[row];
+    const uint8_t* end = utf8 + line_offsets[row + 1];
+    int32_t* cp_row = cps + row * L;
+    uint8_t* ty_row = types + row * L;
+    int32_t n = 0;
+    while (p < end) {
+      uint32_t c;
+      uint8_t b0 = *p;
+      if (b0 < 0x80) {
+        c = b0;
+        p += 1;
+      } else if ((b0 >> 5) == 0x6) {
+        if (end - p < 2 || b0 < 0xC2 || (p[1] & 0xC0) != 0x80) return 1;
+        c = ((b0 & 0x1F) << 6) | (p[1] & 0x3F);
+        p += 2;
+      } else if ((b0 >> 4) == 0xE) {
+        if (end - p < 3 || (p[1] & 0xC0) != 0x80 || (p[2] & 0xC0) != 0x80)
+          return 1;
+        if ((b0 == 0xE0 && p[1] < 0xA0) || (b0 == 0xED && p[1] >= 0xA0))
+          return 1;
+        c = ((b0 & 0x0F) << 12) | ((p[1] & 0x3F) << 6) | (p[2] & 0x3F);
+        p += 3;
+      } else if ((b0 >> 3) == 0x1E) {
+        if (end - p < 4 || (p[1] & 0xC0) != 0x80 || (p[2] & 0xC0) != 0x80 ||
+            (p[3] & 0xC0) != 0x80)
+          return 1;
+        // overlong (F0 80..8F) / beyond U+10FFFF (F4 90.. / F5..)
+        if ((b0 == 0xF0 && p[1] < 0x90) || b0 > 0xF4 ||
+            (b0 == 0xF4 && p[1] >= 0x90))
+          return 1;
+        c = ((b0 & 0x07) << 18) | ((p[1] & 0x3F) << 12) |
+            ((p[2] & 0x3F) << 6) | (p[3] & 0x3F);
+        p += 4;
+      } else {
+        return 1;
+      }
+      if (n < L) {
+        cp_row[n] = static_cast<int32_t>(c);
+        ty_row[n] = char_type(c);
+      }
+      ++n;
+    }
+    lengths[row] = n < L ? n : L;
+  }
+  return 0;
+}
+
 // Lean-serving tensorizer: decode + (optional) 1:1 normalization into a
 // (n_lines, L) uint16 codepoint batch — the HBM-lean input form of
 // Predictor.serve_boundaries_fn (char types are classified on device).

@@ -29,6 +29,17 @@ over :meth:`Problem.coo`, the same functions); for a problem on a CUDA
 device they launch the kernels or raise; nothing falls back.
 ``fista_step.launches`` and ``power_step.launches`` count kernel
 launches.
+
+A solve split over shards (``Problem(shard=(r, n))``, driven by
+``train/solver.py``) runs :func:`fista_partial` on each shard (``rows``,
+then ``cols`` with its ``PART`` instantiation, which stores each visited
+feature's sums into ``Problem.part_g`` and updates nothing), the host adds
+the shards' sums into each shard's ``Problem.gsum``, and
+:func:`fista_update` (the ``update`` kernel: a dense pass, a thread per
+feature and class) applies the update and advances the stopping state; their
+plain versions are :func:`fista_partial_plain` and
+:func:`fista_update_plain`. ``fista_partial.launches`` and
+``fista_update.launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -46,7 +57,9 @@ from ..predictor import _resolve_device
 from .boundary import _nvcc
 
 __all__ = ["Problem", "fista_step", "power_step", "fista_step_plain",
-           "power_step_plain", "f_grad_plain", "losses", "momentum_sequence",
+           "power_step_plain", "f_grad_plain", "fista_partial",
+           "fista_update", "fista_partial_plain", "fista_update_plain",
+           "losses", "momentum_sequence",
            "build", "SEG", "SHORT", "SLICE", "CLASS_BLOCK",
            "COLS_BLOCKS_PER_SM", "LOGISTIC", "L2_HINGE", "L1_HINGE",
            "CRAMMER_SINGER", "HINGE_SMOOTHING_MU", "CS_SMOOTHING_MU"]
@@ -85,6 +98,9 @@ COLS_BLOCKS_PER_SM = 8
 #: (``CLASS_BLOCK`` in csrc/solver.cu); more classes take a loop over
 #: blocks of this many
 CLASS_BLOCK = 8
+#: blocks of ``update`` on each SM (its threads stride over the
+#: features' classes)
+UPDATE_BLOCKS_PER_SM = 8
 
 
 def losses(kind):
@@ -182,16 +198,36 @@ class Problem:
       (``long_feat``, ascending), feature by feature in ascending example
       order (``long_ptr``), cut into segments of at most :data:`SEG`
       (``long_seg``: a feature's first segment; ``seg_long``: a segment's
-      feature)."""
+      feature).
+
+    ``shard=(r, k)``: shard r of k of a solve split over k shards. The
+    ``n_rows`` padded rows (a multiple of k) are cut into k contiguous
+    blocks of ``n_rows // k``, as the JAX package shards its padded
+    arrays; this problem holds block r (its rows of ``idx``, ``val`` and
+    ``targets``, the rest padding: a block of padding only is valid).
+    A shard keeps its features' entry counts (``col_count``, int32 (n_dim,))
+    and a buffer ``part_g`` (n_dim C, zero where it has no entry) for
+    ``cols``' sums; :meth:`set_gsum` gives it the buffer ``gsum`` that
+    ``update`` reads."""
 
     def __init__(self, idx: np.ndarray, val: np.ndarray,
                  targets: np.ndarray, n_rows: int, n_dim: int, *, loss: int,
                  l1: bool, cost: float, max_iter: int, C: int = 1,
-                 device=None):
+                 device=None, shard: Optional[Tuple[int, int]] = None):
         dev = _resolve_device(device, "Problem")
-        n = len(targets)
-        if idx.shape != val.shape or idx.shape[0] != n or n_rows < n:
+        if idx.shape != val.shape or idx.shape[0] != len(targets) \
+                or n_rows < len(targets):
             raise ValueError("idx, val and targets disagree in shape")
+        self.shard = shard
+        if shard is not None:
+            r, k = shard
+            if not 0 <= r < k or n_rows % k:
+                raise ValueError(f"shard {shard} of {n_rows} rows")
+            n_rows //= k
+            lo = min(r * n_rows, len(targets))
+            hi = min(lo + n_rows, len(targets))
+            idx, val, targets = idx[lo:hi], val[lo:hi], targets[lo:hi]
+        n = len(targets)
         self.device, self.n, self.N, self.n_dim, self.C = \
             dev, n, int(n_rows), n_dim, C
         self.loss, self.l1, self.cost, self.max_iter = loss, l1, cost, \
@@ -224,6 +260,8 @@ class Problem:
         ccol, crow, cv = col[order], rr[order], v[order]
         col_count = torch.zeros(n_dim, dtype=torch.int64, device=dev)
         col_count.index_add_(0, ccol, torch.ones_like(crow))
+        self.col_count = (col_count.to(torch.int32) if shard is not None
+                          else None)
         short = (col_count > 0) & (col_count <= SHORT)
         # the short features, stably by entry count, SLICE a slice
         short_ids = torch.nonzero(short).flatten()
@@ -298,6 +336,9 @@ class Problem:
         self.long_cnt = torch.zeros(max(len(long_feat), 1),
                                     dtype=torch.int32, device=dev)
         self.power_out = torch.zeros(n_dim, dtype=torch.float32, device=dev)
+        self.part_g = (torch.zeros(n_dim * C, dtype=torch.float32,
+                                   device=dev) if shard is not None else None)
+        self.gsum = None
         self.step = self.thr = None
         self.w = self.z = self.state = self.tseq = None
         self._args, self._blocks = {}, {}
@@ -312,6 +353,15 @@ class Problem:
         """Bytes of the kernels' layouts and the targets on the device."""
         return sum(getattr(self, k).nbytes for k in self.LAYOUT) + (
             self.y if self.y is not None else self.labels).nbytes
+
+    def set_gsum(self, gsum: torch.Tensor) -> None:
+        """A shard's view of the whole solve: ``gsum``, the (n_dim C,)
+        float32 buffer on this device that holds every shard's sums when
+        ``update`` runs."""
+        if self.shard is None:
+            raise ValueError("set_gsum is for a shard's problem")
+        self.gsum = gsum
+        self._args.pop("update", None)
 
     def coo(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(row, col, val): the live entries row-major, each row's in
@@ -351,7 +401,8 @@ class Problem:
         self.state = torch.from_numpy(st).to(self.device)
         self.tseq = torch.from_numpy(momentum_sequence(self.max_iter)).to(
             self.device)
-        self._args.pop("fista", None)
+        for key in ("fista", "part", "update"):
+            self._args.pop(key, None)
 
     def read(self) -> Tuple[int, float]:
         """(it, delta) of the state: one read from the device."""
@@ -415,12 +466,10 @@ def _rmatvec(p: Problem, r: torch.Tensor) -> torch.Tensor:
         p.n_dim, p.C)
 
 
-def f_grad_plain(p: Problem, z: torch.Tensor):
-    """(f, g) of the JAX package's ``f_grad`` at z: the binary loss's
-    (``_binary_ops``) for a (n_dim,) z, the smoothed Crammer-Singer
-    objective's (``_fista_cs_advance``) for a (n_dim, C) z, feature-major.
-    f has no L1 term (the prox handles it)."""
-    cost = p.cost
+def _loss_dl(p: Problem, z: torch.Tensor):
+    """(the loss of each example, masked, and its derivative dl in the
+    margin, masked) at z: (N,) for a binary loss, (N,) and (N, C) for
+    Crammer-Singer; what ``rows`` computes."""
     if p.loss == CRAMMER_SINGER:
         mu = CS_SMOOTHING_MU
         onehot = torch.nn.functional.one_hot(
@@ -430,15 +479,27 @@ def f_grad_plain(p: Problem, z: torch.Tensor):
         lse = torch.logsumexp(s, 1)
         f_loss = mu * lse - torch.sum(m * onehot, 1)
         dm = (torch.softmax(s, 1) - onehot) * p.mask[:, None]
-        g = cost * _rmatvec(p, dm) + z
-        f = cost * torch.sum(f_loss * p.mask) + 0.5 * torch.sum(z * z)
-        g[0] = 0.0
-        return f, g
+        return f_loss * p.mask, dm
     loss_fn, dloss_fn = losses(p.loss)
     m = p.y * _matvec(p, z)
-    dl = dloss_fn(m) * p.y * p.mask
+    return loss_fn(m) * p.mask, dloss_fn(m) * p.y * p.mask
+
+
+def f_grad_plain(p: Problem, z: torch.Tensor):
+    """(f, g) of the JAX package's ``f_grad`` at z: the binary loss's
+    (``_binary_ops``) for a (n_dim,) z, the smoothed Crammer-Singer
+    objective's (``_fista_cs_advance``) for a (n_dim, C) z, feature-major.
+    f has no L1 term (the prox handles it)."""
+    cost = p.cost
+    if p.loss == CRAMMER_SINGER:
+        f_loss, dm = _loss_dl(p, z)
+        g = cost * _rmatvec(p, dm) + z
+        f = cost * torch.sum(f_loss) + 0.5 * torch.sum(z * z)
+        g[0] = 0.0
+        return f, g
+    f_loss, dl = _loss_dl(p, z)
     g = cost * _rmatvec(p, dl)
-    f = cost * torch.sum(loss_fn(m) * p.mask)
+    f = cost * torch.sum(f_loss)
     if not p.l1:
         g = g + z
         f = f + 0.5 * torch.sum(z * z)
@@ -479,6 +540,49 @@ def fista_step_plain(p: Problem) -> None:
     p.state.copy_(torch.from_numpy(st))
 
 
+def _active(p: Problem):
+    """The state on the host, or None once its cond is false."""
+    st = p.state.cpu().numpy()
+    return st if st[1] else None
+
+
+def fista_partial_plain(p: Problem) -> None:
+    """A shard's sums X_s^T dl at its z into ``p.part_g`` (zero where
+    the shard has no entry), if the state's cond holds."""
+    if _active(p) is None:
+        return
+    z = p.z if p.C == 1 else p.z.view(p.n_dim, p.C)
+    p.part_g.copy_(_rmatvec(p, _loss_dl(p, z)[1]).reshape(-1))
+
+
+def fista_update_plain(p: Problem) -> None:
+    """The update of every feature from the sums of every shard
+    (``p.gsum``), then the state, as ``update`` applies them, if the
+    state's cond holds."""
+    st = _active(p)
+    if st is None:
+        return
+    it = int(st[0])
+    z, w = p.z.clone(), p.w.clone()
+    g = p.cost * p.gsum
+    if not p.l1:
+        g = g + z
+    step = float(p.step)
+    w_new = z - step * g
+    if p.l1:
+        w_new = torch.sign(w_new) * torch.clamp(torch.abs(w_new) - step,
+                                                min=0.0)
+    beta = (p.tseq[it] - 1.0) / p.tseq[it + 1]
+    p.z.copy_(w_new + beta * (w_new - w))
+    p.w.copy_(w_new)
+    d = np.float32(torch.max(torch.abs(w_new - w)).item())
+    it += 1
+    st[0] = it
+    st[1] = int(it < p.max_iter and (it < 8 or bool(d > p.thr)))
+    st[2] = np.asarray(d, dtype=np.float32).view(np.int32)
+    p.state.copy_(torch.from_numpy(st))
+
+
 # ----------------------------------------------------------------------
 # the kernels
 # ----------------------------------------------------------------------
@@ -496,10 +600,11 @@ class _Args(ctypes.Structure):
         ("y", 1), ("labels", 1),
         ("x", 1), ("w", 1), ("z", 1), ("dl", 1), ("partial", 1),
         ("long_cnt", 1), ("out", 1), ("state", 1), ("tseq", 1),
+        ("g", 1),
         ("n", 0), ("n_dim", 0), ("C", 0),
         ("n_row_slices", 0), ("n_col_slices", 0), ("n_seg", 0),
         ("seg_len", 0), ("seg_blocks", 0),
-        ("power", 0), ("loss", 0), ("l1", 0), ("max_iter", 0),
+        ("power", 0), ("part", 0), ("loss", 0), ("l1", 0), ("max_iter", 0),
         ("cost", 2), ("step", 2), ("thr", 2), ("mu", 2),
     )]
 
@@ -520,7 +625,8 @@ def _load() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for name in ("vt_solver_rows", "vt_solver_cols"):
+            for name in ("vt_solver_rows", "vt_solver_cols",
+                         "vt_solver_update"):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
@@ -535,10 +641,11 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _args(p: Problem, power: bool) -> _Args:
-    """The kernels' arguments for ``p`` (cached per mode; the FISTA ones
-    until the next :meth:`Problem.start`)."""
-    key = "power" if power else "fista"
+def _args(p: Problem, power: bool, key: Optional[str] = None) -> _Args:
+    """The kernels' arguments for ``p`` (cached per mode: ``"power"``,
+    ``"fista"``, and a shard's ``"part"`` (cols<PART>) and ``"update"``;
+    all but the first until the next :meth:`Problem.start`)."""
+    key = key or ("power" if power else "fista")
     a = p._args.get(key)
     if a is not None:
         return a
@@ -561,6 +668,10 @@ def _args(p: Problem, power: bool) -> _Args:
         a.w, a.z, a.x = p.w.data_ptr(), p.z.data_ptr(), p.z.data_ptr()
         a.state, a.tseq = p.state.data_ptr(), p.tseq.data_ptr()
         a.step, a.thr = float(p.step), float(p.thr)
+    if key == "part":
+        a.part, a.out = 1, p.part_g.data_ptr()
+    elif key == "update":
+        a.g = p.gsum.data_ptr()
     p._args[key] = a
     return a
 
@@ -576,6 +687,11 @@ def _blocks(p: Problem, kernel: str) -> int:
         warps = _load().vt_solver_warps()
         if kernel == "rows":
             n = max(1, -(-p.n_row_slices // warps))
+        elif kernel == "update":
+            sms = torch.cuda.get_device_properties(
+                p.device).multi_processor_count
+            n = max(1, min(-(-p.n_dim * p.C // (warps * 32)),
+                           UPDATE_BLOCKS_PER_SM * sms))
         else:
             sms = torch.cuda.get_device_properties(
                 p.device).multi_processor_count
@@ -636,7 +752,41 @@ def fista_step(p: Problem) -> None:
     fista_step.launches += 1
 
 
+def fista_partial(p: Problem) -> None:
+    """A shard's part of one FISTA iteration (after :meth:`Problem.start`
+    and :meth:`Problem.set_gsum`): ``rows``, then ``cols<PART>``, which
+    writes the shard's sums into ``p.part_g``; nothing once the state's
+    cond is false."""
+    if p.device.type == "cpu":
+        return fista_partial_plain(p)
+    dev = _check_device(p)
+    if p.state is None or p.part_g is None:
+        raise RuntimeError("fista_partial needs a started shard")
+    a = _args(p, False, "part")
+    _launch("vt_solver_rows", a, _blocks(p, "rows"), dev)
+    fista_partial.launches += 1
+    _launch("vt_solver_cols", a, _blocks(p, "cols"), dev)
+    fista_partial.launches += 1
+
+
+def fista_update(p: Problem) -> None:
+    """The rest of the iteration on a shard, once ``p.gsum`` holds every
+    shard's sums: the ``update`` kernel over every feature, which also
+    advances the stopping state."""
+    if p.device.type == "cpu":
+        return fista_update_plain(p)
+    dev = _check_device(p)
+    if p.state is None or p.gsum is None:
+        raise RuntimeError("fista_update needs a started shard with its "
+                           "gsum")
+    _launch("vt_solver_update", _args(p, False, "update"),
+            _blocks(p, "update"), dev)
+    fista_update.launches += 1
+
+
 #: kernel launches since the counts were last reset (plain-version calls on
 #: CPU problems do not count)
 power_step.launches = 0
 fista_step.launches = 0
+fista_partial.launches = 0
+fista_update.launches = 0

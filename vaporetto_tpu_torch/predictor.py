@@ -99,6 +99,11 @@ class Predictor:
         self._device_tables: Optional[BoundaryTables] = None
         self._tag_dev_obj = False  # False: not built yet
         self._device_tag_tables: Optional[TagTables] = None
+        #: the tables' copies on a mesh's other devices, by (kind, device)
+        self._mesh_tables: dict = {}
+        #: a :class:`parallel.mesh.Mesh` that :meth:`predict_batch` splits
+        #: its batches over (``predict --dp``); None: the predictor's device
+        self.mesh = None
         self._tag_scorer_obj = None
         self._host_predictor = None
 
@@ -119,45 +124,78 @@ class Predictor:
             self._device_tables = boundary_tables(self.compiled, self.device)
         return self._device_tables
 
-    def _to_device(self, x, dtype=None) -> torch.Tensor:
+    def _tables_on(self, device: torch.device) -> BoundaryTables:
+        """The boundary tables on ``device``: the predictor's own on its
+        device, else a copy uploaded at first use (a mesh's devices)."""
+        if device == self.device:
+            return self._tables()
+        key = ("boundary", device)
+        if key not in self._mesh_tables:
+            self._mesh_tables[key] = boundary_tables(self.compiled, device)
+        return self._mesh_tables[key]
+
+    def _tag_tables_on(self, device: torch.device) -> TagTables:
+        """The tag tables on ``device``, as :meth:`_tables_on`."""
+        if device == self.device:
+            return self._tag_tables()
+        key = ("tags", device)
+        if key not in self._mesh_tables:
+            self._tag_tables()  # raises for a model without them
+            self._mesh_tables[key] = tag_tables(self.compiled, device,
+                                                self.device_tag_tables())
+        return self._mesh_tables[key]
+
+    def _to_device(self, x, dtype=None, device=None) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(x))
         if dtype is not None and t.dtype != dtype:
             t = t.to(dtype)
-        return t.to(self.device).contiguous()
+        return t.to(self.device if device is None else device).contiguous()
 
-    def predict_raw_fn(self):
+    def predict_raw_fn(self, mesh=None):
         """The raw batch predict function over device tables:
         ``fn(codepoints, char_types, lengths) -> (padded_scores,
         char_match, type_match)`` as tensors on the predictor's device
-        (match ids are None for a side the model does not have)."""
-        tables = self._tables()
+        (match ids are None for a side the model does not have). With
+        ``mesh`` (:class:`parallel.mesh.Mesh`) the batch is split over it
+        as :meth:`serve_boundaries_fn` splits it."""
 
-        def fn(cps, cts, lengths):
-            cps = self._to_device(cps)
-            if cps.dtype != torch.uint16:
-                cps = cps.to(torch.int32)
-            return boundary(
-                tables, cps, self._to_device(cts, torch.int32),
-                self._to_device(lengths, torch.int32),
-            )
+        def make(dev):
+            tables = self._tables_on(dev)
 
-        return fn
+            def fn(cps, cts, lengths):
+                cps = self._to_device(cps, device=dev)
+                if cps.dtype != torch.uint16:
+                    cps = cps.to(torch.int32)
+                return boundary(
+                    tables, cps, self._to_device(cts, torch.int32, dev),
+                    self._to_device(lengths, torch.int32, dev),
+                )
+
+            return fn
+
+        return make(self.device) if mesh is None else _split(mesh, make)
 
     def _predict_fn(self, B: int, L: int):
         """Host-returning batch function for :meth:`predict_batch` and
         :func:`parallel.chunking.predict_long`: ``fn(cps, cts, lengths) ->
-        (scores, char_match or None, type_match or None)`` as numpy."""
-        raw = self.predict_raw_fn()
+        (scores, char_match or None, type_match or None)`` as numpy, split
+        over :attr:`mesh` when one is set."""
+        raw = self.predict_raw_fn(mesh=self.mesh)
+        # a mesh takes B rounded up to a multiple of its size: empty rows
+        extra = 0 if self.mesh is None else -B % self.mesh.size
 
         def fn(cps, cts, lengths):
-            return tuple(None if x is None else x.cpu().numpy()
+            if extra:
+                cps, cts, lengths = (_pad_rows(x, extra)
+                                     for x in (cps, cts, lengths))
+            return tuple(None if x is None else x[:B].cpu().numpy()
                          for x in raw(cps, cts, lengths))
 
         return fn
 
     def serve_boundaries_fn(self, wsconst_types: Sequence[int] = (),
-                            host_types: bool = False):
+                            host_types: bool = False, mesh=None):
         """Lean serving: ``fn(cps, cts, lengths)`` (``host_types``) or
         ``fn(cps, lengths)`` -> uint8 (B, ceil((L-1)/8)) boundary bits on
         the device, packed column-major (:func:`unpack_gap_bits`).
@@ -168,56 +206,62 @@ class Predictor:
         ``wsconst_types``: char-type codes whose equal-type neighbour gaps
         are forced to NotWordBoundary in the kernel (KyteaWsConst,
         kytea_wsconst.rs:27-45).
+
+        ``mesh`` (:class:`parallel.mesh.Mesh`): data parallelism. The
+        tables are copied once to each distinct device of the mesh, the
+        batch (B divisible by the mesh size) is split into contiguous row
+        blocks, one per mesh entry, each block's kernel runs on its entry's
+        device, and the outputs are joined in row order on the mesh's first
+        device; ``fn.blocks(...)`` returns the blocks' outputs on their
+        devices instead (:class:`serving.LeanServer` reads them back
+        itself). The outputs are per row, so the split is exact.
         """
-        tables = self._tables()
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
-        def run(cps, cts, lengths):
-            cps, cts = self._serve_inputs(cps, cts)
-            return boundary(tables, cps, cts,
-                            self._to_device(lengths, torch.int32),
-                            serve=True, ws_types=ws)
+        def make(dev):
+            tables = self._tables_on(dev)
 
-        if host_types:
+            def run(cps, cts, lengths):
+                cps, cts = self._serve_inputs(cps, cts, dev)
+                return boundary(tables, cps, cts,
+                                self._to_device(lengths, torch.int32, dev),
+                                serve=True, ws_types=ws)
+
             return run
 
-        def fn(cps, lengths):
-            return run(cps, None, lengths)
-
-        return fn
+        return _serve_fn(self, mesh, make, host_types)
 
     def serve_scores_fn(self, wsconst_types: Sequence[int] = (),
-                        host_types: bool = False):
+                        host_types: bool = False, mesh=None):
         """Lean ``--scores`` serving: :meth:`serve_boundaries_fn` that
         also returns the raw int32 gap scores, ``(bits, gap_scores (B,
         L-1))``, from the same serve launch (reference predict
         main.rs:66-75: wsconst changes the boundary labels, never the
-        scores)."""
-        tables = self._tables()
+        scores). ``mesh`` as :meth:`serve_boundaries_fn` takes it."""
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
-        def run(cps, cts, lengths):
-            cps, cts = self._serve_inputs(cps, cts)
-            return boundary(tables, cps, cts,
-                            self._to_device(lengths, torch.int32),
-                            serve=True, ws_types=ws, gap_scores=True)
+        def make(dev):
+            tables = self._tables_on(dev)
 
-        if host_types:
+            def run(cps, cts, lengths):
+                cps, cts = self._serve_inputs(cps, cts, dev)
+                return boundary(tables, cps, cts,
+                                self._to_device(lengths, torch.int32, dev),
+                                serve=True, ws_types=ws, gap_scores=True)
+
             return run
 
-        def fn(cps, lengths):
-            return run(cps, None, lengths)
+        return _serve_fn(self, mesh, make, host_types)
 
-        return fn
-
-    def _serve_inputs(self, cps, cts):
+    def _serve_inputs(self, cps, cts, device=None):
         """uint16 or int32 codepoints and uint8 or int32 types (or None)
-        on the device, as the kernels take them."""
-        cps = self._to_device(cps)
+        on ``device`` (the predictor's by default), as the kernels take
+        them."""
+        cps = self._to_device(cps, device=device)
         if cps.dtype not in (torch.uint16, torch.int32):
             cps = cps.to(torch.int32)
         if cts is not None:
-            cts = self._to_device(cts)
+            cts = self._to_device(cts, device=device)
             if cts.dtype not in (torch.uint8, torch.int32):
                 cts = cts.to(torch.int32)
         return cps, cts
@@ -249,7 +293,7 @@ class Predictor:
     def serve_tags_fn(self, wsconst_types: Sequence[int] = (),
                       host_types: bool = False,
                       want_gap_scores: bool = False,
-                      want_tag_scores: bool = False):
+                      want_tag_scores: bool = False, mesh=None):
         """Lean tag serving: ``fn(cps, cts, lengths)`` (``host_types``) or
         ``fn(cps, lengths)`` -> ``(bits, word)`` when ``fn.packed_tc``,
         else ``(bits, tid, choice)``, on the device (dtypes as
@@ -261,31 +305,31 @@ class Predictor:
 
         Two launches a batch: the boundary kernel's full epilogue (scores
         and match ids, and the gap scores when asked), then the tag kernel
-        over them. ``cps``/``cts`` as :meth:`serve_boundaries_fn` takes
-        them.
+        over them. ``cps``/``cts`` and ``mesh`` as
+        :meth:`serve_boundaries_fn` takes them (with a mesh, each block's
+        two launches run on its device).
         """
-        tables = self._tables()
         tt = self._tag_tables()
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
-        def run(cps, cts, lengths):
-            cps, cts = self._serve_inputs(cps, cts)
-            lengths = self._to_device(lengths, torch.int32)
-            full = boundary(tables, cps, cts, lengths,
-                            gap_scores=want_gap_scores)
-            out = tags(tt, cps, cts, lengths, *full[:3], ws_types=ws,
-                       tag_scores=want_tag_scores)
-            if not want_gap_scores:
-                return out
-            n = len(out) - want_tag_scores  # the gap scores go before
-            return out[:n] + full[3:] + out[n:]
+        def make(dev):
+            tables, ttd = self._tables_on(dev), self._tag_tables_on(dev)
 
-        if host_types:
-            fn = run
-        else:
-            def fn(cps, lengths):
-                return run(cps, None, lengths)
+            def run(cps, cts, lengths):
+                cps, cts = self._serve_inputs(cps, cts, dev)
+                lengths = self._to_device(lengths, torch.int32, dev)
+                full = boundary(tables, cps, cts, lengths,
+                                gap_scores=want_gap_scores)
+                out = tags(ttd, cps, cts, lengths, *full[:3], ws_types=ws,
+                           tag_scores=want_tag_scores)
+                if not want_gap_scores:
+                    return out
+                n = len(out) - want_tag_scores  # the gap scores go before
+                return out[:n] + full[3:] + out[n:]
 
+            return run
+
+        fn = _serve_fn(self, mesh, make, host_types)
         fn.packed_tc = tt.packed_tc
         fn.n_tag_slots = tt.S
         return fn
@@ -631,6 +675,74 @@ class Predictor:
         _fill_token_tags(sentence, pos, tags_, scores)
         if self._store_tag_scores:
             sentence.tag_scores[pos] = (tags_, scores.tolist())
+
+
+def _rows(x, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of a numpy array or tensor on ``device`` (copied
+    without waiting when ``x`` is pinned host memory)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t[lo:hi].to(device, non_blocking=True)
+
+
+def _pad_rows(x, n: int) -> torch.Tensor:
+    """``x`` (numpy array or tensor) with ``n`` zero rows appended."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return torch.cat([t, t.new_zeros((n,) + tuple(t.shape[1:]))])
+
+
+def _join(parts, device: torch.device):
+    """Block outputs (tensors or None) joined in row order on
+    ``device``."""
+    if parts[0] is None:
+        return None
+    return torch.cat([p.to(device) for p in parts])
+
+
+def _split(mesh, make):
+    """``fn(cps, cts, lengths)`` with the batch split over ``mesh``:
+    ``make(device)`` gives the function of one block on ``device`` (made
+    once per distinct device, over that device's tables). ``fn`` joins the
+    blocks' outputs in row order on the mesh's first device;
+    ``fn.blocks`` returns [(lo, hi, outputs on the block's device)]."""
+    runs = {d: make(d) for d in mesh.distinct_devices()}
+
+    def blocks(cps, cts, lengths):
+        out = []
+        for (lo, hi), dev in zip(mesh.blocks(cps.shape[0]), mesh.devices):
+            out.append((lo, hi, runs[dev](
+                _rows(cps, lo, hi, dev),
+                None if cts is None else _rows(cts, lo, hi, dev),
+                _rows(lengths, lo, hi, dev))))
+        return out
+
+    def fn(cps, cts, lengths):
+        parts = [o for _, _, o in blocks(cps, cts, lengths)]
+        first = mesh.devices[0]
+        if isinstance(parts[0], tuple):
+            return tuple(_join([p[k] for p in parts], first)
+                         for k in range(len(parts[0])))
+        return _join(parts, first)
+
+    fn.blocks = blocks
+    return fn
+
+
+def _serve_fn(pred: "Predictor", mesh, make, host_types: bool):
+    """A serve function from ``make(device)`` (one block's run): on the
+    predictor's device, or split over ``mesh``; ``fn(cps, cts, lengths)``
+    with ``host_types``, else ``fn(cps, lengths)``."""
+    run = make(pred.device) if mesh is None else _split(mesh, make)
+    if host_types:
+        return run
+
+    def fn(cps, lengths):
+        return run(cps, None, lengths)
+
+    if mesh is not None:
+        fn.blocks = lambda cps, lengths: run.blocks(cps, None, lengths)
+    return fn
 
 
 def _token_spans(boundaries, n: int):

@@ -241,9 +241,13 @@ class LeanServer:
     ConcatGraphemeClustersFilter (``--wsconst G``) as a host mask over the
     bits; not with ``tags``. ``fallback(lines: List[bytes])`` handles
     lines the lean path cannot represent (it must write its own output, in
-    order). ``mesh`` (several cards) is not ported yet and raises. A
-    ``backend="host"`` predictor serves through the native host engine
-    (not the rich combinations).
+    order). ``mesh`` (:class:`parallel.mesh.Mesh`): each batch is split
+    into contiguous row blocks, one per mesh entry, each launched on its
+    entry's device (``batch_lines`` must divide by the mesh size; packed
+    batches round their rows up to a multiple of it); every block's
+    launches go out before the first readback waits, so the cards overlap.
+    A ``backend="host"`` predictor serves through the native host engine
+    (not the rich combinations, not with a mesh).
     """
 
     def __init__(
@@ -259,9 +263,8 @@ class LeanServer:
         grapheme: bool = False,
         tag_scores: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError("lean serving over a device mesh "
-                                      "(several cards) is not ported yet")
+        if mesh is not None and batch_lines % mesh.size:
+            raise ValueError("batch_lines must divide by the mesh size")
         if tag_scores and not tags:
             # the general path raises too: --tag-scores needs a tag-enabled
             # predictor (reference main.rs:112-115)
@@ -273,11 +276,14 @@ class LeanServer:
                              "grapheme filter")
         #: the native host engine serves the stream, unpacked
         self.host = predictor.backend == "host"
+        if self.host and mesh is not None:
+            raise ValueError("the lean host engine takes no device mesh")
         if self.host and tags and (scores or tag_scores):
             raise ValueError("lean tags+scores combinations run on the "
                              "device backend")
         self.predictor = predictor
         self.device = None if self.host else predictor.device
+        self.mesh = mesh
         self.tags = bool(tags)
         self.scores = bool(scores)
         self.grapheme = bool(grapheme)
@@ -297,21 +303,25 @@ class LeanServer:
         elif self.tags:
             self.fn = predictor.serve_tags_fn(
                 ws, host_types=True, want_gap_scores=self.scores,
-                want_tag_scores=self.tag_scores)
+                want_tag_scores=self.tag_scores, mesh=mesh)
             self.plan = TagEmitPlan(c.tag_meta, c.n_tags)
             if self.tag_scores:
                 self._ts_plan = TagScoresPlan(c.tag_meta)
             self._sep = pack_separator(c, predictor._tag_tables().max_rel())
         elif self.scores:
-            self.fn = predictor.serve_scores_fn(ws, host_types=True)
+            self.fn = predictor.serve_scores_fn(ws, host_types=True,
+                                                mesh=mesh)
             self._sep = pack_separator(c)
         else:
-            self.fn = predictor.serve_boundaries_fn(ws, host_types=True)
+            self.fn = predictor.serve_boundaries_fn(ws, host_types=True,
+                                                    mesh=mesh)
             self._sep = pack_separator(c)
         self.norm_map = _fullwidth_norm_map() if normalize else None
         self._scratch: dict = {}  # reused detok output buffer
         self._slots = [] if self.host else [_HostSlot(self.device),
                                              _HostSlot(self.device)]
+        #: rows of a batch divide by this (the mesh size)
+        self._mesh_div = mesh.size if mesh is not None else 1
         self._n_launched = 0
         self.batch_lines = batch_lines
         self.fallback = fallback
@@ -319,29 +329,39 @@ class LeanServer:
         #: tensorize + launch, in waiting for the bits (device->host
         #: readback included), in the native detokenizer and in the
         #: general path; readback bytes, and of them the gap scores' and
-        #: the tag scores'
+        #: the tag scores'; dispatches by device (with a mesh, each block's
+        #: device counts one)
         self.stats = {
             "dispatches": 0, "packed_dispatches": 0, "fallback_lines": 0,
             "readback_bytes": 0, "readback_gap_score_bytes": 0,
             "readback_tag_score_bytes": 0, "t_dispatch_s": 0.0,
             "t_readback_s": 0.0, "t_detok_s": 0.0, "t_fallback_s": 0.0,
+            "device_dispatches": {},
         }
 
     # ------------------------------------------------------------------
 
+    def _count(self, dev) -> None:
+        d = self.stats["device_dispatches"]
+        d[str(dev)] = d.get(str(dev), 0) + 1
+
     def _launch(self, slot: _HostSlot, cps, cts, lengths):
         """Upload one batch from the slot's host buffers, run the serve
         kernel(s), and start the outputs' copy back; returns (outputs on
-        the host, ready_event or None). The outputs are the bits, then on
-        the tag path the tag kernel's word or tid and choice."""
+        the host, the ready events: none on the CPU). The outputs are the
+        bits, then on the tag path the tag kernel's word or tid and
+        choice."""
+        if self.mesh is not None:
+            return self._launch_mesh(slot, cps, cts, lengths)
         dev = self.device
         res = self.fn(cps.to(dev, non_blocking=True),
                       cts.to(dev, non_blocking=True),
                       lengths.to(dev, non_blocking=True))
         outs = res if isinstance(res, tuple) else (res,)
         self._n_launched += 1
+        self._count(dev)
         if dev.type != "cuda":
-            return outs, None
+            return outs, ()
         host = []
         for i, o in enumerate(outs):
             h = slot.tensor(f"out{i}", tuple(o.shape), o.dtype)
@@ -349,7 +369,32 @@ class LeanServer:
             host.append(h)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(dev))
-        return tuple(host), ready
+        return tuple(host), (ready,)
+
+    def _launch_mesh(self, slot: _HostSlot, cps, cts, lengths):
+        """:meth:`_launch` over the mesh: every block's inputs go to its
+        device and its kernels are launched, and each block's outputs are
+        copied back into its rows of the slot's host buffers, with an event
+        a block; nothing waits here."""
+        blocks = self.fn.blocks(cps, cts, lengths)
+        self._n_launched += 1
+        host, ready = None, []
+        for (lo, hi, res), dev in zip(blocks, self.mesh.devices):
+            outs = res if isinstance(res, tuple) else (res,)
+            self._count(dev)
+            if host is None:
+                B = cps.shape[0]
+                host = [slot.tensor(f"out{i}", (B,) + tuple(o.shape[1:]),
+                                    o.dtype) if dev.type == "cuda" else
+                        torch.empty((B,) + tuple(o.shape[1:]), dtype=o.dtype)
+                        for i, o in enumerate(outs)]
+            for h, o in zip(host, outs):
+                h[lo:hi].copy_(o, non_blocking=dev.type == "cuda")
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                ready.append(ev)
+        return tuple(host), tuple(ready)
 
     def _dispatch(self, blob, starts, ends, n_valid):
         """Tensorize + dispatch one unpacked group; returns the pending
@@ -370,7 +415,8 @@ class LeanServer:
             cps, lengths, _ = t16
             res = self.fn(cps, lengths)
             self.stats["dispatches"] += 1
-            return (((res if isinstance(res, tuple) else (res,)), None),
+            self._count("host")
+            return (((res if isinstance(res, tuple) else (res,)), ()),
                     blob, starts[:n_valid], ends[:n_valid], None,
                     lengths[:n_valid], (cps, lengths))
         slot = self._slots[self._n_launched % 2]
@@ -448,6 +494,8 @@ class LeanServer:
         # in device compute and readback
         p = max(64, 1 << (n_rows - 1).bit_length())
         B = 3 * p // 4 if (3 * p // 4 >= n_rows and p >= 256) else p
+        if B % self._mesh_div:  # a mesh's batch: keep B divisible
+            B = -(-B // self._mesh_div) * self._mesh_div
         slot = self._slots[self._n_launched % 2]
         cps = slot.tensor("cps", (B, PACK_L), torch.uint16)
         cts = slot.tensor("cts", (B, PACK_L), torch.uint8)
@@ -474,8 +522,8 @@ class LeanServer:
                                out)
             return
         t0 = time.perf_counter()
-        if ready is not None:
-            ready.synchronize()
+        for ev in ready:
+            ev.synchronize()
         raw = [o.numpy() for o in outs]
         st["t_readback_s"] += time.perf_counter() - t0
         st["readback_bytes"] += sum(r.nbytes for r in raw)

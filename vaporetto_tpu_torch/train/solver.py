@@ -23,6 +23,18 @@ reserved for padding, real features are 1..=D, the bias feature is D+1.
 The padding rules are the JAX package's: n_dim = max(16, 2^bitlen(D+1)),
 rows padded to a power of two with mask 0 (they add nothing), and the
 chunk taken from the padded (N, K) size.
+
+Data parallelism (``mesh=``, a :class:`parallel.mesh.Mesh`, possibly over
+several processes): the padded rows, rounded up to a multiple of the
+mesh's shards, are split into contiguous blocks, a ``Problem`` a shard
+(:class:`Shards`). Each iteration runs ``rows`` and ``cols<PART>`` on every
+shard, adds the shards' sums in one fixed order, the same on every rank
+(this process's shards in shard order on the first shard's device, then
+``all_reduce`` over the processes, then a copy to each other device), and
+runs ``update`` on every shard: each shard keeps its own w, z and stopping
+state, and they stay bitwise equal, so every shard and rank stops at the
+same iteration. The power iteration reduces the same way. A mesh of one
+shard in one process solves as a single ``Problem`` on its device.
 """
 
 from __future__ import annotations
@@ -30,7 +42,7 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +53,7 @@ from ..ops.solver import (CRAMMER_SINGER, CS_SMOOTHING_MU,
                           Problem)
 
 __all__ = ["train_binary", "train_one_vs_rest", "train_crammer_singer",
-           "train_boundary", "LOGISTIC", "L2_HINGE", "L1_HINGE",
+           "train_boundary", "Shards", "LOGISTIC", "L2_HINGE", "L1_HINGE",
            "HINGE_SMOOTHING_MU", "CS_SMOOTHING_MU",
            "solver_loss_kind", "solver_is_l1"]
 
@@ -106,19 +118,136 @@ def _progress(it: int, max_iter: int, delta: float) -> None:
               file=sys.stderr, flush=True)
 
 
-def _pads(n: int, k: int, n_features: int) -> Tuple[int, int, int]:
-    """(n_dim, n_pad, k_pad): the JAX package's padded shapes."""
+def _pads(n: int, k: int, n_features: int,
+          mesh=None) -> Tuple[int, int, int]:
+    """(n_dim, n_pad, k_pad): the JAX package's padded shapes (with a
+    mesh, the rows rounded up to a multiple of its shards)."""
     n_dim = max(16, 1 << (n_features + 1).bit_length())
     n_pad = max(8, 1 << (n - 1).bit_length())
     k_pad = max(8, 1 << (k - 1).bit_length())
+    if mesh is not None:
+        n_pad = -(-n_pad // mesh.n_shards) * mesh.n_shards
     return n_dim, n_pad, k_pad
 
 
-def _sigma2(p: Problem, chunk: int) -> float:
+def _problem(mesh, idx, val, targets, n_pad, n_dim, device, **kw):
+    """The solve's :class:`Problem` on ``device``, or its
+    :class:`Shards` over ``mesh``. A mesh of one shard (one entry, one
+    process) has nothing to reduce: its solve is the plain ``Problem`` on
+    that entry's device."""
+    if mesh is not None and mesh.n_shards == 1:
+        device = mesh.devices[0]
+    elif mesh is not None:
+        return Shards(mesh, idx, val, targets, n_pad, n_dim, **kw)
+    return Problem(idx, val, targets, n_pad, n_dim, device=device, **kw)
+
+
+class Shards:
+    """One solve split over a mesh's shards (two or more): a
+    :class:`Problem` for each of this process's mesh entries (``parts``),
+    holding its block of the padded rows, and the fixed-order reduction of
+    their sums. It answers the calls the solver loop makes of a
+    ``Problem`` (``start``, ``read``, ``weights``) with the first shard's
+    state, which every shard shares bit for bit."""
+
+    def __init__(self, mesh, idx, val, targets, n_rows, n_dim, **kw):
+        self.mesh = mesh
+        self.parts: List[Problem] = [
+            Problem(idx, val, targets, n_rows, n_dim, device=dev,
+                    shard=(mesh.shard_index(i), mesh.n_shards), **kw)
+            for i, dev in enumerate(mesh.devices)]
+        p0 = self.parts[0]
+        self.device, self.n_dim, self.C = p0.device, n_dim, p0.C
+        self.max_iter = p0.max_iter
+        gsum = self._buffers(torch.float32, n_dim * self.C)
+        for q in self.parts:
+            q.set_gsum(gsum[q.device])
+        self._power = self._buffers(torch.float32, n_dim)
+        if mesh.process_count > 1:
+            # across processes only the live features' sums travel (those
+            # with an entry on some shard; the others are 0 on every
+            # shard): their flat indices, for n_dim and n_dim C
+            counts = self._reduce([q.col_count for q in self.parts],
+                                  self._buffers(torch.int32, n_dim),
+                                  live=False)
+            live = torch.nonzero(counts[self.device]).flatten()
+            self._index = {1: live, self.C: (
+                live[:, None] * self.C + torch.arange(
+                    self.C, device=self.device)).reshape(-1)}
+
+    def _buffers(self, dtype, size) -> Dict[torch.device, torch.Tensor]:
+        return {d: torch.zeros(size, dtype=dtype, device=d)
+                for d in self.mesh.distinct_devices()}
+
+    def _reduce(self, parts: List[torch.Tensor],
+                out: Dict[torch.device, torch.Tensor], live: bool = True):
+        """The sum of every shard's ``parts`` (one a local shard, in
+        shard order) in ``out``'s tensor on each local device: added in
+        shard order on the first shard's device, summed over the processes
+        by ``all_reduce`` (``live``: only the live features' entries, the
+        others being 0 everywhere), then copied to the other devices."""
+        from ..parallel.distributed import all_reduce_sum
+
+        dev0 = parts[0].device
+        acc = out[dev0]
+        if len(parts) == 1:
+            acc.copy_(parts[0])
+        else:  # the first two in one pass
+            torch.add(parts[0], parts[1].to(dev0), out=acc)
+        for t in parts[2:]:
+            acc.add_(t.to(dev0))
+        if self.mesh.process_count > 1 and live:
+            k = self._index[len(acc) // self.n_dim]
+            acc[k] = all_reduce_sum(acc[k])
+        elif self.mesh.process_count > 1:
+            all_reduce_sum(acc)
+        for d, t in out.items():
+            if d != dev0:
+                t.copy_(acc)
+        return out
+
+    def power_step(self, v: Dict[torch.device, torch.Tensor]):
+        """X^T X v summed over the shards, on each local device."""
+        return self._reduce([kernels.power_step(q, v[q.device])
+                             for q in self.parts], self._power)
+
+    def fista_iteration(self) -> None:
+        """One iteration: each shard's sums, their reduction into every
+        shard's ``gsum``, each shard's update."""
+        for q in self.parts:
+            kernels.fista_partial(q)
+        self._reduce([q.part_g for q in self.parts],
+                     {q.device: q.gsum for q in self.parts})
+        for q in self.parts:
+            kernels.fista_update(q)
+
+    def start(self, step, eps) -> None:
+        for q in self.parts:
+            q.start(step, eps)
+        self.step, self.thr = self.parts[0].step, self.parts[0].thr
+
+    def read(self):
+        return self.parts[0].read()
+
+    def weights(self) -> np.ndarray:
+        return self.parts[0].weights()
+
+
+def _sigma2(p, chunk: int) -> float:
     """Largest eigenvalue estimate of X^T X: 16 power iterations from
     ones / sqrt(n_dim), run in chunks of ``psteps`` as the JAX package
-    runs them (so ceil(16 / psteps) * psteps steps)."""
+    runs them (so ceil(16 / psteps) * psteps steps). For :class:`Shards`,
+    each step's X^T X v is summed over the shards, and every device takes
+    the same v."""
     psteps = max(1, min(4, chunk // 2))
+    if isinstance(p, Shards):
+        v = {d: torch.ones(p.n_dim, dtype=torch.float32, device=d) / float(
+            np.sqrt(p.n_dim)) for d in p.mesh.distinct_devices()}
+        for _ in range(-(-16 // psteps) * psteps):
+            u = p.power_step(v)
+            v = {d: t / (torch.linalg.vector_norm(t) + 1e-30)
+                 for d, t in u.items()}
+        return float(torch.linalg.vector_norm(p.power_step(v)[p.device]))
     v = torch.ones(p.n_dim, dtype=torch.float32, device=p.device) / float(
         np.sqrt(p.n_dim))
     for _ in range(-(-16 // psteps) * psteps):
@@ -127,15 +256,20 @@ def _sigma2(p: Problem, chunk: int) -> float:
     return float(torch.linalg.vector_norm(kernels.power_step(p, v)))
 
 
-def _fista(p: Problem, eps: float, chunk: int, lip_of) -> np.ndarray:
+def _fista(p, eps: float, chunk: int, lip_of) -> np.ndarray:
     """Power iteration, then FISTA iterations in chunks until the state's
-    cond is false; returns w (float64)."""
+    cond is false; returns w (float64). ``p``: a :class:`Problem`, or the
+    :class:`Shards` of a split solve."""
     step = np.float32(1.0 / lip_of(_sigma2(p, chunk)))
     eps32 = np.float32(eps)
     p.start(step, eps32)
+    sharded = isinstance(p, Shards)
     while True:
         for _ in range(chunk):
-            kernels.fista_step(p)
+            if sharded:
+                p.fista_iteration()
+            else:
+                kernels.fista_step(p)
         it, delta = p.read()
         _progress(it, p.max_iter, delta)
         # host twin of the device cond (same float32 quantities)
@@ -155,6 +289,7 @@ def train_crammer_singer(
     eps: float,
     max_iter: int = 2000,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Joint Crammer-Singer multiclass training (LIBLINEAR MCSVM_CS,
     solver enum 4); returns (W[C, D], biases[C]).
@@ -167,14 +302,14 @@ def train_crammer_singer(
     with e_i^r = 0 if r == y_i else 1. The C weight vectors are coupled
     through the shared max term; the bias rides as the appended constant
     feature D+1. ``device``: the torch device (None: the current CUDA
-    device; "cpu": the plain version)."""
+    device; "cpu": the plain version). ``mesh``: the example rows split
+    over a :class:`parallel.mesh.Mesh` (``device`` is then unused)."""
     n = len(labels)
-    n_dim, n_pad, k_pad = _pads(n, idx.shape[1], n_features)
+    n_dim, n_pad, k_pad = _pads(n, idx.shape[1], n_features, mesh)
     chunk = _auto_chunk(n_pad * k_pad * max(n_classes // 2, 1))
-    p = Problem(idx, val, np.asarray(labels, dtype=np.int32), n_pad, n_dim,
-                loss=CRAMMER_SINGER, l1=False, cost=float(cost),
-                max_iter=max_iter, C=int(n_classes),
-                device=device)
+    p = _problem(mesh, idx, val, np.asarray(labels, dtype=np.int32), n_pad,
+                 n_dim, device, loss=CRAMMER_SINGER, l1=False,
+                 cost=float(cost), max_iter=max_iter, C=int(n_classes))
     # Lipschitz: ||X||^2 * (softmax curvature 1/mu) * C + 1 (regularizer)
     W = _fista(p, eps, chunk,
                lambda s2: cost * s2 / CS_SMOOTHING_MU + 1.0 + 1e-6)
@@ -191,6 +326,7 @@ def train_boundary(
     solver: int,
     max_iter: int = 2000,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, float]:
     """The boundary trainer's solve: the WordBoundary weight column.
 
@@ -209,13 +345,13 @@ def train_boundary(
         labels = np.searchsorted(uniq, np.asarray(ys)).astype(np.int32)
         W, b = train_crammer_singer(
             idx, val, labels, len(uniq), n_features, cost, eps,
-            max_iter, device=device,
+            max_iter, device=device, mesh=mesh,
         )
         wb = int(wb_pos[0])
         return W[wb], float(b[wb])
     y_pm = np.where(np.asarray(ys) == 1, 1.0, -1.0)
     return train_binary(idx, val, y_pm, n_features, cost, eps, solver,
-                        max_iter, device=device)
+                        max_iter, device=device, mesh=mesh)
 
 
 def train_binary(
@@ -228,24 +364,28 @@ def train_binary(
     solver: int,
     max_iter: int = 2000,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, float]:
     """Train one binary classifier; returns (weights[1..=D], bias).
 
+    With ``mesh`` the example rows are split over its shards and the
+    gradient sums reduced between the kernels (the module's docstring).
     Enum 4 (MCSVM_CS) routes through the joint 2-class Crammer-Singer
     solve and returns the +1 class's row.
     """
     if solver == 4:
         labels = np.where(np.asarray(y_pm) > 0, 0, 1).astype(np.int32)
         W, b = train_crammer_singer(idx, val, labels, 2, n_features,
-                                    cost, eps, max_iter, device=device)
+                                    cost, eps, max_iter, device=device,
+                                    mesh=mesh)
         return W[0], float(b[0])
     loss_kind = solver_loss_kind(solver)
     l1 = solver_is_l1(solver)
     n = len(y_pm)
-    n_dim, n_pad, k_pad = _pads(n, idx.shape[1], n_features)
-    p = Problem(idx, val, np.asarray(y_pm, dtype=np.float32), n_pad, n_dim,
-                loss=loss_kind, l1=l1, cost=float(cost), max_iter=max_iter,
-                device=device)
+    n_dim, n_pad, k_pad = _pads(n, idx.shape[1], n_features, mesh)
+    p = _problem(mesh, idx, val, np.asarray(y_pm, dtype=np.float32), n_pad,
+                 n_dim, device, loss=loss_kind, l1=l1, cost=float(cost),
+                 max_iter=max_iter)
     # loss-curvature bound: logistic <= 1/4 (we use 1 for safety),
     # squared hinge = 2, smoothed hinge = 1/mu
     if loss_kind == L2_HINGE:
@@ -271,6 +411,7 @@ def train_one_vs_rest(
     solver: int,
     max_iter: int = 2000,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One-vs-rest training; returns (W[C, D], biases[C]).
 
@@ -282,14 +423,14 @@ def train_one_vs_rest(
     if solver == 4:
         return train_crammer_singer(
             idx, val, np.asarray(labels, dtype=np.int32), n_classes,
-            n_features, cost, eps, max_iter, device=device,
+            n_features, cost, eps, max_iter, device=device, mesh=mesh,
         )
     W = np.zeros((n_classes, n_features), dtype=np.float64)
     biases = np.zeros(n_classes, dtype=np.float64)
     if n_classes == 2:
         y_pm = np.where(labels == 0, 1.0, -1.0)
         w, b = train_binary(idx, val, y_pm, n_features, cost, eps, solver,
-                            max_iter, device=device)
+                            max_iter, device=device, mesh=mesh)
         W[0], biases[0] = w, b
         W[1], biases[1] = -w, -b
         return W, biases
@@ -297,6 +438,6 @@ def train_one_vs_rest(
         y_pm = np.where(labels == c, 1.0, -1.0)
         W[c], biases[c] = train_binary(
             idx, val, y_pm, n_features, cost, eps, solver, max_iter,
-            device=device,
+            device=device, mesh=mesh,
         )
     return W, biases

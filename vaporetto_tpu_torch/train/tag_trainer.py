@@ -86,6 +86,7 @@ class TagTrainer:
         cost: float,
         solver: int,
         device=None,
+        mesh=None,
     ) -> TagModel:
         n_tags = max((len(t) for t, _ in examples), default=0)
         tag_ids: List[Dict[str, int]] = [dict() for _ in range(n_tags)]
@@ -133,7 +134,7 @@ class TagTrainer:
                 val[r, len(x)] = 1.0
             W, biases = train_one_vs_rest(
                 idx, val, np.asarray(ys), len(ids), D, cost, epsilon, solver,
-                device=device,
+                device=device, mesh=mesh,
             )
 
             weight_max = 1e-6
@@ -173,7 +174,7 @@ class TagTrainer:
         )
 
     def train(self, epsilon: float, cost: float, solver: int,
-              device=None) -> List[TagModel]:
+              device=None, mesh=None) -> List[TagModel]:
         for token, tags in self.default_tags.items():
             if any(t is not None for t in tags) and token not in self.examples:
                 self.examples[token] = [(list(tags), [])]
@@ -183,7 +184,7 @@ class TagTrainer:
         for i, (token, examples) in enumerate(items):
             tag_models.append(
                 self._train_tag(token, examples, epsilon, cost, solver,
-                                device=device)
+                                device=device, mesh=mesh)
             )
             if i % 50 == 0:
                 print(f"Tags: {i}/{n_tokens}", end="\r", file=sys.stderr)

@@ -251,10 +251,11 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def train(self, epsilon: float, cost: float, solver: int,
-              max_iter: int = 2000, device=None) -> Model:
+              max_iter: int = 2000, device=None, mesh=None) -> Model:
         """Solve and assemble the model; ``device``: the torch device of
         the solves (None: the current CUDA device, which must exist;
-        "cpu": the kernels' plain version)."""
+        "cpu": the kernels' plain version); ``mesh``: every solve's example
+        rows split over a :class:`parallel.mesh.Mesh` instead."""
         if self._native is not None:
             if self._native.n_examples == 0:
                 raise invalid_argument("trainer", "no training examples")
@@ -289,7 +290,8 @@ class Trainer:
         # the WB row of a joint Crammer-Singer solve — trainer.rs:366-397)
         t0 = time.perf_counter()
         w, bias_raw = train_boundary(idx, val, ys, D, cost, epsilon, solver,
-                                     max_iter=max_iter, device=device)
+                                     max_iter=max_iter, device=device,
+                                     mesh=mesh)
         t1 = time.perf_counter()
         self.stats = {"examples": n, "width": idx.shape[1], "features": D,
                       "solve_s": t1 - t0}
@@ -345,7 +347,7 @@ class Trainer:
 
         t2 = time.perf_counter()
         tag_models = self.tag_trainer.train(epsilon, cost, solver,
-                                            device=device)
+                                            device=device, mesh=mesh)
         t3 = time.perf_counter()
 
         dict_records = []
