@@ -120,8 +120,20 @@ versions on the same inputs. Phases, each printed on its own line:
    held-out F1 beside the unsharded solve's, each stage's ms; a
    two-process ``train`` on [7]'s ``--part`` lines, twice (ranks' weights
    and files bitwise equal);
-10. a ``kernels`` JSON line (boundary, tags, solver with its ``cols<PART>``
-   instantiation, update).
+10. the boundary kernel's variants (:func:`variants_phase`,
+   :func:`lean_variants`), which the JAX package's four switches select:
+   (a) the CHD hash matcher on the 50k model's char side and on a small
+   model's type trie (``VAPORETTO_TPU_HASHMATCH_MIN`` lowered), the
+   per-offset (``SMALL_TABLES=1``) and split (``TYPE_SPLIT=1``) type
+   tables, each held to its plain version (tolerance 0) over both
+   epilogues with and without gap scores; (b) serve times of walk, hash,
+   pos and split at the three serve shapes with their plain times,
+   geometry and bound; (c) walk against hash on models whose char
+   ``max_len`` runs from 2 to 16 (:func:`length_model`), the crossover
+   that sets ``HASH_MATCH_MIN_LEN``; (d) ``LeanServer`` over [4]'s and
+   [4t]'s streams under each switch, bytes equal to [4]'s and [4t]'s;
+11. a ``kernels`` JSON line (boundary with its variants, tags, solver with
+   its ``cols<PART>`` instantiation, update).
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
@@ -445,15 +457,16 @@ def random_batch(B, L, seed, words=(), lengths=None):
                        lengths)
 
 
-def packed_batch(B, seed, words, sep, L=512, max_line=64):
+def packed_batch(B, seed, words, sep, L=512, max_line=64, text=None):
     """Rows in ``LeanServer``'s packed layout: lines of 0..``max_line``
     chars one after another, ``sep`` codepoint-0 separators after each,
     until a row's fill passes PACK_L - max_line - sep; the rest of the
-    row is 0 and every row's length is L."""
+    row is 0 and every row's length is L. ``text(rng, B, L, words)``
+    makes the chars (default :func:`_random_text`)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    cps = _random_text(rng, B, L, words)
+    cps = (text or _random_text)(rng, B, L, words)
     cap = L - max_line - sep
     t_idx = np.arange(L)[None, :]
     keep = np.zeros((B, L), dtype=bool)
@@ -698,23 +711,36 @@ def ptxas_lines(log):
 
 
 def score_output(name: str) -> bool:
-    """Whether a kernel instantiation writes the score output: the last
-    template bool of boundary_kernel<CP, STAGED, SCRATCH, GAP> and of
-    tags_kernel<CP, TS>."""
+    """Whether a kernel instantiation writes the score output: the bool
+    GAP of boundary_kernel<CP, STAGED, SCRATCH, GAP, VARIANTS>, the last
+    of tags_kernel<CP, TS>."""
     import re
 
     flags = re.findall(r"Lb([01])E", name)
+    if "boundary_kernel" in name:
+        return len(flags) == 4 and flags[2] == "1"
     return bool(flags) and flags[-1] == "1"
 
 
-def ptxas_summary(lines, scores=None):
-    """Most registers and spill and stack bytes over the kernel's
-    instantiations; ``scores`` True/False: over those with/without the
-    score output only."""
+def variants_of(name: str) -> bool:
+    """Whether a boundary kernel instantiation runs the variants (the hash
+    matcher, the small type tables: the bool VARIANTS, last)."""
     import re
 
-    lines = [ln for ln in lines if scores is None
-             or score_output(ln.split(":", 1)[0]) == scores]
+    flags = re.findall(r"Lb([01])E", name)
+    return len(flags) == 4 and flags[3] == "1"
+
+
+def ptxas_summary(lines, scores=None, variants=None):
+    """Most registers and spill and stack bytes over the kernel's
+    instantiations; ``scores`` True/False: over those with/without the
+    score output only; ``variants`` True/False: over the boundary
+    kernel's with/without the variants only."""
+    import re
+
+    lines = [ln for ln in lines if (
+        scores is None or score_output(ln.split(":", 1)[0]) == scores) and (
+        variants is None or variants_of(ln.split(":", 1)[0]) == variants)]
 
     def most(pattern):
         return max((int(m) for ln in lines for m in re.findall(pattern, ln)),
@@ -2877,15 +2903,8 @@ def time_kernel(pred, words, sep):
         gap_plain_ms = cuda_ms(lambda c, t, ln: serve_bits_plain(
             tabs, c, t, ln, gap_scores=True), serve_in[:2], 4, hold=False)
         work = kernel_work(tabs, *full_in[0])
-        W8 = -(-(L - 1) // 8)
-        # least bytes: each input the function needs read once, each output
-        # written once. Chars at or past a row's length are 0 by the
-        # wrapper's contract and need no read, so the inputs are the live
-        # chars (the mean over the timed batches) and the row lengths. The
-        # model tables (tens of MB at most) are not counted: they stay in
-        # the 50 MB L2 from one launch to the next
         live = sum(int(b[2].sum()) for b in batches) / len(batches)
-        serve_bytes = live * (2 + 1) + B * 4 + B * W8
+        serve_bytes = serve_bound_bytes(batches, B, L)
         # least operations this data needs: the adds of every matched
         # weight chunk lane and the type window shifts of every in-line gap
         ops = (8 * work["weight-chunk rows"]
@@ -3047,6 +3066,338 @@ def time_tags(pred, tokens, sep):
                 f"{g.occupancy:.3f} of {g.max_warps_per_sm} warps, {g.smem} "
                 f"B shared memory ({g.row_bytes} B a row)")
     return shapes, err
+
+
+# ----------------------------------------------------------------------
+# phase [10]: the boundary kernel's variants
+# ----------------------------------------------------------------------
+
+#: the JAX package's four switches of the boundary path
+SWITCHES = ("NO_HASHMATCH", "HASHMATCH_MIN", "SMALL_TABLES", "TYPE_SPLIT")
+#: name -> switches of each variant the 50k model can take (it has a type
+#: cache, so the type trie's matcher does not apply)
+VARIANTS = {
+    "walk": {"NO_HASHMATCH": "1"},
+    "hash": {"HASHMATCH_MIN": "1"},
+    "pos": {"NO_HASHMATCH": "1", "SMALL_TABLES": "1"},
+    "split": {"NO_HASHMATCH": "1", "TYPE_SPLIT": "1"},
+}
+
+
+class switches:
+    """Sets the four ``VAPORETTO_TPU_*`` switches to ``kw`` (the others
+    unset) inside the block, and restores them after it."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop("VAPORETTO_TPU_" + k, None)
+                      for k in SWITCHES}
+        for k, v in self.kw.items():
+            os.environ["VAPORETTO_TPU_" + k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop("VAPORETTO_TPU_" + k, None)
+            if v is not None:
+                os.environ["VAPORETTO_TPU_" + k] = v
+
+
+def variant_tables(compiled, device, **kw):
+    """The boundary tables of ``compiled`` under the switches ``kw``."""
+    from vaporetto_tpu_torch.ops.boundary import boundary_tables
+
+    with switches(**kw):
+        return boundary_tables(compiled, device)
+
+
+def variant_name(tabs) -> str:
+    """Which matcher each side takes and which type table: e.g. ``char
+    hash, type cache``."""
+    parts = []
+    if tabs.char is not None:
+        parts.append("char " + ("hash" if tabs.char_hm else "walk"))
+    if tabs.type_trie is not None:
+        parts.append("type trie " + ("hash" if tabs.type_hm else "walk"))
+    mode = ("none", "cache", "pos", "split")[tabs.type_mode]
+    if mode != "none":
+        parts.append("type " + mode)
+    return ", ".join(parts)
+
+
+def splice_words(rng, cps, words):
+    """Dictionary words written into (B, L) codepoints at seeded places,
+    one word per 32 positions (as :func:`_random_text` splices them, but
+    vectorized)."""
+    import numpy as np
+
+    B, L = cps.shape
+    kmax = max(map(len, words))
+    arr = np.zeros((len(words), kmax), dtype=np.int32)
+    wlen = np.array([len(w) for w in words])
+    for i, w in enumerate(words):
+        arr[i, :len(w)] = [ord(c) for c in w]
+    n = B * L // 32
+    idx = rng.integers(0, len(words), n)
+    b, t = rng.integers(0, B, n), rng.integers(0, L, n)
+    for j in range(kmax):
+        keep = (j < wlen[idx]) & (t + j < L)
+        cps[b[keep], t[keep] + j] = arr[idx[keep], j]
+    return cps
+
+
+def length_model(base, k: int, seed: int = 19):
+    """The 50k model at another word length: each of ``base``'s dictionary
+    words becomes the first 2..k chars (seeded) of itself and the next two
+    words, its char n-grams keep those of at most k chars; the type side
+    and the window stay. Its char ``max_len`` is k."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.models.model import Model, WordWeightRecord
+
+    rng = np.random.default_rng(seed + k)
+    src = [w.word for w in base.dict_model]
+    n = rng.integers(2, k + 1, len(src))
+    words = sorted({(src[i] + src[(i + 1) % len(src)]
+                     + src[(i + 2) % len(src)])[:int(n[i])]
+                    for i in range(len(src))})
+    ngrams = [g for g in base.char_ngram_model if len(g.ngram) <= k]
+    gset = {g.ngram for g in ngrams}
+    words = [w for w in words if w not in gset]
+    ends = np.cumsum([len(w) + 1 for w in words])
+    weights = rng.integers(-500, 500, int(ends[-1])).tolist()
+    return Model(ngrams, base.type_ngram_model, [
+        WordWeightRecord(w, weights[e - len(w) - 1:e])
+        for w, e in zip(words, ends)], bias=base.bias,
+        char_window_size=base.char_window_size,
+        type_window_size=base.type_window_size), words
+
+
+def fast_text(rng, B, L, words):
+    """(B, L) int32 pool chars with dictionary words spliced in, as
+    :func:`_random_text` makes them, with the splicing vectorized."""
+    pool = text_pool()
+    cps = pool[rng.integers(0, len(pool), (B, L))].astype("int32")
+    return splice_words(rng, cps, words) if len(words) else cps
+
+
+def variant_batches(B, L, packed, words, sep, n, seed, dev):
+    """``n`` serve batches at (B, L) on ``dev``, [5]'s kinds (ragged rows
+    with some empty ones, or packed rows) from :func:`fast_text`: (uint16
+    codepoints, uint8 types, lengths) each."""
+    import numpy as np
+    import torch
+
+    out = []
+    for i in range(n):
+        if packed:
+            c, t, ln = packed_batch(B, seed + i, words, sep, L,
+                                    text=fast_text)
+        else:
+            rng = np.random.default_rng(seed + i)
+            c = fast_text(rng, B, L, words)
+            ln = rng.integers(1, L + 1, B).astype(np.int32)
+            ln[rng.random(B) < 0.05] = 0  # padding rows
+            ln[: max(1, B // 8)] = L
+            c, t, ln = _with_types(c, np.arange(L)[None, :] < ln[:, None],
+                                   ln)
+        out.append(tuple(torch.from_numpy(x).to(dev) for x in (
+            c.astype("uint16"), t.astype("uint8"), ln)))
+    return out
+
+
+def serve_bound_bytes(batches, B, L):
+    """The least bytes of a serve launch, the mean over ``batches`` ((cps,
+    cts, lengths) each): each live char's codepoint (2 B) and type (1 B)
+    read once, the lengths, the bits written. Chars at or past a row's
+    length are 0 by the wrapper's contract and need no read; the model
+    tables (tens of MB at most) stay in the 50 MB L2 from one launch to
+    the next and are not counted."""
+    live = sum(int(b[2].sum()) for b in batches) / len(batches)
+    return live * (2 + 1) + B * 4 + B * -(-(L - 1) // 8)
+
+
+def variants_phase(pred, words, sep, smi):
+    """Phase [10] (a)-(c): each variant held to its plain version
+    (tolerance 0), the serve A/B at the three shapes, and the crossover
+    of the walk and the hash matcher over char ``max_len`` 2-16. Returns
+    its results for the kernels line."""
+    import numpy as np
+    import torch
+
+    from vaporetto_tpu_torch import Predictor
+    from vaporetto_tpu_torch.ops.boundary import (boundary, launch_geometry,
+                                                  serve_bits_plain)
+    from vaporetto_tpu_torch.ops.hashmatch import HASH_MATCH_MIN_LEN
+
+    dev = pred.device
+    res = {"exact": [], "shapes": [], "crossover": []}
+    tabs = {name: variant_tables(pred.compiled, dev, **kw)
+            for name, kw in VARIANTS.items()}
+    want = {"walk": "char walk, type cache", "hash": "char hash, type cache",
+            "pos": "char walk, type pos", "split": "char walk, type split"}
+    for name, t in tabs.items():
+        if variant_name(t) != want[name]:
+            raise AssertionError(f"{name}: tables took {variant_name(t)}")
+    # (a) exactness: both epilogues, with and without gap scores
+    cases = {"(8192, 256)": random_batch(8192, 256, 41, words[:5000]),
+             "packed (4096, 512)": packed_batch(4096, 42, words[:5000], sep),
+             "edge lengths (67, 256)": random_batch(
+                 67, 256, 43, words[:5000], np.resize(EDGE_LENGTHS, 67))}
+    for name, t in tabs.items():
+        for cname, (c, ty, ln) in cases.items():
+            compare_kernel(t, c, ty, ln, ((), KANJI_DIGIT))
+        res["exact"].append(f"50k model, {name} ({variant_name(t)})")
+    for label, (m, mwords), kw in (
+        ("type trie (window 4)", small_model(3, 4), None),
+        ("1000-char dictionary word", small_model(4, 3, long_word=1000),
+         {"HASHMATCH_MIN": "1"}),
+        ("golden", (golden_model(), []), {"HASHMATCH_MIN": "1",
+                                          "SMALL_TABLES": "1"}),
+        ("golden", (golden_model(), []), {"HASHMATCH_MIN": "1",
+                                          "TYPE_SPLIT": "1"}),
+    ):
+        p = Predictor(m, device=dev)
+        if kw is None:  # the type trie's matcher, at that trie's max_len
+            kw = {"HASHMATCH_MIN": str(p.compiled.type_matcher.max_len)}
+        t = variant_tables(p.compiled, dev, **kw)
+        L = 1280 if "1000" in label else 96
+        c, ty, ln = random_batch(64, L, 44, [w for w in mwords if w])
+        compare_kernel(t, c, ty, ln, ((), KANJI_DIGIT))
+        res["exact"].append(f"{label} {kw} ({variant_name(t)})")
+    if "type trie hash" not in res["exact"][-4] \
+            or "char walk" not in res["exact"][-3]:
+        raise AssertionError("small models took unexpected matchers: "
+                             f"{res['exact'][-4:]}")
+    log("[10] (a) equal to plain (tolerance 0; full and serve epilogues, "
+        "with and without gap scores, wsconst none and KANJI+DIGIT): "
+        + "; ".join(res["exact"]))
+    # (b) serve at the three shapes, each variant on the same batches
+    for B, L, packed in SERVE_SHAPES:
+        n = max(10, -(-60_000_000 // (3 * B * L)))
+        batches = variant_batches(B, L, packed, words[:5000], sep, n,
+                                  300 if packed else 400, dev)
+        row = {"shape": [B, L], "packed": packed,
+               "bound_ms": serve_bound_bytes(batches, B, L)
+               / HBM_BYTES_PER_S * 1e3}
+        for name in ("walk", "hash", "pos", "split", "walk again"):
+            t = tabs[name.split()[0]]
+            ms = cuda_ms(lambda c, ty, ln: boundary(t, c, ty, ln, serve=True),
+                         batches, 50)
+            if name == "walk again":
+                row["walk_again_ms"] = ms
+                continue
+            g = launch_geometry(t, B, L)
+            row[name] = {
+                "ms": ms,
+                "plain_ms": cuda_ms(lambda c, ty, ln: serve_bits_plain(
+                    t, c, ty, ln), batches[:2], 4, hold=False),
+                "warps": g.warps, "blocks_per_sm": g.blocks_per_sm,
+                "smem": g.smem, "staged": g.staged,
+                "staged_bytes": g.fixed}
+        res["shapes"].append(row)
+        log(f"[10] (b) serve ({B}, {L}){' packed' if packed else ''}: "
+            + ", ".join(
+                f"{v} {row[v]['ms']:.4f} ms (plain {row[v]['plain_ms']:.3f};"
+                f" {row[v]['warps']} warps, {row[v]['smem']} B, "
+                f"{row[v]['staged_bytes']} B of tables staged)"
+                for v in ("walk", "hash", "pos", "split"))
+            + f", walk again {row['walk_again_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.5f} ms (bytes, the walk's), {smi}")
+    # (c) the crossover: walk against hash over char max_len 2-16
+    base = big_model()
+    for k in range(2, 17):
+        m, kwords = length_model(base, k)
+        p = Predictor(m, device=dev)
+        if p.compiled.char_matcher.max_len != k:
+            raise AssertionError(f"length model {k}: max_len "
+                                 f"{p.compiled.char_matcher.max_len}")
+        batches = variant_batches(8192, 256, False, kwords[:5000], sep, 3,
+                                  600 + 3 * k, dev)
+        row = {"max_len": k}
+        for name in ("walk", "hash", "walk again"):
+            t = variant_tables(p.compiled, dev, **VARIANTS[name.split()[0]])
+            if name == "hash":
+                if t.char_hm is None:
+                    raise AssertionError(f"max_len {k}: no hash tables")
+                compare_kernel(t, *(x.cpu().numpy().astype(np.int32)
+                                    for x in batches[0]))
+                row["hash_groups"] = t.char_hm.groups
+            row[name.replace(" ", "_") + "_ms"] = cuda_ms(
+                lambda c, ty, ln: boundary(t, c, ty, ln, serve=True),
+                batches, 20, reps=3)
+        res["crossover"].append(row)
+    faster = [r["max_len"] for r in res["crossover"]
+              if r["hash_ms"] < min(r["walk_ms"], r["walk_again_ms"])]
+    # the smallest max_len from which the hash matcher wins at every length
+    wins_from = next((k for k in range(2, 17)
+                      if all(j in faster for j in range(k, 17))), 17)
+    res["hash_wins_from"] = wins_from
+    res["hash_match_min_len"] = HASH_MATCH_MIN_LEN
+    log("[10] (c) serve (8192, 256), walk / hash / walk ms by char max_len: "
+        + "; ".join(f"{r['max_len']}: {r['walk_ms']:.4f} / "
+                    f"{r['hash_ms']:.4f} / {r['walk_again_ms']:.4f} "
+                    f"({r['hash_groups']} probe groups)"
+                    for r in res["crossover"])
+        + f"; the hash matcher is faster at every max_len from {wins_from}"
+        f" (17: at none); HASH_MATCH_MIN_LEN is {HASH_MATCH_MIN_LEN}; {smi}")
+    return res
+
+
+def lean_variants(pred, tpred, lines, tlines, want, twant):
+    """Phase [10] (d): ``LeanServer`` over [4]'s and [4t]'s streams under
+    each switch, bytes equal to [4]'s and [4t]'s; the predictors' tables
+    are rebuilt for each and dropped after. Returns {setting: (boundary
+    launches, [4t] boundary launches, seconds)}."""
+    from vaporetto_tpu_torch import LeanServer
+    from vaporetto_tpu_torch.ops.boundary import boundary
+
+    out = {}
+    for label, kw in (("NO_HASHMATCH=1", {"NO_HASHMATCH": "1"}),
+                      ("HASHMATCH_MIN=1", {"HASHMATCH_MIN": "1"}),
+                      ("SMALL_TABLES=1", {"SMALL_TABLES": "1"}),
+                      ("TYPE_SPLIT=1", {"TYPE_SPLIT": "1"})):
+        t0 = time.perf_counter()
+        counts = []
+        with switches(**kw):
+            for p, ls, w, tags in ((pred, lines, want, False),
+                                   (tpred, tlines, twant, True)):
+                p._device_tables = None
+                p._mesh_tables.clear()
+                names = variant_name(p._tables())
+                sink = io.BytesIO()
+                dev = p.device
+
+                def fallback(raw, p=p, sink=sink, tags=tags):
+                    sink.write(general_path(p, [b.decode("utf-8")
+                                                for b in raw], tags=tags))
+
+                server = LeanServer(p, fallback=fallback, tags=tags)
+                blob = ("\n".join(ls) + "\n").encode("utf-8")
+                sync(dev)
+                boundary.launches = 0
+                server.run(io.BytesIO(blob), sink)
+                sync(dev)
+                if sink.getvalue() != w:
+                    raise AssertionError(f"lean bytes under {label} differ "
+                                         f"({'[4t]' if tags else '[4]'})")
+                if dev.type == "cuda" and (
+                        boundary.launches < server.stats["dispatches"]
+                        or boundary.launches <= 0):
+                    raise AssertionError(f"{label}: launches "
+                                         f"{boundary.launches}")
+                counts.append((names, boundary.launches))
+        for p in (pred, tpred):  # back to the default tables
+            p._device_tables = None
+            p._mesh_tables.clear()
+        out[label] = (counts, time.perf_counter() - t0)
+    log("[10] (d) LeanServer over [4]'s and [4t]'s streams, bytes equal to "
+        "[4]'s and [4t]'s under each switch: " + "; ".join(
+            f"{k}: [4] {c[0][0]}, {c[0][1]} launches, [4t] {c[1][0]}, "
+            f"{c[1][1]} launches ({s:.1f}s)" for k, (c, s) in out.items()))
+    return out
 
 
 def main(argv) -> int:
@@ -3540,6 +3891,14 @@ def main(argv) -> int:
     del prob, tr["for [9]"]
     multi_report(mr, smi, time.perf_counter() - t0, st_["ms"])
 
+    # ---- 10. the boundary kernel's variants ----------------------------
+    t0 = time.perf_counter()
+    n_before = (boundary.launches, tag_kernel.launches)
+    vr = variants_phase(pred, words, sep, smi)
+    boundary.launches, tag_kernel.launches = n_before
+    vr["lean"] = lean_variants(pred, tpred, lines, tlines, want_bytes, twant)
+    log(f"[10] phase seconds {time.perf_counter() - t0:.1f}")
+
     # ---- 8. kernels ---------------------------------------------------
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
     log(json.dumps({"kernels": [{
@@ -3575,6 +3934,22 @@ def main(argv) -> int:
         "ptxas_without_scores": ptxas_summary(ptxas["boundary"], False),
         "ptxas_with_scores": ptxas_summary(ptxas["boundary"], True),
         "serve_shapes": shapes,
+        # phase [10]: the variants the switches select (runtime arguments
+        # of the same instantiations), each held to its plain version
+        "instantiations": len({ln.split(":", 1)[0]
+                               for ln in ptxas["boundary"]}),
+        "ptxas_default": ptxas_summary(ptxas["boundary"], variants=False),
+        "ptxas_variants": ptxas_summary(ptxas["boundary"], variants=True),
+        "build_s": secs["boundary"],
+        "default": variant_name(tabs),
+        "variants": {
+            "shapes": vr["shapes"],
+            "crossover": vr["crossover"],
+            "hash_wins_from": vr["hash_wins_from"],
+            "hash_match_min_len": vr["hash_match_min_len"],
+            "lean_launches": {k: [c[1] for c in v[0]]
+                              for k, v in vr["lean"].items()},
+        },
     }, {
         "name": "tags",
         "route": "cuda",

@@ -103,10 +103,14 @@ def test_jax_artifact_predicts_the_same(name):
             js.fill_tags()
             ts.fill_tags()
             assert ts.write_tokenized_text() == js.write_tokenized_text()
-    # and back: what the port writes from what it read loads in JAX (the
-    # per-start-offset type tables, which no kernel reads, stay behind)
+    # and back: what the port writes from what it read loads in JAX, the
+    # per-start-offset type tables with it
     back, back_tags = jax_deserialize(serialize_compiled(compiled, tags))
-    assert back_tags == tags and back.type_pos_tables is None
+    assert back_tags == tags and back.type_pos_m == want.type_pos_m
+    assert (back.type_pos_tables is None) == (want.type_pos_tables is None)
+    if want.type_pos_tables is not None:
+        np.testing.assert_array_equal(back.type_pos_tables,
+                                      want.type_pos_tables)
     assert back.char_hash_mul == want.char_hash_mul
     for m_got, m_want in ((back.char_matcher, want.char_matcher),
                           (back.type_matcher, want.type_matcher)):

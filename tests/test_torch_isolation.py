@@ -1,8 +1,9 @@
 """The port stands alone: it imports torch, never jax nor vaporetto_tpu.
 
 A fresh interpreter imports ``vaporetto_tpu_torch``, predicts on the CPU
-and runs a CPU ``LeanServer`` stream, and afterwards neither JAX nor the
-JAX package is loaded. An AST scan of every module of the package and of
+(with the walk and the type cache, then with the hash matcher and the split
+type tables) and runs a CPU ``LeanServer`` stream, and afterwards neither
+JAX nor the JAX package is loaded. An AST scan of every module of the package and of
 ``chip_smoke.py`` finds no such import anywhere (lazy imports included).
 The CLIs run as programs in an interpreter where ``jax``, the JAX package
 and ``regex`` cannot be imported at all, as on the card's machine, which
@@ -37,6 +38,13 @@ m = Model([NgramData("この人", [1, -2, 3, 4]), NgramData("人だ", [-5, 6, 7,
 p = vt.Predictor(m, device="cpu")
 s = vt.Sentence.from_raw("この人は地球人だ")
 p.predict(s)
+assert s.boundary_scores_list() == [-22, 54, 58, 43, -54, 68, 48]
+import os  # the CHD hash matcher and the split type tables, as JAX's switches
+os.environ.update(VAPORETTO_TPU_HASHMATCH_MIN="1", VAPORETTO_TPU_TYPE_SPLIT="1")
+q = vt.Predictor(m, device="cpu")
+assert q._tables().char_hm is not None and q._tables().type_split is not None
+s = vt.Sentence.from_raw("この人は地球人だ")
+q.predict(s)
 assert s.boundary_scores_list() == [-22, 54, 58, 43, -54, 68, 48]
 out = io.BytesIO()
 vt.LeanServer(p, batch_lines=4).run(io.BytesIO("この人は地球人だ\nア\n".encode()), out)

@@ -15,7 +15,11 @@ plain version within rtol 1e-5 (``chip_smoke.solver_step_check``), and to
 themselves bit for bit. ``chip_smoke.compare_kernel``
 and ``compare_tags`` hold each kernel's score output too (the boundary
 kernel's gap scores in both epilogues, the tag kernel's class sums where a
-token ends), so every launch-geometry edge case here covers them.
+token ends), so every launch-geometry edge case here covers them. The
+boundary kernel's variants (the hash matcher, the per-offset and split
+type tables, selected by the JAX package's switches through
+``chip_smoke.variant_tables``) are held to their plain versions the same
+way.
 """
 
 import numpy as np
@@ -47,14 +51,19 @@ def _card():
 
 
 @pytest.fixture(scope="module")
-def mid_model():
-    """The 50k model's generator at 5 000 words: (tables, words, pack
-    separator) on the card."""
+def mid_predictor():
+    """The 50k model's generator at 5 000 words: (predictor on the card,
+    words)."""
     _card()
     model = chip_smoke.big_model(5000, 500)
-    pred = Predictor(model)
-    return (pred._tables(), [w.word for w in model.dict_model],
-            pack_separator(pred.compiled))
+    return Predictor(model), [w.word for w in model.dict_model]
+
+
+@pytest.fixture(scope="module")
+def mid_model(mid_predictor):
+    """(tables, words, pack separator) of :func:`mid_predictor`."""
+    pred, words = mid_predictor
+    return pred._tables(), words, pack_separator(pred.compiled)
 
 
 @pytest.mark.cuda
@@ -119,6 +128,56 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         boundary(tabs, torch.zeros((8, 2), dtype=torch.int32, device=dev).t(),
                  None, ln)
+
+
+#: name -> (switches, the tables' matchers and type table, as
+#: chip_smoke.variant_name gives them)
+VARIANT_CASES = {
+    "hash": ({"HASHMATCH_MIN": "1"}, "char hash, type cache"),
+    "pos": ({"NO_HASHMATCH": "1", "SMALL_TABLES": "1"},
+            "char walk, type pos"),
+    "split": ({"NO_HASHMATCH": "1", "TYPE_SPLIT": "1"},
+              "char walk, type split"),
+    "hash split": ({"HASHMATCH_MIN": "1", "TYPE_SPLIT": "1"},
+                   "char hash, type split"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANT_CASES))
+@pytest.mark.parametrize("case", ["edge lengths (67, 256)",
+                                  "packed rows with separators (256, 512)"])
+def test_variants_match_plain_on_card(variant, case, mid_predictor,
+                                      mid_model):
+    """The hash matcher and the per-offset and split type tables (runtime
+    arguments of the same kernel) against their plain versions."""
+    _card()
+    _, words, sep = mid_model
+    pred = mid_predictor[0]
+    kw, want = VARIANT_CASES[variant]
+    vt = chip_smoke.variant_tables(pred.compiled, pred.device, **kw)
+    assert chip_smoke.variant_name(vt) == want
+    cps, cts, lengths = chip_smoke.geometry_batches(words, sep)[case]
+    assert chip_smoke.compare_kernel(vt, cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_hash_matcher_matches_plain_on_card(case):
+    """Every side whose tables build takes the hash matcher (the type
+    trie's too); the 1000-char word keeps the walk."""
+    _card()
+    model, words, B, L = CASES[case]()
+    pred = Predictor(model)
+    tabs = chip_smoke.variant_tables(pred.compiled, pred.device,
+                                     HASHMATCH_MIN="1")
+    assert (tabs.char_hm is None) == (case == "long_word")
+    assert (tabs.type_hm is not None) == (case == "type_trie")
+    cps, cts, lengths = chip_smoke.random_batch(B, L, 5,
+                                                [w for w in words if w])
+    assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
 
 
 #: name -> (tagged model, its tokens, the tid output's layout)

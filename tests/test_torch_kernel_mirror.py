@@ -14,7 +14,15 @@ the kernel's algorithm step for step:
   so that for every end position the longest window is written last;
 - score adds placed by the pattern record's one offset (chunk c at
   offset + 8c), the type window per in-line gap, the serve bit pack, and
-  the gap-score store (the row's score at pad_left + g for every g < L-1).
+  the gap-score store (the row's score at pad_left + g for every g < L-1);
+- on a side that takes the CHD hash matcher, its probes on the kernel's
+  own layout (``HashSide``): per end position, the rolling hash grown one
+  symbol at a time along each group's probe slots (lengths ascending), no
+  probe past a window holding symbol 0, the entry row's pairs compared
+  with the window's (a row's parts may span groups), the id from the
+  row's last int, a later (longer)
+  match overwriting; and the type score from the cache, the per-offset
+  tables or the split tables, read from the kernel's flat copy.
 
 It must equal the port's plain matcher and scores, and the JAX package's
 matcher, exactly (tolerance 0: every value is an int32), on the 50k-style
@@ -30,8 +38,12 @@ import torch
 import chip_smoke
 from vaporetto_tpu.ops import match as jmatch
 from vaporetto_tpu_torch import Predictor
-from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, _pattern_records,
+from vaporetto_tpu.ops import hashmatch as jhm
+from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, SLOTS, TYPE_CACHE,
+                                              TYPE_POS, TYPE_SPLIT,
+                                              _pattern_records,
                                               boundary, boundary_scores_plain,
+                                              hash_side_tables,
                                               serve_bits_plain)
 from vaporetto_tpu_torch.ops.match import (hash_project_fused,
                                            match_longest_fused)
@@ -77,6 +89,84 @@ def _walk(sym, n, walk4, root_base, max_len, root=None, span=SPAN):
     return best
 
 
+M32 = 0xFFFFFFFF
+C1 = 0x9E3779B1
+
+
+def _hash_probe(sym, n, hs):
+    """The kernel's hash probes over one row of ``n`` live positions: the
+    longest pattern id ending at each position (-1: none)."""
+    rows, d, slots = _np(hs.rows), _np(hs.d).tolist(), _np(hs.slots)
+    base = hs.base & M32
+    best = np.full(len(sym), -1, dtype=np.int64)
+    for t in range(n):
+        found, h, p, e, dead, ok = -1, 0, 1, 0, False, False
+        for g in range(hs.groups):
+            if dead:
+                break
+            grp = slots[g * SLOTS:(g + 1) * SLOTS].tolist()  # Python ints
+            row, live = [None] * SLOTS, [False] * SLOTS
+            for i, m in enumerate(grp):
+                k = m[0]
+                if k == 0:
+                    continue
+                while not dead and e < k:
+                    sy = int(sym[t - e]) if t - e >= 0 else 0
+                    dead = sy == 0
+                    h, p, e = (h + sy * p) & M32, (p * base) & M32, e + 1
+                if dead:
+                    continue
+                b = m[1] + (((h * C1) & M32) >> m[2])
+                slot = ((((h * (m[6] & M32)) & M32) >> m[4]) + d[b]) & m[5]
+                row[i], live[i] = rows[m[3] + slot * (m[7] & 0xFF)], True
+            for i, m in enumerate(grp):
+                k, q = m[0], (m[7] >> 8) & 0xFF
+                if q == 0:
+                    ok = live[i]
+                if not ok or k == 0:
+                    continue
+                for u in range(4):
+                    j = 4 * q + u
+                    if 2 * j >= k:
+                        break
+                    hi = int(sym[t - 2 * j - 1]) if 2 * j + 1 < k else 0
+                    ok = ok and row[i][u] == (int(sym[t - 2 * j]) | hi << 16)
+                if ok and m[7] >> 16:
+                    found = row[i][3]
+        best[t] = found
+    return best
+
+
+def _type_gap(ty, t, n, tabs):
+    """Gap t's type score as the kernel reads it (type_gap)."""
+    w, mode = tabs.type_window, tabs.type_mode
+
+    def seq(count):
+        v = 0
+        for i in range(count):
+            j = t + i - (w - 1)
+            v = (v << 3) | (int(ty[j]) if 0 <= j < n else 0)
+        return v
+
+    if mode == TYPE_CACHE:
+        return int(_np(tabs.type_cache)[seq(2 * w)])
+    small = _np(tabs.type_small).astype(np.int64)
+    if mode == TYPE_POS:
+        m = tabs.type_pos_m
+        nn, nc = 2 * w + m - 1, 8 ** m
+        v = seq(nn)
+        return sum(int(small[j * nc + ((v >> (3 * (nn - j - m))) & (nc - 1))])
+                   for j in range(2 * w))
+    assert mode == TYPE_SPLIT
+    maxn = tabs.type_split_maxn
+    mid = 2 * maxn - 2
+    n_side, n_mid = 8 ** w, 8 ** max(mid, 1)
+    v = seq(2 * w)
+    mid_code = (v >> (3 * (w - maxn + 1))) & ((1 << (3 * mid)) - 1)
+    return int(small[v >> (3 * w)] + small[n_side + mid_code]
+               + small[n_side + n_mid + (v & (n_side - 1))])
+
+
 def _add_matches(sc, best, n, pad_left, ids, w8):
     S = len(sc)
     for t in range(n):
@@ -111,21 +201,19 @@ def kernel_mirror(tabs, cps, cts, lengths, span=SPAN):
             kv = hash2[slot]
             sym = np.where(kv[:, 0] == cp, kv[:, 1], 0)
             sym[n:] = 0
-            cm[b] = _walk(sym, n, _np(m.walk4), m.root_base, m.max_len,
-                          _np(m.root), span)
+            cm[b] = (_hash_probe(sym, n, tabs.char_hm) if tabs.char_hm
+                     else _walk(sym, n, _np(m.walk4), m.root_base, m.max_len,
+                                _np(m.root), span))
             _add_matches(scores[b], cm[b], n, tabs.pad_left, _np(m.ids),
                          _np(m.w8))
-        if tabs.type_cache is not None:
-            w, cache = tabs.type_window, _np(tabs.type_cache)
+        if tabs.type_mode:
             for t in range(n - 1):
-                seq = 0
-                for j in range(t - w + 1, t + w + 1):
-                    seq = (seq << 3) | (int(ty[j]) if 0 <= j < n else 0)
-                scores[b, tabs.pad_left + t] += cache[seq]
+                scores[b, tabs.pad_left + t] += _type_gap(ty, t, n, tabs)
         if tabs.type_trie is not None:
             m = tabs.type_trie
-            tm[b] = _walk(ty, n, _np(m.walk4), m.root_base, m.max_len,
-                          None, span)
+            tm[b] = (_hash_probe(ty, n, tabs.type_hm) if tabs.type_hm
+                     else _walk(ty, n, _np(m.walk4), m.root_base, m.max_len,
+                                None, span))
             _add_matches(scores[b], tm[b], n, tabs.pad_left, _np(m.ids),
                          _np(m.w8))
     wrap = ((scores + 2**31) % 2**32 - 2**31).astype(np.int32)
@@ -153,33 +241,48 @@ def mirror_gap_scores(tabs, scores, L):
     return out
 
 
-def _model(name):
-    """(port tables on the CPU, dictionary words)."""
+def _model(name, **switches):
+    """(port tables on the CPU under the switches, dictionary words)."""
     if name == "50k-style":
         model = chip_smoke.big_model(2000, 300)
         words = [w.word for w in model.dict_model]
     elif name == "type trie":
         model, words = chip_smoke.small_model(3, 4)
+    elif name == "16-char words":
+        model, words = chip_smoke.length_model(
+            chip_smoke.big_model(2000, 300), 16)
     else:
         model, words = chip_smoke.small_model(4, 3, long_word=1000)
-    return Predictor(model, device="cpu")._tables(), [w for w in words if w]
+    # the walk unless a case asks for the hash matcher, whatever the
+    # default length
+    switches = {"HASHMATCH_MIN": "99", **switches}
+    tabs = chip_smoke.variant_tables(
+        Predictor(model, device="cpu").compiled, "cpu", **switches)
+    return tabs, [w for w in words if w]
 
 
-#: (model, B, L, row lengths or None for chip_smoke's ragged mix)
+#: (model, B, L, row lengths or None for chip_smoke's ragged mix, switches)
+PADDING_HEAVY = [0, 1, 2, 3, 5, 8, 13, 21, 31, 32, 33, 34, 40, 0, 9, 60]
 CASES = {
-    "50k-style": ("50k-style", 12, 160, None),
-    "type trie": ("type trie", 12, 96, None),
-    "1000-char word": ("1000-char word", 4, 1100, [1100, 1000, 7, 0]),
-    "padding-heavy": ("50k-style", 16, 256,
-                      [0, 1, 2, 3, 5, 8, 13, 21, 31, 32, 33, 34, 40, 0, 9,
-                       60]),
+    "50k-style": ("50k-style", 12, 160, None, {}),
+    "type trie": ("type trie", 12, 96, None, {}),
+    "1000-char word": ("1000-char word", 4, 1100, [1100, 1000, 7, 0], {}),
+    "padding-heavy": ("50k-style", 16, 256, PADDING_HEAVY, {}),
+    "50k-style hash": ("50k-style", 12, 160, None, {"HASHMATCH_MIN": "1"}),
+    "padding-heavy hash": ("50k-style", 16, 256, PADDING_HEAVY,
+                           {"HASHMATCH_MIN": "1"}),
+    "type trie hash": ("type trie", 12, 96, None, {"HASHMATCH_MIN": "1"}),
+    "16-char words hash": ("16-char words", 8, 96, None,
+                           {"HASHMATCH_MIN": "1"}),
+    "50k-style pos": ("50k-style", 8, 96, None, {"SMALL_TABLES": "1"}),
+    "50k-style split": ("50k-style", 8, 96, None, {"TYPE_SPLIT": "1"}),
 }
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
-    name, B, L, lengths = CASES[request.param]
-    tabs, words = _model(name)
+    name, B, L, lengths, switches = CASES[request.param]
+    tabs, words = _model(name, **switches)
     if name == "1000-char word":
         words = [max(words, key=len)]
     cps, cts, ln = chip_smoke.random_batch(B, L, 21, words, lengths)
@@ -205,8 +308,10 @@ def test_mirror_matches_port_and_jax_matchers(case):
     assert (cm >= 0).any()
     if name == "1000-char word":  # the whole word matched, ending at 999
         assert cm[1, 999] >= 0 and m.max_len >= 1000
-    if name == "type trie":
+    if name.startswith("type trie"):
         assert tm is not None and (tm >= 0).any()
+    assert (tabs.char_hm is not None) == name.endswith("hash")
+    assert (tabs.type_hm is not None) == (name == "type trie hash")
 
 
 def test_mirror_matches_plain_scores(case):
@@ -287,3 +392,46 @@ def test_pattern_records_need_chunks_eight_apart():
     np.testing.assert_array_equal(recs, [[0, 2, -3, 0], [2, 1, -1, 0]])
     with pytest.raises(ValueError):
         _pattern_records(first, cnt, np.array([-3, 4, -1]))
+
+
+def test_hash_layout_holds_the_jax_tables():
+    """The kernel's entry rows hold each pattern's pairs and id where the
+    JAX layout's row does; a length's parts take consecutive probe slots,
+    the lengths ascending (at 16 chars, rows of three parts across groups);
+    displacements are 1 byte below 256, else 2."""
+    tabs, _ = _model("16-char words", HASHMATCH_MIN="1")
+    hs = tabs.char_hm
+    hm = hs.plain
+    l2, rows, slots = hm.l2.numpy(), hs.rows.numpy(), hs.slots.numpy()
+    assert hs.d_bytes == 1 and hs.d.nbytes % 16 == 0
+    np.testing.assert_array_equal(hs.d.numpy()[:len(hm.d)],
+                                  hm.d.numpy()[:, 0])
+    seen = []
+    for g in range(hs.groups):
+        grp = slots[g * SLOTS:(g + 1) * SLOTS]
+        for k, _, _, r_off, _, mask, _, flags in grp[grp[:, 0] > 0]:
+            q_n, q = flags & 0xFF, (flags >> 8) & 0xFF
+            meta = next(m for m in hm.metas if m[0] == k)
+            n_pairs = (k + 1) // 2
+            assert q_n == -(-(n_pairs + 1) // 4)
+            region = l2[meta[3]:meta[3] + mask + 1]
+            part = rows[r_off + np.arange(mask + 1) * q_n]  # (slots, 4)
+            cols = np.arange(4 * q, 4 * q + 4)
+            for c_i, c in enumerate(cols):
+                if c < n_pairs:
+                    np.testing.assert_array_equal(part[:, c_i],
+                                                  region[:, 1 + c])
+                elif c == 4 * q_n - 1:  # the id, in the last part
+                    np.testing.assert_array_equal(part[:, c_i], region[:, 0])
+            seen.append((k, q, q_n))
+    q_of = {k: q_n for k, _, q_n in seen}
+    assert [(k, q) for k, q, _ in seen] == [
+        (m[0], q) for m in hm.metas for q in range(q_of[m[0]])]
+    assert max(q_of.values()) == 3 and hs.groups * SLOTS == len(slots)
+    # a displacement above 255 takes two bytes
+    big = jhm.HashMatchTables(
+        d=np.array([[3, 0], [300, 0]], dtype=np.int32), l2=l2[:4],
+        metas=[(1, 0, 31, 0, 30, 3, 5)], base=hm.base, kmax=1, n_pairs=1)
+    wide = hash_side_tables(big, "cpu")
+    assert wide.d_bytes == 2 and wide.d.dtype == torch.int16
+    np.testing.assert_array_equal(wide.d.numpy()[:2], [3, 300])

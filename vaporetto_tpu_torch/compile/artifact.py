@@ -17,11 +17,12 @@ package, the hash projection's keys and symbols in codepoint order; the
 port writes it from those and, for an artifact without the hash
 projection, builds the projection from it.
 
-The per-start-offset type tables (``type_pos_tables``, type cache models
-only) are read by no kernel of either package. The port builds them from
-the compiled model's merged type n-grams when it writes an artifact, and
-skips them when it reads one, so an artifact it reads and writes again
-lacks them; both readers treat them as optional.
+The per-start-offset type tables (``type_pos_tables`` and
+``type_pos_m``, type cache models only), which both packages' boundary
+paths read under ``VAPORETTO_TPU_SMALL_TABLES=1``, travel with the
+compiled model both ways. As in the JAX package, the split type tables
+(``VAPORETTO_TPU_TYPE_SPLIT=1``) do not: a model read from an artifact has
+none, and takes the next type table in the switches' order.
 """
 
 from __future__ import annotations
@@ -69,40 +70,6 @@ def _unpack_tag_weight(rows, flat, n_tokens, n_rel):
     return out
 
 
-def _type_pos_tables(
-    ngrams: List[Tuple[Tuple[int, ...], List[int]]], window_size: int
-) -> Optional[Tuple[np.ndarray, int]]:
-    """The type window scores as per-start-offset tables.
-
-    ``score(gap) = sum_j T[j, code(types[start_j .. start_j+M-1])]`` where
-    each n-gram occurrence (start j, length n <= M) contributes its weight
-    to every code whose first n symbols equal the n-gram — numerically
-    the 8^(2w) cache table as 2w tables of 8^M entries. None when M > 4,
-    M > 2w or a sum leaves int32.
-    """
-    seq = 2 * window_size
-    M = max((len(g) for g, _ in ngrams), default=1)
-    if M > 4 or M > seq:
-        return None
-    tables = np.zeros((seq, 8**M), dtype=np.int64)
-    for ngram, weights in ngrams:
-        n = len(ngram)
-        prefix = 0
-        for a in ngram:
-            prefix = prefix * 8 + a
-        # codes with this prefix: prefix * 8^(M-n) + anything
-        lo = prefix * 8 ** (M - n)
-        hi = lo + 8 ** (M - n)
-        for j in range(0, seq - n + 1):
-            w_idx = seq - (j + n)
-            if w_idx >= len(weights):
-                continue
-            tables[j, lo:hi] += weights[w_idx]
-    if (np.abs(tables) > 2**31 - 1).any():
-        return None
-    return tables.astype(np.int32), M
-
-
 def _char_sym_sparse(c: CompiledModel) -> Tuple[np.ndarray, np.ndarray]:
     """(codepoints int32 ascending, their symbols int32): the nonzero
     entries of the dense symbol table, from the hash projection."""
@@ -147,11 +114,9 @@ def serialize_compiled(c: CompiledModel, predict_tags: bool) -> bytes:
         manifest["char_hash_shift"] = c.char_hash_shift
         arrays["char_hash_keys"] = c.char_hash_keys
         arrays["char_hash_syms"] = c.char_hash_syms
-    type_pos = (_type_pos_tables(c.type_ngrams, c.type_window_size)
-                if c.type_ngrams is not None else None)
-    if type_pos is not None:
-        manifest["type_pos_m"] = type_pos[1]
-        arrays["type_pos_tables"] = type_pos[0]
+    if c.type_pos_tables is not None:
+        manifest["type_pos_m"] = c.type_pos_m
+        arrays["type_pos_tables"] = c.type_pos_tables
     if c.tag_meta is not None:
         manifest["tag_meta"] = {
             "tokens": sorted(c.tag_meta.token_ids, key=c.tag_meta.token_ids.get),
@@ -240,5 +205,7 @@ def deserialize_compiled(data: bytes) -> Tuple[CompiledModel, bool]:
         char_hash_shift=hash_shift,
         char_hash_keys=hash_keys,
         char_hash_syms=hash_syms,
+        type_pos_tables=arrays.get("type_pos_tables"),
+        type_pos_m=manifest.get("type_pos_m", 0),
     )
     return compiled, manifest["predict_tags"]

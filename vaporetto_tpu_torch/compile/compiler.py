@@ -82,10 +82,14 @@ class CompiledModel:
     char_hash_syms: Optional[np.ndarray] = None  # int32[P]
     tag_meta: Optional[CompiledTagMeta] = None
     n_tags: int = 0
-    # the merged type n-grams (type cache models only): no kernel reads
-    # them; the compiled-model artifact builds from them the per-start-offset
-    # tables that the JAX package's artifact carries (compile/artifact.py)
-    type_ngrams: Optional[List[Tuple[Tuple[int, ...], List[int]]]] = None
+    # the type cache as 2w per-start-offset tables of 8^M entries
+    # (VAPORETTO_TPU_SMALL_TABLES=1; type cache models only)
+    type_pos_tables: Optional[np.ndarray] = None  # int32 (2w, 8**M)
+    type_pos_m: int = 0
+    # ... and as left, crossing and right tables (VAPORETTO_TPU_TYPE_SPLIT=1)
+    type_split_tables: Optional[Tuple[np.ndarray, np.ndarray,
+                                      np.ndarray]] = None
+    type_split_maxn: int = 0
 
 
 def _build_char_hash(cps_sorted: np.ndarray, sym_ids: np.ndarray):
@@ -310,6 +314,100 @@ def _build_type_cache_table(
     return scores.astype(np.int32)
 
 
+def _build_type_pos_tables(
+    ngrams: List[Tuple[Tuple[int, ...], List[int]]], window_size: int
+) -> Optional[Tuple[np.ndarray, int]]:
+    """The type window scores as per-start-offset tables.
+
+    ``score(gap) = sum_j T[j, code(types[start_j .. start_j+M-1])]``: each
+    n-gram occurrence (start j, length n <= M) adds its weight to every
+    code whose first n symbols are the n-gram, so the 2w tables of 8^M
+    entries give the 8^(2w) cache table's scores. None when M > 4, M > 2w
+    or a sum leaves int32.
+    """
+    seq = 2 * window_size
+    M = max((len(g) for g, _ in ngrams), default=1)
+    if M > 4 or M > seq:
+        return None
+    tables = np.zeros((seq, 8**M), dtype=np.int64)
+    for ngram, weights in ngrams:
+        n = len(ngram)
+        prefix = 0
+        for a in ngram:
+            prefix = prefix * 8 + a
+        # codes with this prefix: prefix * 8^(M-n) + anything
+        lo = prefix * 8 ** (M - n)
+        hi = lo + 8 ** (M - n)
+        for j in range(0, seq - n + 1):
+            w_idx = seq - (j + n)
+            if w_idx >= len(weights):
+                continue
+            tables[j, lo:hi] += weights[w_idx]
+    if (np.abs(tables) > 2**31 - 1).any():
+        return None
+    return tables.astype(np.int32), M
+
+
+def _build_type_split_tables(
+    ngrams: List[Tuple[Tuple[int, ...], List[int]]], window_size: int
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, int]]:
+    """The type cache table as three small tables.
+
+    Every n-gram occurrence in the 2w window lies in its left half
+    (window[0:w]), in its right half (window[w:2w]), or crosses the middle
+    within window[w-maxn+1 : w+maxn-1], so
+
+        score(gap) = TL[code(window[0:w])] + TM[code(mid)] +
+                     TR[code(window[w:2w])]
+
+    with 8^w, 8^(2*maxn-2) and 8^w entries (512 / 4096 / 512 at w = maxn =
+    3). The same occurrences as :func:`_build_type_cache_table`,
+    partitioned. None when maxn is 0 or exceeds w, or a sum leaves int32.
+    """
+    w = window_size
+    maxn = max((len(g) for g, _ in ngrams), default=0)
+    if maxn == 0 or maxn > w:
+        return None
+    seq = 2 * w
+    mid_lo = w - maxn + 1
+    mid_len = 2 * maxn - 2
+
+    def accumulate(n_chars, occs):
+        n_codes = 8 ** max(n_chars, 1)
+        ids = np.arange(n_codes, dtype=np.int64)
+        syms = [(ids >> (3 * (n_chars - 1 - k))) & 7 for k in range(n_chars)]
+        out = np.zeros(n_codes, dtype=np.int64)
+        for local_start, ngram, weight in occs:
+            hit = np.ones(n_codes, dtype=bool)
+            for jj, a in enumerate(ngram):
+                hit &= syms[local_start + jj] == a
+            out[hit] += weight
+        return out
+
+    occ_l, occ_m, occ_r = [], [], []
+    for ngram, weights in ngrams:
+        n = len(ngram)
+        for end in range(n, seq + 1):
+            w_idx = seq - end
+            if w_idx >= len(weights):
+                continue
+            j = end - n
+            if end <= w:
+                occ_l.append((j, ngram, weights[w_idx]))
+            elif j >= w:
+                occ_r.append((j - w, ngram, weights[w_idx]))
+            else:
+                occ_m.append((j - mid_lo, ngram, weights[w_idx]))
+    tl = accumulate(w, occ_l)
+    tm = accumulate(mid_len, occ_m)
+    tr = accumulate(w, occ_r)
+    for t in (tl, tm, tr):
+        if (np.abs(t) > 2**31 - 1).any():
+            return None
+    return (tl.astype(np.int32), tm.astype(np.int32),
+            tr.astype(np.int32), maxn)
+
+
 def _merge_type_ngrams(model: Model):
     """Duplicate type n-grams summed position-wise (the cache variant
     enumerates raw overlapping occurrences, so no suffix merge)."""
@@ -352,7 +450,7 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
 
     type_matcher = None
     type_cache_table = None
-    type_ngrams = None
+    type_pos = type_split = None
     if model.type_ngram_model and model.type_window_size > 0:
         if (not n_tag_models
                 and model.type_window_size <= CACHE_MAX_WINDOW_SIZE):
@@ -360,6 +458,10 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
             type_cache_table = _build_type_cache_table(
                 type_ngrams, model.type_window_size
             )
+            type_pos = _build_type_pos_tables(type_ngrams,
+                                              model.type_window_size)
+            type_split = _build_type_split_tables(type_ngrams,
+                                                  model.type_window_size)
         else:
             type_matcher = _compile_type_trie(model, n_tag_models)
 
@@ -398,7 +500,10 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
         char_hash_syms=char_hash[3] if char_hash else None,
         tag_meta=tag_meta,
         n_tags=n_tags,
-        type_ngrams=type_ngrams,
+        type_pos_tables=type_pos[0] if type_pos else None,
+        type_pos_m=type_pos[1] if type_pos else 0,
+        type_split_tables=type_split[:3] if type_split else None,
+        type_split_maxn=type_split[3] if type_split else 0,
     )
 
 

@@ -6,8 +6,7 @@ flattened with ``dataclasses.asdict`` — so one set of tables can drive
 both implementations. The tag side comes across too: ``tag_meta`` (a
 dict or a :class:`CompiledTagMeta`), ``n_tags`` and each matcher's
 ``tag_weight`` (lists of {pattern id: weights} dicts, kept as they are).
-Fields the port does not use (the dense symbol table, experimental type
-decompositions) are ignored.
+Fields the port does not use (the dense symbol table) are ignored.
 """
 
 from __future__ import annotations
@@ -55,6 +54,8 @@ def compiled_from_numpy(fields: Dict[str, Any]) -> CompiledModel:
             kw[f.name] = _tag_meta(v)
         elif v is None:
             kw[f.name] = None
+        elif f.name == "type_split_tables":
+            kw[f.name] = tuple(np.asarray(x) for x in v)
         elif f.type == "int":
             kw[f.name] = int(v)
         else:

@@ -82,9 +82,39 @@
 //    places them all); a weight chunk is 32 B. The plain version keeps
 //    reading the unpacked arrays.
 // 6. Registers: __launch_bounds__(MAX_THREADS, 1) caps a thread at 64
-//    registers so that 32 warps fit one SM; WALKS, ADDS, ADD_LOADS and TEXT
-//    are the widest batches with which ptxas reports no spills (the build
-//    log keeps its report; chip_smoke.py prints it).
+//    registers so that 32 warps fit one SM; WALKS, ADDS, ADD_LOADS, TEXT
+//    and SLOTS are the widest batches with which ptxas reports no spills
+//    (the build log keeps its report; chip_smoke.py prints it; SLOTS 3 and
+//    4 spilled 56-152 bytes).
+//
+// 7. The JAX package's variants, chosen per model by its switches when the
+//    host builds the tables (ops/boundary.py boundary_tables), run by the
+//    instantiations with VARIANTS; the others compile the walk and the type
+//    cache alone. (Compiled into every instantiation, the probes made all of
+//    them spill, and the small tables' pass, never run by the default
+//    model, cost its walk 3-5%: see PERF.md.)
+//    - the CHD hash matcher (JAX ops/hashmatch.py) in place of the walk on
+//      a side whose tables build (hash_row). Each lane takes end positions
+//      t < len and looks every pattern length k up directly: the window's
+//      rolling hash, grown one symbol at a time from the row's symbols in
+//      shared memory, picks a bucket, the bucket's displacement (1 or 2
+//      bytes, staged with the hot tables when they fit) picks the entry
+//      row, whose pattern symbols are compared with the window's and whose
+//      last int is the pattern id. The probes of one position are
+//      independent, so a group of SLOTS row loads (16 B each; a length of 7
+//      or more takes two or three) is in flight at once, where the walk's
+//      steps wait on each other; a window holding symbol 0 (padding,
+//      separator, OOV, or before the row start) ends the lengths, since
+//      pattern symbols are >= 1. Lengths go ascending and a later match
+//      overwrites, so the longest wins, and best[t] holds what the walk
+//      stores there.
+//    - the type window score from the 8^(2w) cache (global memory), from
+//      2w per-offset tables of 8^M entries, or from left, crossing and right
+//      tables (type_gap; the mode a warp-uniform runtime argument), the
+//      small tables staged when they fit. The cache is gathered inside the
+//      walk (or the probes), where its latency hides; the small tables, in
+//      shared memory, have their own pass over the row (add_type_small),
+//      which leaves the walk's registers as they were.
 //
 // Tensor cores, wgmma and TMA tiles have nothing to work on here: the
 // kernel multiplies no matrices and its reads are gathers, not tiles. What
@@ -117,7 +147,7 @@ struct VtBoundaryArgs {
   const int4* c_ids;        // (n_ids,) (first row, row count, offset, 0)
   const int4* c_w8;         // (n_rows, 2): 8 int32 weights per row
   // type cache (null: none)
-  const int32_t* t_cache;   // (8^(2w),)
+  const int32_t* t_cache;   // (8^(2w),); null unless t_mode is 1
   int64_t t_window;
   // type trie (null: none)
   const int4* t_walk;
@@ -141,6 +171,24 @@ struct VtBoundaryArgs {
   int64_t row_bytes;
   uint32_t* sched;          // (2,) next row, finished warps; 0 between
                             // launches
+  // (the variants' fields last: the fields above keep their offsets)
+  // hash matcher of the char side / of the type trie (rows null: the walk)
+  const int4* c_hm_rows;    // entry rows: pairs, -1, the id last
+  const void* c_hm_d;       // displacements, c_hm_d_bytes each
+  int64_t c_hm_d_bytes, c_hm_d_size;  // 1 or 2; bytes, a multiple of 16
+  const int* c_hm_slots;    // (groups * SLOTS, 8) probe slots
+  int64_t c_hm_groups, c_hm_base;
+  const int4* t_hm_rows;
+  const void* t_hm_d;
+  int64_t t_hm_d_bytes, t_hm_d_size;
+  const int* t_hm_slots;
+  int64_t t_hm_groups, t_hm_base;
+  // type table: 0 none, 1 cache (t_cache), 2 per-offset, 3 split (t_small)
+  int64_t t_mode;
+  const int32_t* t_small;   // 2w tables of 8^M, or left | crossing | right
+  int64_t t_small_size, t_m;  // bytes (a multiple of 16); M, or maxn
+  // byte offsets into dynamic shared memory (-1: read from global memory)
+  int64_t sm_c_d, sm_t_d, sm_small, sm_c_slots, sm_t_slots, sm_rows;
 };
 
 namespace {
@@ -155,7 +203,9 @@ constexpr int WALKS = 2;      // walks a lane advances together
 constexpr int ADDS = 2;       // pattern records a lane gathers together
 constexpr int ADD_LOADS = 2;  // first weight chunks gathered together
 constexpr int TEXT = 4;       // chars a lane loads together
+constexpr int SLOTS = 2;      // hash probe rows a lane loads together
 constexpr int NO_CHILD = -2;  // below every output link (>= -1)
+constexpr uint32_t HASH_C1 = 0x9E3779B1u;  // the CHD bucket multiplier
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int64_t align16(int64_t n) {
@@ -190,16 +240,54 @@ __device__ __forceinline__ int2 table_ld(const int2* p) {
   return __ldg(p);
 }
 
-// Type window index of gap t: chars t-w+1 .. t+w, 3 bits each, positions
-// outside the line reading type 0.
+// The n types from char t-w+1 on, 3 bits each, the first highest;
+// positions outside the line read type 0. n = 2w is gap t's window.
 __device__ __forceinline__ uint32_t type_window(const uint8_t* ty, int t,
-                                                int len, int w) {
+                                                int len, int w, int n) {
   uint32_t seq = 0;
-  for (int i = 0; i < 2 * w; ++i) {
+  for (int i = 0; i < n; ++i) {
     const int j = t + i - (w - 1);
     seq = (seq << 3) | ((j >= 0 && j < len) ? ty[j] : 0u);
   }
   return seq;
+}
+
+// The small type tables: 2w per-offset tables or left | crossing | right.
+struct TypeTabs {
+  int mode;               // 2 per-offset, 3 split
+  const int32_t* small;   // shared or global memory (generic loads)
+  int w, m;               // window; M (per-offset) or maxn (split)
+};
+
+// Gap t's type window score from the small tables. Per-offset: window
+// start j's code
+// is the M types from window position j on (types past the window too; the
+// tables ignore them). Split: the left half, the crossing middle
+// (positions w-maxn+1 .. w+maxn-2) and the right half. Sums wrap.
+__device__ __forceinline__ int type_gap(const uint8_t* ty, int t, int len,
+                                        const TypeTabs& tt) {
+  const int w = tt.w;
+  if (tt.mode == 2) {
+    const int n = 2 * w + tt.m - 1;
+    const uint32_t seq = type_window(ty, t, len, w, n);
+    const int nc = 1 << (3 * tt.m);
+    uint32_t v = 0;
+    for (int j = 0; j < 2 * w; ++j)
+      v += static_cast<uint32_t>(
+          tt.small[j * nc + ((seq >> (3 * (n - j - tt.m))) & (nc - 1))]);
+    return static_cast<int>(v);
+  }
+  const uint32_t seq = type_window(ty, t, len, w, 2 * w);
+  const int mid = 2 * tt.m - 2;
+  const int n_side = 1 << (3 * w);
+  const int n_mid = 1 << (3 * max(mid, 1));
+  const uint32_t mid_code =
+      (seq >> (3 * (w - tt.m + 1))) & ((1u << (3 * mid)) - 1);
+  const uint32_t v = static_cast<uint32_t>(tt.small[seq >> (3 * w)]) +
+                     static_cast<uint32_t>(tt.small[n_side + mid_code]) +
+                     static_cast<uint32_t>(
+                         tt.small[n_side + n_mid + (seq & (n_side - 1))]);
+  return static_cast<int>(v);
 }
 
 // The forward walks of one row: from every start s < len, advance through
@@ -234,7 +322,7 @@ __device__ __forceinline__ void walk_row(
       tv[k] = 0;
       if (s >= len) continue;
       if (cache != nullptr && s < len - 1)
-        tv[k] = __ldg(cache + type_window(ty, s, len, w));
+        tv[k] = __ldg(cache + type_window(ty, s, len, w, 2 * w));
       if (ROOT) {
         const int sy = sym[s];
         const int2 c = table_ld<STAGED>(root + sy);
@@ -289,6 +377,92 @@ __device__ __forceinline__ void walk_row(
         if (s0 + 32 * k < len - 1)
           atomicAdd(&sc[pad_left + s0 + 32 * k], tv[k]);
     }
+  }
+}
+
+// One hash matcher side, as the kernel reads it.
+struct HashSide {
+  const int4* rows;   // entry rows (global memory)
+  const void* d;      // displacements (shared or global memory)
+  int d_bytes;        // 1 or 2
+  const int* slots;   // probe slots (shared memory)
+  int groups;
+  uint32_t base;
+};
+
+// The longest pattern id ending at every position t < len, by the CHD
+// tables, into best[t] (-1: none); lane l takes t = l, l + 32, ... With a
+// type cache (cache non-null), gap t's score is gathered first and added
+// last, as walk_row does. The probe slots list the lengths ascending,
+// SLOTS a group (a length of Q parts takes Q consecutive slots, which may
+// run on into the next group; k == 0: unused), so the rolling hash grows
+// along them and a match found later is longer.
+__device__ __forceinline__ void hash_row(const int32_t* sym, int32_t* best,
+                                         int len, int lane,
+                                         const HashSide& hs,
+                                         const uint8_t* ty,
+                                         const int32_t* __restrict__ cache,
+                                         int w, int* sc, int pad_left) {
+  for (int t = lane; t < len; t += 32) {
+    const int tv =
+        (cache != nullptr && t < len - 1)
+            ? __ldg(cache + type_window(ty, t, len, w, 2 * w))
+            : 0;
+    int found = -1;
+    uint32_t h = 0, p = 1;  // h: hash of the e symbols ending at t
+    int e = 0;
+    bool dead = false;  // a window this long holds symbol 0
+    bool ok = false;    // the current length's parts so far all match
+    for (int g = 0; g < hs.groups && !dead; ++g) {
+      const int* sl = hs.slots + g * SLOTS * 8;
+      int4 row[SLOTS];
+      bool live[SLOTS];
+#pragma unroll
+      for (int i = 0; i < SLOTS; ++i) {  // every load of the group first
+        const int* m = sl + 8 * i;
+        const int k = m[0];
+        live[i] = false;
+        if (k == 0) continue;
+        while (!dead && e < k) {
+          const int sy = t - e >= 0 ? sym[t - e] : 0;
+          dead = sy == 0;
+          h += static_cast<uint32_t>(sy) * p;
+          p *= hs.base;
+          ++e;
+        }
+        if (dead) continue;
+        const uint32_t b = static_cast<uint32_t>(m[1]) +
+                           ((h * HASH_C1) >> m[2]);
+        const uint32_t dv =
+            hs.d_bytes == 1 ? static_cast<const uint8_t*>(hs.d)[b]
+                            : static_cast<const uint16_t*>(hs.d)[b];
+        const uint32_t slot =
+            (((h * static_cast<uint32_t>(m[6])) >> m[4]) + dv) &
+            static_cast<uint32_t>(m[5]);
+        row[i] = __ldg(hs.rows + m[3] +
+                       static_cast<int64_t>(slot) * (m[7] & 0xff));
+        live[i] = true;
+      }
+#pragma unroll
+      for (int i = 0; i < SLOTS; ++i) {
+        const int* m = sl + 8 * i;
+        const int k = m[0];
+        const int q = (m[7] >> 8) & 0xff;
+        if (q == 0) ok = live[i];  // a length's first part
+        if (!ok || k == 0) continue;
+        const int c[4] = {row[i].x, row[i].y, row[i].z, row[i].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = 4 * q + u;  // pair j: symbols 2j and 2j+1 from t
+          if (2 * j >= k) break;
+          const int hi = 2 * j + 1 < k ? sym[t - 2 * j - 1] : 0;
+          ok = ok && c[u] == (sym[t - 2 * j] | (hi << 16));
+        }
+        if (ok && (m[7] >> 16)) found = row[i].w;  // the id: last int
+      }
+    }
+    best[t] = found;
+    if (tv != 0) atomicAdd(&sc[pad_left + t], tv);
   }
 }
 
@@ -353,7 +527,7 @@ __device__ __forceinline__ void add_matches(
 }
 
 // Type window scores of the in-line gaps t < len - 1, for a model without a
-// char side (walk_row adds them otherwise).
+// char side (walk_row and hash_row add them otherwise).
 __device__ __forceinline__ void add_type_cache(
     const uint8_t* ty, int len, int lane, int* sc, int pad_left,
     const int32_t* __restrict__ cache, int w) {
@@ -362,7 +536,8 @@ __device__ __forceinline__ void add_type_cache(
 #pragma unroll
     for (int k = 0; k < ADDS; ++k) {
       const int t = t0 + 32 * k;
-      v[k] = t < len - 1 ? __ldg(cache + type_window(ty, t, len, w)) : 0;
+      v[k] = t < len - 1 ? __ldg(cache + type_window(ty, t, len, w, 2 * w))
+                         : 0;
     }
 #pragma unroll
     for (int k = 0; k < ADDS; ++k) {
@@ -372,7 +547,65 @@ __device__ __forceinline__ void add_type_cache(
   }
 }
 
-template <typename CP, bool STAGED, bool SCRATCH, bool GAP>
+// The per-offset or split type tables' scores of the in-line gaps, in a pass
+// of their own, a gap at a time: their reads are mostly shared memory, so
+// there is no latency to hide, and the walk's registers stay as they are.
+__device__ __forceinline__ void add_type_small(const uint8_t* ty, int len,
+                                               int lane, int* sc,
+                                               int pad_left,
+                                               const TypeTabs& tt) {
+  for (int t = lane; t < len - 1; t += 32)
+    atomicAdd(&sc[pad_left + t], type_gap(ty, t, len, tt));
+}
+
+// Copies `bytes` (a multiple of 16) from src to smem + off (off < 0 or no
+// src: nothing), asynchronously; the caller commits and waits.
+__device__ __forceinline__ void stage_async(unsigned char* smem, int64_t off,
+                                            const void* src, int64_t bytes) {
+  if (off < 0 || src == nullptr) return;
+  for (int64_t i = threadIdx.x; 16 * i < bytes; i += blockDim.x)
+    __pipeline_memcpy_async(smem + off + 16 * i,
+                            static_cast<const unsigned char*>(src) + 16 * i,
+                            16);
+}
+
+// A table staged at smem + off, else read from global memory at src. The
+// views below are built where they are used, from the kernel's parameters
+// (constant memory), so that no register holds them across the row loop.
+__device__ __forceinline__ const void* staged_or(unsigned char* smem,
+                                                 int64_t off,
+                                                 const void* src) {
+  return off >= 0 ? static_cast<const void*>(smem + off) : src;
+}
+
+__device__ __forceinline__ HashSide char_hash(const Args& a,
+                                              unsigned char* smem) {
+  return {a.c_hm_rows, staged_or(smem, a.sm_c_d, a.c_hm_d),
+          static_cast<int>(a.c_hm_d_bytes),
+          static_cast<const int*>(staged_or(smem, a.sm_c_slots,
+                                            a.c_hm_slots)),
+          static_cast<int>(a.c_hm_groups),
+          static_cast<uint32_t>(a.c_hm_base)};
+}
+
+__device__ __forceinline__ HashSide type_hash(const Args& a,
+                                              unsigned char* smem) {
+  return {a.t_hm_rows, staged_or(smem, a.sm_t_d, a.t_hm_d),
+          static_cast<int>(a.t_hm_d_bytes),
+          static_cast<const int*>(staged_or(smem, a.sm_t_slots,
+                                            a.t_hm_slots)),
+          static_cast<int>(a.t_hm_groups),
+          static_cast<uint32_t>(a.t_hm_base)};
+}
+
+__device__ __forceinline__ TypeTabs type_tabs(const Args& a,
+                                              unsigned char* smem) {
+  return {static_cast<int>(a.t_mode),
+          static_cast<const int32_t*>(staged_or(smem, a.sm_small, a.t_small)),
+          static_cast<int>(a.t_window), static_cast<int>(a.t_m)};
+}
+
+template <typename CP, bool STAGED, bool SCRATCH, bool GAP, bool VARIANTS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     boundary_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -384,12 +617,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int pad_left = static_cast<int>(a.pad_left);
   const bool char_side = a.hash2 != nullptr;
 
-  // ---- hot tables, once per block: asynchronous copies, waited for
+  // ---- staged tables, once per block: asynchronous copies, waited for
   // after the first row has been fetched ------------------------------
   const int2* hash = a.hash2;
   const int2* root = a.c_root;
   unsigned char* rows = smem;
-  if (STAGED) {
+  if (STAGED) {  // the hash table and the root-child records
     int2* h = reinterpret_cast<int2*>(smem);
     const int P = static_cast<int>(a.hash_slots);  // a power of two >= 16
     const int R = static_cast<int>(a.c_root_n);
@@ -401,6 +634,19 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     hash = h;
     root = h + P;
     rows += align16(8 * static_cast<int64_t>(P + R));
+  }
+  if (VARIANTS) {
+    // the displacements, the small type tables and the probe slots, each a
+    // multiple of 16 bytes, where the host placed them (-1: not staged)
+    stage_async(smem, a.sm_c_d, a.c_hm_d, a.c_hm_d_size);
+    stage_async(smem, a.sm_c_slots, a.c_hm_slots,
+                a.c_hm_groups * SLOTS * 32);
+    stage_async(smem, a.sm_t_d, a.t_hm_d, a.t_hm_d_size);
+    stage_async(smem, a.sm_t_slots, a.t_hm_slots,
+                a.t_hm_groups * SLOTS * 32);
+    stage_async(smem, a.sm_small, a.t_small, a.t_small_size);
+    __pipeline_commit();
+    rows = smem + a.sm_rows;
   }
 
   // ---- this warp's row working set -----------------------------------
@@ -426,7 +672,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   };
   int r = next_row();
   int len_r = r < a.B ? a.lengths[r] : 0;
-  if (STAGED) {
+  if (STAGED || VARIANTS) {
     __pipeline_wait_prior(0);
     __syncthreads();
   }
@@ -469,14 +715,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
     __syncwarp();
 
-    // ---- char side: walks, then chunk adds; the type cache ------------
+    // ---- char side: walks or hash probes, then chunk adds; the type
+    // table ----------------------------------------------------------------
+    // (t_cache is null unless the type table is the cache)
     if (char_side) {
-      walk_row<STAGED, true>(sym, best, len, lane, a.c_walk,
-                             static_cast<int>(a.c_slots),
-                             static_cast<int>(a.c_root_base),
-                             static_cast<int>(a.c_max_len), root, ty,
-                             a.t_cache, static_cast<int>(a.t_window), sc,
-                             pad_left);
+      if (VARIANTS && a.c_hm_rows)
+        hash_row(sym, best, len, lane, char_hash(a, smem), ty, a.t_cache,
+                 static_cast<int>(a.t_window), sc, pad_left);
+      else
+        walk_row<STAGED, true>(sym, best, len, lane, a.c_walk,
+                               static_cast<int>(a.c_slots),
+                               static_cast<int>(a.c_root_base),
+                               static_cast<int>(a.c_max_len), root, ty,
+                               a.t_cache, static_cast<int>(a.t_window), sc,
+                               pad_left);
       __syncwarp();
       add_matches(best, len, lane, sc, S, pad_left, a.c_ids, a.c_w8,
                   a.char_match ? a.char_match + row0 : nullptr);
@@ -484,6 +736,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       add_type_cache(ty, len, lane, sc, pad_left, a.t_cache,
                      static_cast<int>(a.t_window));
     }
+    if (VARIANTS && a.t_mode > 1)
+      add_type_small(ty, len, lane, sc, pad_left, type_tabs(a, smem));
 
     // ---- type trie side -----------------------------------------------
     if (a.t_walk) {
@@ -493,11 +747,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         best[t] = -1;
       }
       __syncwarp();
-      walk_row<STAGED, false>(sym, best, len, lane, a.t_walk,
-                              static_cast<int>(a.t_slots),
-                              static_cast<int>(a.t_root_base),
-                              static_cast<int>(a.t_max_len), nullptr, ty,
-                              nullptr, 0, sc, pad_left);
+      if (VARIANTS && a.t_hm_rows)
+        hash_row(sym, best, len, lane, type_hash(a, smem), ty, nullptr, 0,
+                 sc, pad_left);
+      else
+        walk_row<STAGED, false>(sym, best, len, lane, a.t_walk,
+                                static_cast<int>(a.t_slots),
+                                static_cast<int>(a.t_root_base),
+                                static_cast<int>(a.t_max_len), nullptr, ty,
+                                nullptr, 0, sc, pad_left);
       __syncwarp();
       add_matches(best, len, lane, sc, S, pad_left, a.t_ids, a.t_w8,
                   a.type_match ? a.type_match + row0 : nullptr);
@@ -553,26 +811,33 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
+template <typename CP, bool STAGED, bool SCRATCH, bool GAP>
+const void* kernel_of(bool variants) {
+  return variants ? reinterpret_cast<const void*>(
+                        boundary_kernel<CP, STAGED, SCRATCH, GAP, true>)
+                  : reinterpret_cast<const void*>(
+                        boundary_kernel<CP, STAGED, SCRATCH, GAP, false>);
+}
+
 template <typename CP, bool STAGED, bool SCRATCH>
-const void* kernel_of(bool gap) {
-  return gap ? reinterpret_cast<const void*>(
-                   boundary_kernel<CP, STAGED, SCRATCH, true>)
-             : reinterpret_cast<const void*>(
-                   boundary_kernel<CP, STAGED, SCRATCH, false>);
+const void* kernel_of(bool gap, bool variants) {
+  return gap ? kernel_of<CP, STAGED, SCRATCH, true>(variants)
+             : kernel_of<CP, STAGED, SCRATCH, false>(variants);
 }
 
 template <typename CP, bool STAGED>
-const void* kernel_of(bool scratch, bool gap) {
-  return scratch ? kernel_of<CP, STAGED, true>(gap)
-                 : kernel_of<CP, STAGED, false>(gap);
+const void* kernel_of(bool scratch, bool gap, bool variants) {
+  return scratch ? kernel_of<CP, STAGED, true>(gap, variants)
+                 : kernel_of<CP, STAGED, false>(gap, variants);
 }
 
-const void* pick(int cps_u16, int staged, int scratch, int gap) {
+const void* pick(int cps_u16, int staged, int scratch, int gap,
+                 int variants) {
   if (cps_u16)
-    return staged ? kernel_of<uint16_t, true>(scratch, gap)
-                  : kernel_of<uint16_t, false>(scratch, gap);
-  return staged ? kernel_of<int32_t, true>(scratch, gap)
-                : kernel_of<int32_t, false>(scratch, gap);
+    return staged ? kernel_of<uint16_t, true>(scratch, gap, variants)
+                  : kernel_of<uint16_t, false>(scratch, gap, variants);
+  return staged ? kernel_of<int32_t, true>(scratch, gap, variants)
+                : kernel_of<int32_t, false>(scratch, gap, variants);
 }
 
 // Lets an instantiation take the device's whole opt-in dynamic shared
@@ -580,12 +845,12 @@ const void* pick(int cps_u16, int staged, int scratch, int gap) {
 // queries then make no cudaFuncSetAttribute call. (The attribute is only a
 // ceiling; each launch still asks for its own smem_bytes.)
 constexpr int MAX_DEVICES = 64;
-std::atomic<bool> smem_allowed[16][MAX_DEVICES];
+std::atomic<bool> smem_allowed[32][MAX_DEVICES];
 
 cudaError_t allow_smem(int cps_u16, int staged, int scratch, int gap,
-                       int device) {
-  const int k = (gap ? 8 : 0) + (cps_u16 ? 4 : 0) + (staged ? 2 : 0) +
-                (scratch ? 1 : 0);
+                       int variants, int device) {
+  const int k = (variants ? 16 : 0) + (gap ? 8 : 0) + (cps_u16 ? 4 : 0) +
+                (staged ? 2 : 0) + (scratch ? 1 : 0);
   const bool cached = device >= 0 && device < MAX_DEVICES;
   if (cached && smem_allowed[k][device].load(std::memory_order_acquire))
     return cudaSuccess;
@@ -593,7 +858,7 @@ cudaError_t allow_smem(int cps_u16, int staged, int scratch, int gap,
   cudaError_t e = cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(pick(cps_u16, staged, scratch, gap),
+  e = cudaFuncSetAttribute(pick(cps_u16, staged, scratch, gap, variants),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
   if (e == cudaSuccess && cached)
     smem_allowed[k][device].store(true, std::memory_order_release);
@@ -616,9 +881,11 @@ int vt_boundary(const VtBoundaryArgs* a, int staged, int blocks, int threads,
   const int cps_u16 = static_cast<int>(a->cps_u16);
   const int scratch = a->scratch != nullptr;
   const int gap = a->gap_scores != nullptr;
-  e = allow_smem(cps_u16, staged, scratch, gap, device);
+  const int variants = a->c_hm_rows != nullptr ||
+                       a->t_hm_rows != nullptr || a->t_mode > 1;
+  e = allow_smem(cps_u16, staged, scratch, gap, variants, device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const void* kern = pick(cps_u16, staged, scratch, gap);
+  const void* kern = pick(cps_u16, staged, scratch, gap, variants);
   void* params[] = {const_cast<VtBoundaryArgs*>(a)};
   e = cudaLaunchKernel(kern, dim3(blocks), dim3(threads), params,
                        static_cast<size_t>(smem_bytes),
@@ -640,14 +907,15 @@ int vt_boundary_smem_limit(int device) {
 // that one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // or minus the CUDA error.
 int vt_boundary_occupancy(int cps_u16, int staged, int scratch, int gap,
-                          int threads, int64_t smem_bytes, int device) {
+                          int variants, int threads, int64_t smem_bytes,
+                          int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  e = allow_smem(cps_u16, staged, scratch, gap, device);
+  e = allow_smem(cps_u16, staged, scratch, gap, variants, device);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, pick(cps_u16, staged, scratch, gap), threads,
+      &n, pick(cps_u16, staged, scratch, gap, variants), threads,
       static_cast<size_t>(smem_bytes));
   if (e != cudaSuccess) return -static_cast<int>(e);
   return n;

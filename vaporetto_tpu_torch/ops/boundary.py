@@ -3,7 +3,12 @@
 The CUDA kernel (``csrc/boundary.cu``) replaces the JAX package's Pallas
 kernel ``ops/pallas_fused.py::build_fused_fn`` (``pl.pallas_call`` at
 ``:242``), which fuses the whole scoring core of a batch row: hash
-projection, windowed trie walk, weight chunk adds and type window scores.
+projection, windowed trie walk, weight chunk adds and type window scores,
+and with it the variants of the JAX package's XLA core
+(``predictor.py::_make_score_core``) that its switches select: the CHD
+hash matcher (``ops/hashmatch.py``) in place of the walk on a side whose
+tables build, and the per-offset or split type tables in place of the
+type cache (:func:`boundary_tables`).
 On this path it also folds the serve tail that the JAX package leaves to
 XLA (``Predictor._make_serve_core.tail`` and ``_pack_gap_bits``): score >
 0, same-type wsconst suppression, the in-line gap mask and the column-major
@@ -24,10 +29,12 @@ comment gives the design point by point.
 This module builds the kernel's own table layouts beside the arrays the
 plain version reads (:class:`MatcherTables`): walk rows padded to 16 B,
 one 16-byte record per pattern (first weight row, row count, offset of
-its first row), and the root-child record per symbol. It also chooses the
-launch geometry (:func:`launch_geometry`): warps per block from the shared
-memory a row needs, staged or global hot tables, a global scratch when a
-row does not fit.
+its first row), and the root-child record per symbol; for the hash matcher
+(:class:`HashSide`) entry rows of 16 or 32 B with the pattern id in their
+last int, 1- or 2-byte displacements, and the probe slots. It also chooses
+the launch geometry (:func:`launch_geometry`): warps per block from the
+shared memory a row needs, staged or global hot tables, a global scratch
+when a row does not fit.
 
 :func:`boundary` is the one entry point. For tensors on the CPU it runs
 :func:`boundary_scores_plain` / :func:`serve_bits_plain` — plain torch
@@ -49,14 +56,16 @@ import numpy as np
 import torch
 
 from .._build import build_shared
+from .hashmatch import HashMatchTables, hash_match_for, hash_match_longest
 from .match import (as_int32, build_walk_tab, classify_types,
                     hash_project_fused, match_longest_fused)
-from .score import plan_chunk_offsets, shift_add_scores, type_cache_scores
+from .score import (plan_chunk_offsets, shift_add_scores, type_cache_scores,
+                    type_pos_scores, type_split_scores)
 
 __all__ = ["BoundaryTables", "boundary_tables", "boundary",
            "boundary_scores_plain", "serve_bits_plain", "gap_scores_of",
            "pack_gap_bits", "build", "launch_geometry", "Geometry",
-           "row_bytes"]
+           "row_bytes", "HashSide", "hash_side_tables", "SLOTS"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "boundary.cu")
@@ -64,11 +73,21 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 #: root-child record of a symbol the root has no child on (csrc NO_CHILD;
 #: below every output link, which is >= -1)
 NO_CHILD = -2
-#: the hash table and the root-child records are staged in each block's
+#: the hot tables (the hash table, and the root-child records of the walk
+#: or each hash matcher side's displacements) are staged in each block's
 #: shared memory when together they take at most this many bytes; a model
 #: with more reads them from global memory. The rest of the 227 KB holds
 #: the rows' working sets (3.4 KB per warp at L = 256).
 STAGE_BUDGET = 96 * 1024
+#: the per-offset or split type tables are staged when they take at most
+#: this many bytes (12 KB and 20 KB at window 3 with 3-grams), else read
+#: from global memory; the probe slots of the hash matcher are always
+#: staged (at most 2 KB a side)
+SMALL_STAGE_BUDGET = 32 * 1024
+#: probe slots the hash matcher loads together, a group (csrc SLOTS)
+SLOTS = 2
+#: type table modes (csrc t_mode)
+TYPE_NONE, TYPE_CACHE, TYPE_POS, TYPE_SPLIT = 0, 1, 2, 3
 
 
 @dataclasses.dataclass
@@ -94,6 +113,66 @@ class MatcherTables:
 
 
 @dataclasses.dataclass
+class HashSide:
+    """One matcher side's CHD hash tables on the device: the JAX layout the
+    plain version reads, and the kernel's.
+
+    The kernel's entry rows hold a pattern's pairs, then -1, with its id in
+    the last int: Q int4 a row, Q = ceil((ceil(k/2) + 1) / 4) (16 B up to
+    length 6, 32 B up to 14, 48 B for 15 and 16), each length's region at
+    its own int4 offset. The probe slots (SLOTS a group, 8 int32 each: k
+    (0: unused), d_offset, d_shift, the region's int4 offset plus the
+    part q, slot_shift, mask, c2, Q | q << 8 | last << 16) list the lengths
+    ascending, a length's Q parts in consecutive slots."""
+
+    plain: HashMatchTables  # d and l2 as int32 tensors on the device
+    rows: torch.Tensor  # (n, 4) int32 entry rows, Q int4 each
+    d: torch.Tensor  # uint8 or int16 displacements, padded to 16 B
+    d_bytes: int  # 1 or 2
+    slots: torch.Tensor  # (groups * SLOTS, 8) int32
+    groups: int
+    base: int  # rolling-hash base, signed int32 form
+
+
+def hash_side_tables(hm: HashMatchTables, device) -> HashSide:
+    """The kernel's layout of :class:`HashMatchTables` (see
+    :class:`HashSide`), uploaded to ``device``."""
+    l2 = np.asarray(hm.l2)
+    parts, offs, qs, off = [], [], [], 0
+    for k, _, _, l2_off, _, mask, _ in hm.metas:
+        n_pairs = (k + 1) // 2
+        q_n = -(-(n_pairs + 1) // 4)
+        sub = l2[l2_off:l2_off + mask + 1]
+        r = np.full((mask + 1, 4 * q_n), -1, dtype=np.int32)
+        r[:, :n_pairs] = sub[:, 1:1 + n_pairs]
+        r[:, -1] = sub[:, 0]
+        parts.append(r.reshape(-1, 4))
+        offs.append(off)
+        qs.append(q_n)
+        off += (mask + 1) * q_n
+    probes = [(meta, r_off + q, q_n, q, q == q_n - 1)
+              for meta, r_off, q_n in zip(hm.metas, offs, qs)
+              for q in range(q_n)]
+    groups = -(-len(probes) // SLOTS)
+    slots = np.zeros((groups * SLOTS, 8), dtype=np.int32)
+    for i, ((k, d_off, d_shift, _, slot_shift, mask, c2), r_off, q_n, q,
+            last) in enumerate(probes):
+        slots[i] = (k, d_off, d_shift, r_off, slot_shift, mask, c2,
+                    q_n | q << 8 | int(last) << 16)
+    d = np.asarray(hm.d)[:, 0]
+    d_bytes = 1 if int(d.max(initial=0)) <= 255 else 2
+    d_dev = np.zeros(_a16(len(d) * d_bytes) // d_bytes,
+                     dtype=np.uint8 if d_bytes == 1 else np.int16)
+    d_dev[:len(d)] = d
+    return HashSide(
+        plain=dataclasses.replace(hm, d=_up(hm.d, device),
+                                  l2=_up(hm.l2, device)),
+        rows=_up(np.concatenate(parts), device),
+        d=torch.from_numpy(d_dev).to(device), d_bytes=d_bytes,
+        slots=_up(slots, device), groups=groups, base=hm.base)
+
+
+@dataclasses.dataclass
 class BoundaryTables:
     """Every table the boundary kernel reads, on one device."""
 
@@ -108,26 +187,85 @@ class BoundaryTables:
     type_cache: Optional[torch.Tensor]  # (8**(2w),) int32
     type_window: int
     type_trie: Optional[MatcherTables]
+    #: the hash matcher of the char side / of the type trie (None: walk)
+    char_hm: Optional[HashSide] = None
+    type_hm: Optional[HashSide] = None
+    #: the per-offset type tables (2w, 8**M) and M, in place of type_cache
+    type_pos: Optional[torch.Tensor] = None
+    type_pos_m: int = 0
+    #: the split type tables (left, crossing, right) and maxn, in place of
+    #: type_cache
+    type_split: Optional[tuple] = None
+    type_split_maxn: int = 0
+    #: the kernel's copy of type_pos or type_split: one flat int32 array,
+    #: padded to 16 B
+    type_small: Optional[torch.Tensor] = None
     #: per stream: the kernel's (2,) uint32 row counter, zero between
     #: launches (the kernel's last warp resets it)
     sched: dict = dataclasses.field(default_factory=dict, repr=False)
 
+    @property
+    def variants(self) -> bool:
+        """Whether the tables take one of the JAX package's variants (a
+        hash matcher side, the per-offset or split type tables): the
+        kernel's ``VARIANTS`` instantiations run them."""
+        return (self.char_hm is not None or self.type_hm is not None
+                or self.type_mode in (TYPE_POS, TYPE_SPLIT))
+
+    @property
+    def type_mode(self) -> int:
+        """The type table the scores take (csrc t_mode)."""
+        if self.type_split is not None:
+            return TYPE_SPLIT
+        if self.type_pos is not None:
+            return TYPE_POS
+        return TYPE_CACHE if self.type_cache is not None else TYPE_NONE
+
     def nbytes(self) -> int:
-        total = 0
-        for t in (self.hash2, self.type_cache):
-            total += t.nbytes if t is not None else 0
+        ts = [self.hash2, self.type_cache, self.type_pos, self.type_small]
+        ts += list(self.type_split or ())
         for m in (self.char, self.type_trie):
             if m is not None:
-                total += sum(x.nbytes for x in (
-                    m.walk, m.rows_first, m.rows_cnt, m.w8, m.off, m.walk4,
-                    m.ids, m.root) if x is not None)
-        return total
+                ts += [m.walk, m.rows_first, m.rows_cnt, m.w8, m.off, m.walk4,
+                       m.ids, m.root]
+        for h in (self.char_hm, self.type_hm):
+            if h is not None:
+                ts += [h.plain.d, h.plain.l2, h.rows, h.d, h.slots]
+        return sum(t.nbytes for t in ts if t is not None)
 
     def stage_bytes(self) -> int:
-        """Shared memory the staged hot tables take (0: no char side)."""
-        if self.hash2 is None:
-            return 0
-        return _a16(self.hash2.nbytes + self.char.root.nbytes)
+        """Shared memory the hot tables take when staged: the hash table
+        with the root-child records (walk) and each hash matcher side's
+        displacements (0: none)."""
+        return self.smem_layout(True)["hot"]
+
+    def smem_layout(self, staged: bool) -> dict:
+        """Byte offsets into the kernel's dynamic shared memory (csrc
+        ``sm_*``; -1: read from global memory): with ``staged``, the hash
+        table and root-child records at 0 and the displacements of each
+        hash side after them; then the small type tables when they fit
+        SMALL_STAGE_BUDGET; then the probe slots of each hash side; then
+        the rows (``rows``). ``hot``: the bytes of the first group."""
+        off = 0
+        lay = {}
+        if self.hash2 is not None:
+            root = self.char.root.nbytes if self.char_hm is None else 0
+            off = _a16(self.hash2.nbytes + root)
+        for name, h in (("c_d", self.char_hm), ("t_d", self.type_hm)):
+            lay[name] = off if h is not None else -1
+            off += _a16(h.d.nbytes) if h is not None else 0
+        lay["hot"] = off
+        if not staged:
+            off, lay["c_d"], lay["t_d"] = 0, -1, -1
+        small = self.type_small
+        fits = small is not None and small.nbytes <= SMALL_STAGE_BUDGET
+        lay["small"] = off if fits else -1
+        off += small.nbytes if fits else 0
+        for name, h in (("c_slots", self.char_hm), ("t_slots", self.type_hm)):
+            lay[name] = off if h is not None else -1
+            off += h.slots.nbytes if h is not None else 0
+        lay["rows"] = off
+        return lay
 
 
 def _a16(n: int) -> int:
@@ -188,11 +326,20 @@ def _matcher_tables(m, device, root_syms: int = 0) -> MatcherTables:
 
 
 def boundary_tables(compiled, device) -> BoundaryTables:
-    """Upload a compiled model's boundary tables to ``device``."""
+    """Upload a compiled model's boundary tables to ``device``.
+
+    The JAX package's switches choose the variants, read here, when the
+    tables are built (JAX ``Predictor._tables``): the hash matcher on each
+    side whose :func:`.hashmatch.hash_match_for` gives tables
+    (``VAPORETTO_TPU_NO_HASHMATCH``, ``VAPORETTO_TPU_HASHMATCH_MIN``), the
+    type trie's only where there is no type cache; then the split type
+    tables (``VAPORETTO_TPU_TYPE_SPLIT=1``), else the per-offset ones
+    (``VAPORETTO_TPU_SMALL_TABLES=1``), else the cache, each where the
+    compiled model has it."""
     # the device tensors report ("cuda" -> "cuda:<current>")
     device = torch.empty(0, device=device).device
     c = compiled
-    hash2 = char = None
+    hash2 = char = char_hm = type_hm = None
     if c.char_matcher is not None:
         if c.char_hash_keys is None:
             raise ValueError("compiled model has no char hash projection")
@@ -200,17 +347,40 @@ def boundary_tables(compiled, device) -> BoundaryTables:
                     device)
         char = _matcher_tables(c.char_matcher, device,
                                int(np.max(c.char_hash_syms)) + 1)
-    return BoundaryTables(
+        hm = hash_match_for(c.char_matcher)
+        char_hm = hash_side_tables(hm, device) if hm is not None else None
+    if c.type_matcher is not None and c.type_cache_table is None:
+        hm = hash_match_for(c.type_matcher)
+        type_hm = hash_side_tables(hm, device) if hm is not None else None
+    tabs = BoundaryTables(
         device=device, bias=int(c.bias), pad_left=int(c.pad_left),
         pad_right=int(c.pad_right),
         hash2=hash2, hash_mul=int(c.char_hash_mul),
         hash_shift=int(c.char_hash_shift), char=char,
-        type_cache=(_up(c.type_cache_table, device)
-                    if c.type_cache_table is not None else None),
+        type_cache=None,
         type_window=int(c.type_window_size),
         type_trie=(_matcher_tables(c.type_matcher, device)
                    if c.type_matcher is not None else None),
+        char_hm=char_hm, type_hm=type_hm,
     )
+    split = getattr(c, "type_split_tables", None)
+    pos = getattr(c, "type_pos_tables", None)
+    if os.environ.get("VAPORETTO_TPU_TYPE_SPLIT") == "1" and split is not None:
+        tabs.type_split = tuple(_up(x, device) for x in split)
+        tabs.type_split_maxn = int(c.type_split_maxn)
+        flat = np.concatenate([np.asarray(x).ravel() for x in split])
+    elif os.environ.get("VAPORETTO_TPU_SMALL_TABLES") == "1" \
+            and pos is not None:
+        tabs.type_pos = _up(pos, device)
+        tabs.type_pos_m = int(c.type_pos_m)
+        flat = np.asarray(pos).ravel()
+    else:
+        flat = None
+        if c.type_cache_table is not None:
+            tabs.type_cache = _up(c.type_cache_table, device)
+    if flat is not None:
+        tabs.type_small = _up(np.pad(flat, (0, -len(flat) % 4)), device)
+    return tabs
 
 
 # ----------------------------------------------------------------------
@@ -218,8 +388,13 @@ def boundary_tables(compiled, device) -> BoundaryTables:
 # ----------------------------------------------------------------------
 
 
-def _side_scores(m: MatcherTables, syms, scores, pad_left):
-    match = match_longest_fused(syms, m.walk, m.max_len, m.dead, m.root_base)
+def _side_scores(m: MatcherTables, hm: Optional[HashSide], syms, scores,
+                 pad_left):
+    if hm is not None:
+        match = hash_match_longest(syms, hm.plain)
+    else:
+        match = match_longest_fused(syms, m.walk, m.max_len, m.dead,
+                                    m.root_base)
     scores = shift_add_scores(match, m.rows_first, m.rows_cnt, m.w8, m.off,
                               m.plan, scores, pad_left)
     return match, scores
@@ -246,18 +421,26 @@ def boundary_scores_plain(tabs: BoundaryTables, cps, cts, lengths):
     if tabs.char is not None:
         syms = hash_project_fused(cps, tabs.hash_mul, tabs.hash_shift,
                                   tabs.hash2)
-        cm, scores = _side_scores(tabs.char, syms, scores, tabs.pad_left)
-    if tabs.type_cache is not None or tabs.type_trie is not None:
+        cm, scores = _side_scores(tabs.char, tabs.char_hm, syms, scores,
+                                  tabs.pad_left)
+    mode = tabs.type_mode
+    if mode != TYPE_NONE or tabs.type_trie is not None:
         ct = _char_types(cps, cts)
-        if tabs.type_cache is not None:
-            scores = type_cache_scores(ct, lengths, tabs.type_cache,
-                                       tabs.type_window, scores,
-                                       tabs.pad_left)
+        w, pl = tabs.type_window, tabs.pad_left
+        if mode == TYPE_SPLIT:
+            scores = type_split_scores(ct, lengths, *tabs.type_split, w,
+                                       tabs.type_split_maxn, scores, pl)
+        elif mode == TYPE_POS:
+            scores = type_pos_scores(ct, lengths, tabs.type_pos, w,
+                                     tabs.type_pos_m, scores, pl)
+        elif mode == TYPE_CACHE:
+            scores = type_cache_scores(ct, lengths, tabs.type_cache, w,
+                                       scores, pl)
         if tabs.type_trie is not None:
             t_idx = torch.arange(L, device=cps.device)[None, :]
             tsyms = torch.where(t_idx < lengths[:, None], ct, 0)
-            tm, scores = _side_scores(tabs.type_trie, tsyms, scores,
-                                      tabs.pad_left)
+            tm, scores = _side_scores(tabs.type_trie, tabs.type_hm, tsyms,
+                                      scores, pl)
     return scores, cm, tm
 
 
@@ -325,6 +508,15 @@ class _Args(ctypes.Structure):
         ("bits", 1), ("W8", 0), ("ws_mask", 0),
         ("gap_scores", 1), ("gap_stride", 0),
         ("scratch", 1), ("row_bytes", 0), ("sched", 1),
+        ("c_hm_rows", 1), ("c_hm_d", 1), ("c_hm_d_bytes", 0),
+        ("c_hm_d_size", 0), ("c_hm_slots", 1), ("c_hm_groups", 0),
+        ("c_hm_base", 0),
+        ("t_hm_rows", 1), ("t_hm_d", 1), ("t_hm_d_bytes", 0),
+        ("t_hm_d_size", 0), ("t_hm_slots", 1), ("t_hm_groups", 0),
+        ("t_hm_base", 0),
+        ("t_mode", 0), ("t_small", 1), ("t_small_size", 0), ("t_m", 0),
+        ("sm_c_d", 0), ("sm_t_d", 0), ("sm_small", 0), ("sm_c_slots", 0),
+        ("sm_t_slots", 0), ("sm_rows", 0),
     )]
 
 
@@ -342,10 +534,13 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile csrc/boundary.cu for sm_90a if needed; returns the path."""
+    """Compile csrc/boundary.cu for sm_90a if needed; returns the path.
+    ``-split-compile=0`` optimizes its 32 instantiations on every core
+    (half the seconds of one thread on the H100's host)."""
     return build_shared("vt_boundary", [_SRC], [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"])
+        "-O3", "-split-compile=0", "-Xptxas", "-v", "-shared",
+        "-Xcompiler", "-fPIC"])
 
 
 def _load() -> ctypes.CDLL:
@@ -362,7 +557,8 @@ def _load() -> ctypes.CDLL:
             lib.vt_boundary_smem_limit.argtypes = [c_int]
             lib.vt_boundary_occupancy.restype = c_int
             lib.vt_boundary_occupancy.argtypes = [
-                c_int, c_int, c_int, c_int, c_int, ctypes.c_int64, c_int]
+                c_int, c_int, c_int, c_int, c_int, c_int, ctypes.c_int64,
+                c_int]
             lib.vt_boundary_max_threads.restype = c_int
             lib.vt_boundary_max_threads.argtypes = []
             _lib = lib
@@ -400,7 +596,8 @@ class Geometry:
     blocks_per_sm: int  # resident at once (occupancy calculator)
     max_warps_per_sm: int
     smem: int  # dynamic shared memory per block, bytes
-    staged: bool  # hash table and root records in shared memory
+    staged: bool  # the hot tables in shared memory (stage_bytes)
+    fixed: int  # shared memory before the rows: staged and small tables
     row_bytes: int
     scratch: bool  # rows' working sets in global memory (rows too wide)
 
@@ -414,26 +611,30 @@ def launch_geometry(tabs: BoundaryTables, B: int, L: int,
                     cps_u16: bool = True, gap: bool = False) -> Geometry:
     """The kernel's launch for a (B, L) batch on ``tabs.device``.
 
-    The hot tables are staged when they fit STAGE_BUDGET; a block then
-    takes as many warps as the rest of the shared memory holds rows (at
-    most the kernel's 32), but no more than it takes to spread the batch
-    over every SM; rows wider than the shared memory left run on a global
-    scratch slice per warp. Blocks: as many as are resident at once on
-    the card, or fewer when the batch has fewer rows. Cached per shape,
-    so a launch at a shape seen before makes no device queries. ``gap``:
-    the instantiation that also writes gap scores."""
-    return _geometry(tabs.stage_bytes(), tabs.pad_left + tabs.pad_right,
-                     B, L, bool(cps_u16), bool(gap), tabs.device.index)
+    The hot tables are staged when they fit STAGE_BUDGET, the small type
+    tables when they fit SMALL_STAGE_BUDGET, the probe slots always
+    (:meth:`BoundaryTables.smem_layout`); a block then takes as many warps
+    as the rest of the shared memory holds rows (at most the kernel's 32),
+    but no more than it takes to spread the batch over every SM; rows wider
+    than the shared memory left run on a global scratch slice per warp.
+    Blocks: as many as are resident at once on the card, or fewer when the
+    batch has fewer rows. Cached per shape, so a launch at a shape seen
+    before makes no device queries. ``gap``: the instantiation that also
+    writes gap scores; tables with a variant (:attr:`BoundaryTables.
+    variants`) take the ``VARIANTS`` instantiations."""
+    staged = 0 < tabs.stage_bytes() <= STAGE_BUDGET
+    return _geometry(staged, tabs.smem_layout(staged)["rows"],
+                     tabs.pad_left + tabs.pad_right, B, L, bool(cps_u16),
+                     bool(gap), tabs.variants, tabs.device.index)
 
 
 @functools.lru_cache(maxsize=4096)
-def _geometry(stage: int, pad: int, B: int, L: int, cps_u16: bool,
-              gap: bool, device_index: int) -> Geometry:
+def _geometry(staged: bool, fixed: int, pad: int, B: int, L: int,
+              cps_u16: bool, gap: bool, variants: bool,
+              device_index: int) -> Geometry:
     n_sm, max_warps_per_sm, smem_limit, max_warps = _device_limits(
         device_index)
     rb = row_bytes(L, pad + L - 1)
-    staged = 0 < stage <= STAGE_BUDGET
-    fixed = stage if staged else 0
     fit = (smem_limit - fixed) // rb
     scratch = fit < 1
     warps = min(max_warps, -(-B // n_sm))
@@ -442,15 +643,17 @@ def _geometry(stage: int, pad: int, B: int, L: int, cps_u16: bool,
     warps = max(warps, 1)
     smem = fixed + (0 if scratch else warps * rb)
     per_sm = _load().vt_boundary_occupancy(int(cps_u16), int(staged),
-                                           int(scratch), int(gap), 32 * warps,
-                                           smem, device_index)
+                                           int(scratch), int(gap),
+                                           int(variants), 32 * warps, smem,
+                                           device_index)
     if per_sm < 1:
         raise RuntimeError(f"boundary kernel cannot run {32 * warps} threads "
                            f"with {smem} B of shared memory (code {per_sm})")
     return Geometry(
         warps=warps, blocks=min(-(-B // warps), n_sm * per_sm),
         blocks_per_sm=per_sm, max_warps_per_sm=max_warps_per_sm,
-        smem=smem, staged=staged, row_bytes=rb, scratch=scratch)
+        smem=smem, staged=staged, fixed=fixed, row_bytes=rb,
+        scratch=scratch)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -464,6 +667,72 @@ def _check(name, t, dtypes, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
     if t.device != device or not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous on {device}")
+
+
+def _kernel_args(tabs: BoundaryTables, cps, cts, lengths, serve, ws_types,
+                 gap_scores):
+    """(the kernel's argument struct, the outputs it writes): every field
+    but the launch geometry's (row_bytes, scratch, sched, sm_*)."""
+    dev = cps.device
+    B, L = cps.shape
+    S = tabs.pad_left + (L - 1) + tabs.pad_right
+    W8 = -(-(L - 1) // 8) if L > 1 else 0
+    a = _Args()
+    a.cps, a.lengths = cps.data_ptr(), lengths.data_ptr()
+    a.cts = _ptr(cts)
+    a.B, a.L, a.cps_u16 = B, L, int(cps.dtype == torch.uint16)
+    a.cts_kind = 0 if cts is None else (1 if cts.dtype == torch.uint8 else 2)
+    if tabs.char is not None:
+        m = tabs.char
+        a.hash2, a.hash_slots = tabs.hash2.data_ptr(), tabs.hash2.shape[0]
+        a.hash_mul, a.hash_shift = tabs.hash_mul & 0xFFFFFFFF, tabs.hash_shift
+        a.c_root = m.root.data_ptr()
+        # the hash matcher reads no root-child record: none are staged
+        a.c_root_n = 0 if tabs.char_hm is not None else m.root.shape[0]
+        a.c_walk, a.c_slots = m.walk4.data_ptr(), m.walk4.shape[0]
+        a.c_root_base, a.c_max_len = m.root_base, m.max_len
+        a.c_ids, a.c_w8 = m.ids.data_ptr(), m.w8.data_ptr()
+    a.t_window, a.t_mode = tabs.type_window, tabs.type_mode
+    if tabs.type_cache is not None:
+        a.t_cache = tabs.type_cache.data_ptr()
+    if tabs.type_small is not None:
+        a.t_small = tabs.type_small.data_ptr()
+        a.t_small_size = tabs.type_small.nbytes
+        a.t_m = (tabs.type_split_maxn if tabs.type_split is not None
+                 else tabs.type_pos_m)
+    if tabs.type_trie is not None:
+        m = tabs.type_trie
+        a.t_walk, a.t_slots = m.walk4.data_ptr(), m.walk4.shape[0]
+        a.t_root_base, a.t_max_len = m.root_base, m.max_len
+        a.t_ids, a.t_w8 = m.ids.data_ptr(), m.w8.data_ptr()
+    for side, h in (("c", tabs.char_hm), ("t", tabs.type_hm)):
+        if h is not None:
+            for name, v in (("rows", h.rows.data_ptr()),
+                            ("d", h.d.data_ptr()), ("d_bytes", h.d_bytes),
+                            ("d_size", h.d.nbytes),
+                            ("slots", h.slots.data_ptr()),
+                            ("groups", h.groups),
+                            ("base", h.base & 0xFFFFFFFF)):
+                setattr(a, f"{side}_hm_{name}", v)
+    a.bias, a.pad_left, a.S = tabs.bias, tabs.pad_left, S
+    if serve:
+        out = torch.empty((B, W8), dtype=torch.uint8, device=dev)
+        a.bits, a.W8 = out.data_ptr(), W8
+        a.ws_mask = sum(1 << int(w) for w in set(ws_types))
+    else:
+        scores = torch.empty((B, S), dtype=torch.int32, device=dev)
+        cm = (torch.empty((B, L), dtype=torch.int32, device=dev)
+              if tabs.char is not None else None)
+        tm = (torch.empty((B, L), dtype=torch.int32, device=dev)
+              if tabs.type_trie is not None else None)
+        a.scores, a.char_match, a.type_match = (scores.data_ptr(), _ptr(cm),
+                                                _ptr(tm))
+        out = (scores, cm, tm)
+    if gap_scores:
+        gap = torch.empty((B, max(L - 1, 0)), dtype=torch.int32, device=dev)
+        a.gap_scores, a.gap_stride = gap.data_ptr(), gap.shape[1]
+        out = (out, gap) if serve else out + (gap,)
+    return a, out
 
 
 def boundary(tabs: BoundaryTables, cps: torch.Tensor,
@@ -507,51 +776,16 @@ def boundary(tabs: BoundaryTables, cps: torch.Tensor,
     _check("lengths", lengths, (torch.int32,), (B,), dev)
     if cts is not None:
         _check("cts", cts, (torch.uint8, torch.int32), (B, L), dev)
-    S = tabs.pad_left + (L - 1) + tabs.pad_right
-    W8 = -(-(L - 1) // 8) if L > 1 else 0
-    a = _Args()
-    a.cps, a.lengths = cps.data_ptr(), lengths.data_ptr()
-    a.cts = _ptr(cts)
-    a.B, a.L, a.cps_u16 = B, L, int(cps.dtype == torch.uint16)
-    a.cts_kind = 0 if cts is None else (1 if cts.dtype == torch.uint8 else 2)
-    if tabs.char is not None:
-        m = tabs.char
-        a.hash2, a.hash_slots = tabs.hash2.data_ptr(), tabs.hash2.shape[0]
-        a.hash_mul, a.hash_shift = tabs.hash_mul & 0xFFFFFFFF, tabs.hash_shift
-        a.c_root, a.c_root_n = m.root.data_ptr(), m.root.shape[0]
-        a.c_walk, a.c_slots = m.walk4.data_ptr(), m.walk4.shape[0]
-        a.c_root_base, a.c_max_len = m.root_base, m.max_len
-        a.c_ids, a.c_w8 = m.ids.data_ptr(), m.w8.data_ptr()
-    if tabs.type_cache is not None:
-        a.t_cache, a.t_window = tabs.type_cache.data_ptr(), tabs.type_window
-    if tabs.type_trie is not None:
-        m = tabs.type_trie
-        a.t_walk, a.t_slots = m.walk4.data_ptr(), m.walk4.shape[0]
-        a.t_root_base, a.t_max_len = m.root_base, m.max_len
-        a.t_ids, a.t_w8 = m.ids.data_ptr(), m.w8.data_ptr()
-    a.bias, a.pad_left, a.S = tabs.bias, tabs.pad_left, S
-    if serve:
-        out = torch.empty((B, W8), dtype=torch.uint8, device=dev)
-        a.bits, a.W8 = out.data_ptr(), W8
-        a.ws_mask = sum(1 << int(w) for w in set(ws_types))
-    else:
-        scores = torch.empty((B, S), dtype=torch.int32, device=dev)
-        cm = (torch.empty((B, L), dtype=torch.int32, device=dev)
-              if tabs.char is not None else None)
-        tm = (torch.empty((B, L), dtype=torch.int32, device=dev)
-              if tabs.type_trie is not None else None)
-        a.scores, a.char_match, a.type_match = (scores.data_ptr(), _ptr(cm),
-                                                _ptr(tm))
-        out = (scores, cm, tm)
-    if gap_scores:
-        gap = torch.empty((B, max(L - 1, 0)), dtype=torch.int32, device=dev)
-        a.gap_scores, a.gap_stride = gap.data_ptr(), gap.shape[1]
-        out = (out, gap) if serve else out + (gap,)
+    a, out = _kernel_args(tabs, cps, cts, lengths, serve, ws_types,
+                          gap_scores)
     if B == 0:
         return out
     lib = _load()
     g = launch_geometry(tabs, B, L, bool(a.cps_u16), gap_scores)
     a.row_bytes = g.row_bytes
+    for name, off in tabs.smem_layout(g.staged).items():
+        if name != "hot":
+            setattr(a, "sm_" + name, off)
     scratch = None
     if g.scratch:
         scratch = torch.empty(g.blocks * g.warps * g.row_bytes,

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["scatter_add_scores", "shift_add_scores", "type_cache_scores",
-           "wide_add_scores", "build_wide_rows", "wide_offset_span",
+           "type_pos_scores", "type_split_scores", "wide_add_scores", "build_wide_rows", "wide_offset_span",
            "plan_chunk_offsets", "SHIFT_ADD_MAX_TERMS"]
 
 #: widened-row scoring is used when every pattern's weight span (all its
@@ -208,3 +208,89 @@ def type_cache_scores(
     scores = scores.clone()
     scores[:, pad_left : pad_left + L] += gap_scores
     return scores
+
+
+def _typed(char_types, lengths):
+    """(types with positions at or past each row's length reading 0, the
+    (1, L) position index, lengths as (B, 1) int32)."""
+    L = char_types.shape[1]
+    t_idx = torch.arange(L, device=char_types.device)[None, :]
+    lengths = lengths.to(torch.int32)[:, None]
+    return (torch.where(t_idx < lengths, char_types.to(torch.int32), 0),
+            t_idx, lengths)
+
+
+def _shifted(ct, shift):
+    """``out[:, i] = ct[:, i + shift]``, 0 outside the row."""
+    L = ct.shape[1]
+    if abs(shift) >= L:
+        return torch.zeros_like(ct)
+    if shift <= 0:
+        return F.pad(ct[:, : L + shift], (-shift, 0))
+    return F.pad(ct[:, shift:], (0, shift))
+
+
+def _add_gap_scores(scores, gap_scores, t_idx, lengths, pad_left):
+    """Add the in-line gaps' scores (t < length - 1) at ``pad_left``."""
+    L = gap_scores.shape[1]
+    scores = scores.clone()
+    scores[:, pad_left : pad_left + L] += torch.where(
+        t_idx < lengths - 1, gap_scores, 0)
+    return scores
+
+
+def type_pos_scores(
+    char_types: torch.Tensor,  # (B, L) type codes 1..6, 0 = padding
+    lengths: torch.Tensor,  # (B,) int32 true sentence lengths
+    tables: torch.Tensor,  # (2w, 8**M) int32 per-start-offset tables
+    window_size: int,
+    m_sym: int,  # symbols per code (M)
+    scores: torch.Tensor,  # (B, S) int32 padded score buffer
+    pad_left: int,
+) -> torch.Tensor:
+    """Type scoring through the per-start-offset tables
+    (``compile.compiler._build_type_pos_tables``), equal to
+    :func:`type_cache_scores`: window start j's code reads the M chars from
+    window position j on (chars past the window included; the tables
+    ignore them)."""
+    B, L = char_types.shape
+    w = window_size
+    ct, t_idx, lengths = _typed(char_types, lengths)
+    # window position x holds char index gap + x - (w - 1)
+    shifts = [_shifted(ct, x - (w - 1)) for x in range(2 * w + m_sym - 1)]
+    gap_scores = torch.zeros((B, L), dtype=torch.int32, device=ct.device)
+    for j in range(2 * w):
+        code = torch.zeros_like(gap_scores)
+        for m in range(m_sym):
+            code = (code << 3) | shifts[j + m]
+        gap_scores += tables[j][code.long()]
+    return _add_gap_scores(scores, gap_scores, t_idx, lengths, pad_left)
+
+
+def type_split_scores(
+    char_types: torch.Tensor,  # (B, L) type codes 1..6, 0 = padding
+    lengths: torch.Tensor,  # (B,) int32 true sentence lengths
+    tl: torch.Tensor,  # (8**w,) int32 left-half table
+    tm: torch.Tensor,  # (8**max(2*maxn-2, 1),) int32 crossing table
+    tr: torch.Tensor,  # (8**w,) int32 right-half table
+    window_size: int,
+    maxn: int,
+    scores: torch.Tensor,  # (B, S) int32 padded score buffer
+    pad_left: int,
+) -> torch.Tensor:
+    """Type scoring through the left / crossing / right split of the cache
+    table (``compile.compiler._build_type_split_tables``), equal to
+    :func:`type_cache_scores`."""
+    w = window_size
+    ct, t_idx, lengths = _typed(char_types, lengths)
+
+    def code(positions):  # window position x holds char gap + x - (w - 1)
+        c = torch.zeros_like(ct)
+        for x in positions:
+            c = (c << 3) | _shifted(ct, x - (w - 1))
+        return c.long()
+
+    gap_scores = (tl[code(range(0, w))]
+                  + tm[code(range(w - maxn + 1, w + maxn - 1))]
+                  + tr[code(range(w, 2 * w))])
+    return _add_gap_scores(scores, gap_scores, t_idx, lengths, pad_left)

@@ -24,6 +24,13 @@ instead; ``backend="host"`` runs the native C++ host engine
 (native/host_predictor.cc) over the same compiled tables, bit-identical,
 with no device tables and no device at all.
 
+The boundary kernel's variants follow the JAX package's switches: the CHD
+hash matcher on a side whose ``max_len`` reaches
+``VAPORETTO_TPU_HASHMATCH_MIN`` (default :data:`.ops.hashmatch.
+HASH_MATCH_MIN_LEN`, the H100's crossover) unless
+``VAPORETTO_TPU_NO_HASHMATCH=1``, and the per-offset or split type tables
+under ``VAPORETTO_TPU_SMALL_TABLES=1`` or ``VAPORETTO_TPU_TYPE_SPLIT=1``.
+
 ``VAPORETTO_TPU_DEBUG_CHECKS=1`` holds every device ``predict_batch`` to
 the numpy oracle (:mod:`.ops.host_reference`) and raises
 ``AssertionError`` on a difference (:meth:`Predictor.debug_verify`).
@@ -120,6 +127,13 @@ class Predictor:
     # ------------------------------------------------------------------
 
     def _tables(self) -> BoundaryTables:
+        """The boundary tables on the predictor's device, built at first
+        use. The build reads the JAX package's switches
+        (``VAPORETTO_TPU_NO_HASHMATCH``, ``VAPORETTO_TPU_HASHMATCH_MIN``,
+        ``VAPORETTO_TPU_SMALL_TABLES``, ``VAPORETTO_TPU_TYPE_SPLIT``;
+        :func:`.ops.boundary.boundary_tables`), so a switch flipped later
+        takes effect once ``_device_tables`` and ``_mesh_tables`` are
+        dropped, as in the JAX package."""
         if self._device_tables is None:
             self._device_tables = boundary_tables(self.compiled, self.device)
         return self._device_tables
