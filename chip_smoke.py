@@ -132,7 +132,21 @@ versions on the same inputs. Phases, each printed on its own line:
    ``max_len`` runs from 2 to 16 (:func:`length_model`), the crossover
    that sets ``HASH_MATCH_MIN_LEN``; (d) ``LeanServer`` over [4]'s and
    [4t]'s streams under each switch, bytes equal to [4]'s and [4t]'s;
-11. a ``kernels`` JSON line (boundary with its variants, tags, solver with
+11. the examples and the opt-in paths (:func:`examples_phase`): (a)
+   ``examples/serve_torch.py`` on the tagged 50k model over 3 000 lines
+   (tag tokens, halfwidth digits and ASCII, combining marks), compiling
+   and caching its artifact, then reviving from it, then on the host
+   engine: three byte-equal outputs, boundary launches on the card runs
+   and none on the host run; (b) ``examples/embedded_artifact_torch.py``
+   on the same file; (c) the predict CLI in a child process under
+   ``VAPORETTO_TPU_NO_NATIVE=1`` (the Python compile, the general path on
+   the card, ``vt_native`` never loaded, ``--backend host`` raising) on a
+   2 000-word model and with ``--predict-tags`` on a small tagged model,
+   bytes equal to the same CLI's without the switch; (d) the 50k model
+   compiled with ``prefer_type_trie``: the kernel equal to plain on [5]'s
+   first batch, bits and in-line gap scores equal to the cache layout's,
+   both layouts' serve times;
+12. a ``kernels`` JSON line (boundary with its variants, tags, solver with
    its ``cols<PART>`` instantiation, update).
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
@@ -3400,6 +3414,388 @@ def lean_variants(pred, tpred, lines, tlines, want, twant):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 11: the examples and the opt-in paths
+# ----------------------------------------------------------------------
+
+
+def _example(name: str):
+    """``examples/<name>.py`` of this tree as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_lines(lines, tlines, seed=41, n_tok=2000, n_mixed=500,
+                  n_marks=500):
+    """The serve example's input: ``n_tok`` of [4t]'s tag-token lines,
+    ``n_mixed`` of [4]'s short lines with halfwidth digits and ASCII
+    spliced in (the fullwidth filter, wsconst D), and ``n_marks`` with
+    combining marks after some chars (wsconst G)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = len(lines)
+    out = list(tlines[n:n + n_tok])
+    for ln in lines[:n_mixed]:
+        k = int(rng.integers(0, len(ln) + 1))
+        ins = "".join(rng.choice(list("0123456789 abcXYZ/"),
+                                 int(rng.integers(1, 9))))
+        out.append(ln[:k] + ins + ln[k:])
+    marks = ["\u0301", "\u0302", "\u0308", "\u3099", "\u309a"]
+    for ln in lines[n_mixed:n_mixed + n_marks]:
+        chars = list(ln)
+        for i in sorted(rng.choice(len(chars) + 1,
+                                   min(3, len(chars) + 1),
+                                   replace=False), reverse=True):
+            chars.insert(int(i), "e" + str(rng.choice(marks)))
+        out.append("".join(chars))
+    return out
+
+
+def serve_example_runs(work, tmodel, text, device=None):
+    """Phase [11] (a): ``examples/serve_torch.py``'s ``main`` in this
+    process over ``text`` on ``tmodel`` written under ``work``: on the card
+    (``device``: another torch device) it compiles and caches the
+    artifact, then again it revives, then with ``--backend host``. Returns
+    per run the output, seconds, the seconds of its ``load_predictor``, the
+    launches and stderr; the artifact's bytes; the model file's path."""
+    import contextlib
+
+    serve = _example("serve_torch")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "tagged_model.bin")
+    with open(path, "wb") as f:
+        tmodel.write(f)
+    blob = serve._blob_path(path)
+    if os.path.exists(blob):
+        os.remove(blob)
+    load = serve.load_predictor
+    load_s = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        p = load(*a, **kw)
+        load_s.append(time.perf_counter() - t0)
+        return p
+
+    serve.load_predictor = timed
+    runs = {}
+    dev = [] if device is None else ["--device", str(device)]
+    for name, argv in (("compile", dev), ("revive", dev),
+                       ("host", ["--backend", "host"])):
+        out, err = io.StringIO(), io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = serve.main([path] + argv, io.StringIO(text), out)
+        sync(device)
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "load_s": load_s[-1], "launches": kernel_counts(),
+                      "out": out.getvalue(), "stderr": err.getvalue()}
+        if rc != 0:
+            raise AssertionError(f"serve example ({name}) exited {rc}: "
+                                 f"{err.getvalue()}")
+    return runs, os.path.getsize(blob), path
+
+
+def artifact_example_run(path, device=None):
+    """Phase [11] (b): ``examples/embedded_artifact_torch.py``'s ``main``
+    on the model file ``path`` (on the card, or ``device``): its labelled
+    numbers and last line."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _example("embedded_artifact_torch").main(
+            [path] + ([] if device is None else ["--device", str(device)]))
+    if rc != 0:
+        raise AssertionError(f"artifact example exited {rc}")
+    lines = buf.getvalue().splitlines()
+    nums = {}
+    for ln in lines[:-1]:
+        key, val = ln.split(": ", 1)
+        num = val.split()[0]
+        nums[key] = float(num[:-1]) if num.endswith("s") else int(num)
+    return nums, lines[-1]
+
+
+#: the models and inputs of phase [11] (c), under ``work``
+NO_NATIVE_RUNS = (("plain", "nn_model.bin", []),
+                  ("tags", "nn_tagged.bin", ["--predict-tags"]))
+
+
+def no_native_child(work, device=None) -> int:
+    """Phase [11] (c) in a child process run with
+    ``VAPORETTO_TPU_NO_NATIVE=1``: for each of :data:`NO_NATIVE_RUNS`, the
+    Python compile's seconds, then the predict CLI (the general path on
+    the card) with its seconds and launches; the ``--backend host`` run's
+    error; whether ``vt_native`` stayed unloaded. Prints them as a JSON
+    line last."""
+    from vaporetto_tpu_torch import native
+    from vaporetto_tpu_torch.cli import predict
+    from vaporetto_tpu_torch.compile.compiler import compile_model
+    from vaporetto_tpu_torch.models.model import Model
+
+    if not native.disabled():
+        raise AssertionError("the child runs under VAPORETTO_TPU_NO_NATIVE=1")
+    res = {}
+    for name, mfile, flags in NO_NATIVE_RUNS:
+        mpath = os.path.join(work, mfile)
+        t0 = time.perf_counter()
+        compile_model(Model.read(mpath), bool(flags))
+        res[name] = {"python_compile_s": time.perf_counter() - t0}
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = predict.main(["--model", mpath, "--input",
+                           os.path.join(work, f"nn_{name}.in"), "--output",
+                           os.path.join(work, f"nn_{name}.off")] + flags,
+                          device=device)
+        sync(device)
+        res[name].update(seconds=time.perf_counter() - t0,
+                         launches=kernel_counts(), rc=rc)
+    try:
+        predict.main(["--model", os.path.join(work, NO_NATIVE_RUNS[0][1]),
+                      "--backend", "host", "--input",
+                      os.path.join(work, "nn_plain.in"), "--output",
+                      os.devnull])
+        res["host_error"] = None
+    except RuntimeError as e:
+        res["host_error"] = str(e)
+    res["lib_none"] = native._lib is None
+    print(json.dumps(res))
+    return 0
+
+
+def no_native_phase(work, lines, tlines, models=None, device=None):
+    """Phase [11] (c): the predict CLI under ``VAPORETTO_TPU_NO_NATIVE=1``
+    in a child process (:func:`no_native_child`) on ``big_model(2000,
+    1000)`` over 2 000 of [4]'s lines and with ``--predict-tags`` on
+    :func:`small_tagged_model` over 2 000 of [4t]'s tag-token lines, its
+    bytes against the same CLI's without the switch in this process (the
+    lean path), and the native compile's seconds beside the Python
+    compile's. ``models`` ({"plain": ..., "tags": ...}) and ``device`` (the
+    CLIs' torch device) replace the models and the card."""
+    from vaporetto_tpu_torch.cli import predict
+    from vaporetto_tpu_torch.compile.compiler import compile_model
+
+    os.makedirs(work, exist_ok=True)
+    n = len(lines)
+    if models is None:
+        models = {"plain": big_model(2000, 1000),
+                  "tags": small_tagged_model()[0]}
+    inputs = {"plain": lines[:1000] + lines[20_000:21_000],
+              "tags": tlines[n:n + 2000]}
+    for name, mfile, _ in NO_NATIVE_RUNS:
+        with open(os.path.join(work, mfile), "wb") as f:
+            models[name].write(f)
+        with open(os.path.join(work, f"nn_{name}.in"), "w",
+                  encoding="utf-8") as f:
+            f.write("\n".join(inputs[name]) + "\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, VAPORETTO_TPU_NO_NATIVE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         f"chip_smoke.no_native_child({work!r}, {device!r}))"],
+        capture_output=True, text=True, timeout=600, cwd=here, env=env)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"no-native child exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["child_s"] = child_s
+    for name, mfile, flags in NO_NATIVE_RUNS:
+        r = res[name]
+        mpath = os.path.join(work, mfile)
+        t0 = time.perf_counter()
+        compile_model(models[name], bool(flags))
+        r["native_compile_s"] = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = predict.main(["--model", mpath, "--input",
+                           os.path.join(work, f"nn_{name}.in"), "--output",
+                           os.path.join(work, f"nn_{name}.on")] + flags,
+                          device=device)
+        sync(device)
+        r.update(native_seconds=time.perf_counter() - t0,
+                 native_launches=kernel_counts())
+        with open(os.path.join(work, f"nn_{name}.off"), "rb") as f:
+            off = f.read()
+        with open(os.path.join(work, f"nn_{name}.on"), "rb") as f:
+            on = f.read()
+        r["bytes"] = len(off)
+        if r["rc"] != 0 or rc != 0 or off != on:
+            raise AssertionError(f"no-native {name}: exit {r['rc']} / {rc}, "
+                                 f"bytes {len(off)} / {len(on)}, equal "
+                                 f"{off == on}")
+        on_card = device is None or str(device).startswith("cuda")
+        if on_card and (r["launches"][0] <= 0 or r["native_launches"][0] <= 0
+                        or (flags and r["native_launches"][1] <= 0)):
+            raise AssertionError(f"no-native {name}: launches "
+                                 f"{r['launches']}, native "
+                                 f"{r['native_launches']}")
+        if flags and r["launches"][1] != 0:
+            raise AssertionError("no-native tags: the general path tags on "
+                                 f"the host, yet {r['launches'][1]} tag "
+                                 "launches")
+    if not res["lib_none"]:
+        raise AssertionError("vt_native was loaded under the switch")
+    if not res["host_error"] or "VAPORETTO_TPU_NO_NATIVE" not in \
+            res["host_error"]:
+        raise AssertionError(f"--backend host under the switch: "
+                             f"{res['host_error']!r}")
+    return res
+
+
+def trie_layout_phase(model, pred, words, sep):
+    """Phase [11] (d): the 50k model compiled with ``prefer_type_trie``
+    (the type trie in place of the cache): the kernel against its plain
+    version on [5]'s first (8192, 256) batch (tolerance 0), its bits and
+    in-line gap scores against the cache layout's on that batch and ten
+    more, and
+    both layouts' serve ms in turns (cache, trie, trie, cache)."""
+    import torch
+
+    from vaporetto_tpu_torch import Predictor
+    from vaporetto_tpu_torch.compile.compiler import compile_model
+    from vaporetto_tpu_torch.ops.boundary import boundary
+
+    t0 = time.perf_counter()
+    compiled = compile_model(model, prefer_type_trie=True)
+    compile_s = time.perf_counter() - t0
+    trie = Predictor(None, False, compiled)
+    ttabs, tabs = trie._tables(), pred._tables()
+    if compiled.type_matcher is None or compiled.type_cache_table is not None:
+        raise AssertionError("prefer_type_trie kept the type cache")
+    c, t, ln = random_batch(B_FULL, L_FULL, 100, words[:5000])
+    err = compare_kernel(ttabs, c, t, ln, ((), KANJI_DIGIT))
+    dev = tabs.device
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in (
+        c.astype("uint16"), t.astype("uint8"), ln))]
+    batches += variant_batches(B_FULL, L_FULL, False, words[:5000], sep, 10,
+                               300, dev)
+    for b in batches:
+        # the gaps inside each line: past a line's last gap the two
+        # layouts leave other values (the trie's weights reach past the
+        # last char, the cache's window sees padding), which nothing reads
+        inl = (torch.arange(L_FULL - 1, device=dev)[None, :]
+               < (b[2].long() - 1)[:, None])
+        for ws in ((), KANJI_DIGIT):
+            (gb, gg), (wb, wg) = (boundary(tb, *b, serve=True, ws_types=ws,
+                                           gap_scores=True)
+                                  for tb in (ttabs, tabs))
+            if not torch.equal(gb, wb) or not torch.equal(gg[inl], wg[inl]):
+                raise AssertionError("the type trie's bits or in-line gap "
+                                     "scores differ from the cache layout's")
+    ms = {}
+    for name, tb in (("cache", tabs), ("trie", ttabs), ("trie 2", ttabs),
+                     ("cache 2", tabs)):
+        ms[name] = cuda_ms(lambda c, t, ln, tb=tb: boundary(
+            tb, c, t, ln, serve=True), batches, 50)
+    return {"compile_s": compile_s, "err": err, "ms": ms,
+            "type_trie_slots": len(compiled.type_matcher.base),
+            "type_trie_max_len": compiled.type_matcher.max_len,
+            "staged_bytes": ttabs.stage_bytes()}
+
+
+def examples_phase(work, model, pred, tmodel, lines, tlines, words, sep,
+                   smi):
+    """Phase [11]: the two examples on the tagged 50k model, the predict
+    CLI under ``VAPORETTO_TPU_NO_NATIVE=1``, and the ``prefer_type_trie``
+    layout on the card."""
+    t_phase = time.perf_counter()
+    # (a) the serve example: compile, revive, host engine
+    text = "\n".join(example_lines(lines, tlines)) + "\n"
+    n_lines = text.count("\n")
+    runs, blob_bytes, tpath = serve_example_runs(
+        os.path.join(work, "examples"), tmodel, text)
+    outs = {k: r["out"] for k, r in runs.items()}
+    if len(set(outs.values())) != 1 or outs["compile"].count("\n") != n_lines:
+        raise AssertionError("serve example: the three runs' outputs differ")
+    for name, msg in (("compile", "compiled predictor and cached artifact"),
+                      ("revive", "revived predictor from artifact"),
+                      ("host", "revived predictor from artifact")):
+        if msg not in runs[name]["stderr"]:
+            raise AssertionError(f"serve example ({name}): {msg!r} missing "
+                                 f"from {runs[name]['stderr']!r}")
+    for name in ("compile", "revive"):
+        if runs[name]["launches"][0] <= 0:
+            raise AssertionError(f"serve example ({name}) on the card: "
+                                 f"launches {runs[name]['launches']}")
+    if runs["host"]["launches"] != (0, 0):
+        raise AssertionError(f"serve example on the host engine: launches "
+                             f"{runs['host']['launches']}")
+    out = outs["compile"]
+    log(f"[11] (a) examples/serve_torch.py on the tagged 50k model, "
+        f"{n_lines} lines ({len(text.encode())} bytes: 2000 of [4t]'s "
+        f"tag-token lines, 500 of [4]'s with halfwidth digits and ASCII, "
+        f"500 with combining marks): artifact {blob_bytes} B; load_predictor "
+        f"compile {runs['compile']['load_s']:.3f}s against revive "
+        f"{runs['revive']['load_s']:.3f}s ("
+        f"{runs['compile']['load_s'] / runs['revive']['load_s']:.1f}x); "
+        + "; ".join(f"{k} run {r['seconds']:.3f}s, launches boundary "
+                    f"{r['launches'][0]}, tags {r['launches'][1]}"
+                    for k, r in runs.items())
+        + f"; the three outputs byte-equal ({len(out.encode())} bytes, "
+        f"{out.count('/') - out.count(chr(92) + '/')} tags); the tags come "
+        "from the general path's tag pass (the post filters change the "
+        f"boundaries), on {smi}")
+    # (b) the artifact example
+    t0 = time.perf_counter()
+    nums, sentence = artifact_example_run(tpath)
+    log(f"[11] (b) examples/embedded_artifact_torch.py on the tagged 50k "
+        f"model: " + ", ".join(
+            f"{k} {v} {'B' if isinstance(v, int) else 's'}"
+            for k, v in nums.items())
+        + f"; {sentence!r} ({time.perf_counter() - t0:.1f}s)")
+    # (c) the no-native switch
+    nn = no_native_phase(os.path.join(work, "no_native"), lines, tlines)
+    for name, what in (("plain", "big_model(2000, 1000), 2000 of [4]'s "
+                                 "lines"),
+                       ("tags", "small_tagged_model, --predict-tags, 2000 "
+                                "of [4t]'s tag-token lines")):
+        r = nn[name]
+        log(f"[11] (c) predict CLI under VAPORETTO_TPU_NO_NATIVE=1 on "
+            f"{what}: compile Python {r['python_compile_s']:.3f}s against "
+            f"native {r['native_compile_s']:.3f}s; run {r['seconds']:.3f}s "
+            f"(general path), launches boundary {r['launches'][0]}, tags "
+            f"{r['launches'][1]}; without the switch {r['native_seconds']:.3f}"
+            f"s (lean path), launches boundary {r['native_launches'][0]}, "
+            f"tags {r['native_launches'][1]}; {r['bytes']} bytes, equal")
+    log(f"[11] (c) --backend host under the switch raised "
+        f"{nn['host_error']!r}; vt_native never loaded in the child "
+        f"({nn['child_s']:.1f}s with its start)")
+    # (d) the type-trie layout on the card
+    from vaporetto_tpu_torch.ops.boundary import boundary
+    from vaporetto_tpu_torch.ops.tags import tags as tag_kernel
+
+    n_before = (boundary.launches, tag_kernel.launches)
+    tl = trie_layout_phase(model, pred, words, sep)
+    boundary.launches, tag_kernel.launches = n_before
+    ms = tl["ms"]
+    log(f"[11] (d) the 50k model with prefer_type_trie (compiled "
+        f"{tl['compile_s']:.2f}s; type trie {tl['type_trie_slots']} slots, "
+        f"max_len {tl['type_trie_max_len']}; {tl['staged_bytes']} B staged):"
+        f" kernel equal to plain on [5]'s first ({B_FULL}, {L_FULL}) batch "
+        f"(max |difference| {tl['err']}), bits and in-line gap scores equal "
+        f"to the cache layout's on 11 batches; serve ms cache "
+        f"{ms['cache']:.4f} / "
+        f"trie {ms['trie']:.4f} / trie {ms['trie 2']:.4f} / cache "
+        f"{ms['cache 2']:.4f} on {smi}")
+    log(f"[11] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {"serve": {k: {kk: vv for kk, vv in r.items()
+                          if kk not in ("out", "stderr")}
+                      for k, r in runs.items()},
+            "artifact_bytes": blob_bytes, "artifact": nums,
+            "no_native": nn, "trie": tl}
+
+
 def main(argv) -> int:
     import torch
 
@@ -3457,7 +3853,7 @@ def main(argv) -> int:
     ttabs = tpred._tables()
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
-    tsep = pack_separator(tpred.compiled, tt.max_rel())
+    tsep = pack_separator(tpred.compiled, tag_reach=tt.max_rel())
     tm_ = tpred.compiled.type_matcher
     log(f"[2] tagged model: generated {gen_s:.2f}s, compiled (tags, "
         f"device tables, upload) {compile_s:.2f}s; n_tokens "
@@ -3899,7 +4295,10 @@ def main(argv) -> int:
     vr["lean"] = lean_variants(pred, tpred, lines, tlines, want_bytes, twant)
     log(f"[10] phase seconds {time.perf_counter() - t0:.1f}")
 
-    # ---- 8. kernels ---------------------------------------------------
+    # ---- 11. the examples and the opt-in paths --------------------------
+    examples_phase(work, model, pred, tmodel, lines, tlines, words, sep, smi)
+
+    # ---- 12. kernels --------------------------------------------------
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
     log(json.dumps({"kernels": [{
         "name": "boundary",

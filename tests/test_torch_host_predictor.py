@@ -26,6 +26,7 @@ from vaporetto_tpu.predictor import Predictor as JaxPredictor
 from vaporetto_tpu.sentence import Sentence as JaxSentence
 from vaporetto_tpu.serving import LeanServer as JaxLeanServer
 from vaporetto_tpu_torch import LeanServer, Predictor, Sentence
+from vaporetto_tpu_torch.compile.compiler import compile_model
 from vaporetto_tpu_torch.native import NativeHostPredictor
 from vaporetto_tpu_torch.ops.host_reference import reference_scores
 
@@ -233,13 +234,29 @@ def test_random_models_vs_oracle(seed):
 
 
 def test_type_trie_variant():
-    """The JAX compile with prefer_type_trie, carried across: the host
-    engine's type-side scan, its states equal to the device path's."""
+    """The port's compile with prefer_type_trie: the host engine's
+    type-side scan, its states equal to the device path's and the JAX
+    host engine's over the JAX compile of the same flag."""
+    rng = np.random.default_rng(42)
+    jm = random_model(rng, type_window=3)
+    jc = jax_compile(jm, True, prefer_type_trie=True)
+    c = compile_model(port_model(jm), True, prefer_type_trie=True)
+    _check_type_trie(rng, c, jc)
+
+
+def test_type_trie_variant_from_jax_compile():
+    """The JAX compile with prefer_type_trie, carried across: the same
+    checks."""
     rng = np.random.default_rng(42)
     jc = jax_compile(random_model(rng, type_window=3), True,
                      prefer_type_trie=True)
+    _check_type_trie(rng, port_compiled(type("P", (), {"compiled": jc})),
+                     jc)
+
+
+def _check_type_trie(rng, c, jc):
     assert jc.type_matcher is not None and jc.type_cache_table is None
-    c = port_compiled(type("P", (), {"compiled": jc}))
+    assert c.type_matcher is not None and c.type_cache_table is None
     host = Predictor(None, True, compiled=c, backend="host")
     dev = Predictor(None, True, compiled=c, device="cpu")
     jdev = JaxPredictor(None, True, compiled=jc, backend="host")

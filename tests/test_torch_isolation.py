@@ -11,7 +11,10 @@ has no JAX: ``--help``, a whole CPU run of each, and ``--wsconst G``,
 which needs ``regex`` and fails with its ImportError; the model tools'
 ``--help`` too, and the train CLI's ``--help`` and a whole CPU run; the
 three ``parallel`` modules (a mesh's lean serving, the input pipeline, the
-sharded solve) and a two-process predict on gloo.
+sharded solve) and a two-process predict on gloo. The port's two examples
+(``examples/serve_torch.py``, ``examples/embedded_artifact_torch.py``)
+import no JAX either, and run where ``jax`` and the JAX package cannot be
+imported (``regex`` importable: the serve example's wsconst G needs it).
 """
 
 import ast
@@ -66,12 +69,18 @@ def _imports(path):
             yield node.module or ""
 
 
+#: the port's examples
+EXAMPLES = [os.path.join(ROOT, "examples", f) for f in (
+    "serve_torch.py", "embedded_artifact_torch.py")]
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from EXAMPLES
 
 
 def test_fresh_interpreter_loads_no_jax():
@@ -162,10 +171,10 @@ print("LOADED", bad)
 """
 
 
-def _blocked(*args):
+def _blocked(*args, blocker=BLOCKED):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    return subprocess.run([sys.executable, "-c", BLOCKED, *args], cwd=ROOT,
+    return subprocess.run([sys.executable, "-c", blocker, *args], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
 
@@ -316,3 +325,47 @@ def test_two_process_predict_without_jax_or_regex(tmp_path):
                          str(tmp_path / "in"), "--output",
                          str(tmp_path / "single")], device="cpu") == 0
     assert parts == (tmp_path / "single").read_bytes() and b"\n" in parts
+
+
+#: BLOCKED with ``regex`` importable: the serve example's wsconst G needs
+#: it (the card's machine has it, and no JAX)
+BLOCKED_JAX = BLOCKED.replace('"vaporetto_tpu", "regex"', '"vaporetto_tpu"')
+
+#: both examples' ``main`` on the CPU over a model file, in the blocked
+#: interpreter
+EXAMPLES_RUN = r"""
+import contextlib, io, os, runpy, sys, tempfile
+from vaporetto_tpu_torch.models.model import Model, NgramData, WordWeightRecord
+
+m = Model([NgramData("この人", [1, -2, 3, 4]), NgramData("人だ", [-5, 6, 7, 8, 9])],
+          [NgramData(bytes([3, 3, 5]), [10, -11, 12, 13])],
+          [WordWeightRecord("人", [19, 20]), WordWeightRecord("地球", [21, -22, 23])],
+          5, 3, 3)
+d = tempfile.mkdtemp(dir=os.getcwd())
+path = os.path.join(d, "m.bin")
+with open(path, "wb") as f:
+    m.write(f)
+serve = runpy.run_path(SERVE)
+outs = []
+for _ in "ab":
+    out = io.StringIO()
+    assert serve["main"]([path, "--device", "cpu"],
+                         io.StringIO("この人は地球人だ\n１２ ３４é́\n"), out) == 0
+    outs.append(out.getvalue())
+assert outs[0] == outs[1] == "この 人 は 地球 人 だ\n１２ \\  ３４ é́\n", outs
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert runpy.run_path(ARTIFACT)["main"]([path, "--device", "cpu"]) == 0
+assert buf.getvalue().splitlines()[-1] == "まぁ 社 長 は 火 星 猫 だ", buf.getvalue()
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "vaporetto_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_examples_run_without_jax(tmp_path):
+    code = EXAMPLES_RUN.replace("os.getcwd()", repr(str(tmp_path))).replace(
+        "SERVE", repr(EXAMPLES[0])).replace("ARTIFACT", repr(EXAMPLES[1]))
+    res = _blocked("-c", code, blocker=BLOCKED_JAX)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout

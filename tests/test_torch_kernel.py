@@ -19,7 +19,11 @@ token ends), so every launch-geometry edge case here covers them. The
 boundary kernel's variants (the hash matcher, the per-offset and split
 type tables, selected by the JAX package's switches through
 ``chip_smoke.variant_tables``) are held to their plain versions the same
-way.
+way. The type-trie layout that ``compile_model(prefer_type_trie=True)``
+gives is held to its plain version and to the cache layout's scores, and
+the serve example (``examples/serve_torch.py``) writes the same bytes on the
+card as on the CPU and on the host engine, launching the boundary kernel
+only on the card.
 """
 
 import numpy as np
@@ -260,10 +264,10 @@ def test_rich_serve_outputs_on_card(case):
                                            np.resize((0, 1, 2, 64), 67))
     args = [torch.from_numpy(x) for x in (cps.astype(np.uint16),
                                           cts.astype(np.uint8), ln)]
-    got = pred.serve_tags_fn(KANJI_DIGIT, True, want_gap_scores=True,
+    got = pred.serve_tags_fn(KANJI_DIGIT, host_types=True, want_gap_scores=True,
                              want_tag_scores=True)(*args)
     cpu = Predictor(compiled=pred.compiled, device="cpu")
-    want = cpu.serve_tags_fn(KANJI_DIGIT, True, want_gap_scores=True,
+    want = cpu.serve_tags_fn(KANJI_DIGIT, host_types=True, want_gap_scores=True,
                              want_tag_scores=True)(*args)
     assert len(got) == len(want)
     for g, w in zip(got[:-1], want[:-1]):
@@ -274,8 +278,8 @@ def test_rich_serve_outputs_on_card(case):
     assert got[-1].dtype == torch.int32 and tuple(got[-1].shape) == (
         67, 64, pred._tag_tables().C)
     assert torch.equal(got[-1].cpu()[ends], want[-1][ends])
-    bits, gap = pred.serve_scores_fn(KANJI_DIGIT, True)(*args)
-    wbits, wgap = cpu.serve_scores_fn(KANJI_DIGIT, True)(*args)
+    bits, gap = pred.serve_scores_fn(KANJI_DIGIT, host_types=True)(*args)
+    wbits, wgap = cpu.serve_scores_fn(KANJI_DIGIT, host_types=True)(*args)
     assert torch.equal(bits.cpu(), wbits) and torch.equal(gap.cpu(), wgap)
 
 
@@ -541,3 +545,65 @@ def test_lean_server_on_a_mesh_of_one_card_twice():
     assert outs[0] == outs[1]
     assert stats[1]["device_dispatches"] == {
         "cuda:0": 2 * stats[1]["dispatches"]}
+
+
+@pytest.mark.cuda
+def test_type_trie_layout_matches_plain_on_card():
+    """``compile_model(prefer_type_trie=True)``: the kernel walks the type
+    trie, equal to its plain version, and its bits and in-line gap scores
+    equal the cache layout's (the model's type weights fit the window;
+    past a line's last gap the layouts leave other values, read by
+    nothing)."""
+    _card()
+    from vaporetto_tpu_torch.compile.compiler import compile_model
+
+    model = chip_smoke.big_model(5000, 500)
+    words = [w.word for w in model.dict_model]
+    trie = Predictor(None, False, compile_model(model, prefer_type_trie=True))
+    cache = Predictor(None, False, compile_model(model))
+    assert trie.compiled.type_cache_table is None
+    assert trie.compiled.type_matcher is not None
+    assert cache.compiled.type_cache_table is not None
+    cps, cts, lengths = chip_smoke.random_batch(256, 256, 41, words)
+    assert chip_smoke.compare_kernel(trie._tables(), cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
+    args = [torch.from_numpy(x) for x in (cps.astype(np.uint16),
+                                          cts.astype(np.uint8), lengths)]
+    bt, gt = trie.serve_scores_fn(KANJI_DIGIT, host_types=True)(*args)
+    bc, gc = cache.serve_scores_fn(KANJI_DIGIT, host_types=True)(*args)
+    inl = (torch.arange(255, device=gt.device)[None, :]
+           < (args[2].to(gt.device).long() - 1)[:, None])
+    assert torch.equal(bt, bc) and torch.equal(gt[inl], gc[inl])
+
+
+@pytest.mark.cuda
+def test_serve_example_on_card(tmp_path):
+    """``examples/serve_torch.py`` on a small tagged model: compiled, then
+    revived, on the card; the same bytes on the CPU and on the host
+    engine; boundary launches on the card runs only."""
+    _card()
+    import io
+    import os
+    import runpy
+
+    model, tokens = chip_smoke.small_tagged_model()
+    path = str(tmp_path / "model.bin")
+    with open(path, "wb") as f:
+        model.write(f)
+    rng = np.random.default_rng(3)
+    lines = ["".join(rng.choice(tokens, 6)) for _ in range(300)] + [
+        "１２ ３４" + tokens[0], "e\u0301\u0302" + tokens[1], ""]
+    text = "\n".join(lines) + "\n"
+    serve = runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "serve_torch.py"))
+    runs = []
+    for argv in ([], [], ["--device", "cpu"], ["--backend", "host"]):
+        before = boundary.launches
+        out = io.StringIO()
+        assert serve["main"]([path] + argv, io.StringIO(text), out) == 0
+        runs.append((out.getvalue(), boundary.launches - before))
+    assert os.path.exists(path + ".vtc")
+    assert len({o for o, _ in runs}) == 1
+    assert runs[0][0].count("\n") == len(lines) and "/" in runs[0][0]
+    assert runs[0][1] > 0 and runs[1][1] > 0
+    assert runs[2][1] == 0 and runs[3][1] == 0

@@ -35,3 +35,18 @@ __all__ = [
     "VaporettoAnalyzer",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # the trainer and the KyTea reader resolve at first use, as in the JAX
+    # package, so that importing the package builds neither the trainer
+    # nor its native parts
+    if name in ("Trainer", "SolverType"):
+        from .train import trainer
+
+        return getattr(trainer, name)
+    if name == "KyteaModel":
+        from .models.kytea import KyteaModel
+
+        return KyteaModel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

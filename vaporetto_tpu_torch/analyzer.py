@@ -68,17 +68,17 @@ class VaporettoAnalyzer:
     """``device``: where the predictor runs (None: the current CUDA
     device; the tests pass ``"cpu"``)."""
 
-    def __init__(self, model: Model, wsconst: str = "", device=None):
+    def __init__(self, model: Model, wsconst: str = "", *, device=None):
         self.predictor = Predictor(model, False, device=device)
         self.prefilter = KyteaFullwidthFilter()
         self.postfilters = _build_post_filters(wsconst)
 
     @classmethod
-    def from_serialized(cls, data: bytes, wsconst: str = "",
+    def from_serialized(cls, data: bytes, wsconst: str = "", *,
                         device=None) -> "VaporettoAnalyzer":
         """Build from a compiled-model artifact (no model compile)."""
         self = cls.__new__(cls)
-        self.predictor = Predictor.deserialize_from_slice(data, device)
+        self.predictor = Predictor.deserialize_from_slice(data, device=device)
         self.prefilter = KyteaFullwidthFilter()
         self.postfilters = _build_post_filters(wsconst)
         return self

@@ -45,7 +45,7 @@ from .common import (
 BATCH = 256
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> int:
+def main(argv: Optional[List[str]] = None, *, device=None) -> int:
     p = argparse.ArgumentParser(
         description="A program to evaluate the accuracy of Vaporetto."
     )

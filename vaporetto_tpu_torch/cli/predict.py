@@ -56,7 +56,7 @@ from .common import (
 BATCH = 256
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> int:
+def main(argv: Optional[List[str]] = None, *, device=None) -> int:
     p = argparse.ArgumentParser(
         description="A program to perform word segmentation."
     )

@@ -46,7 +46,7 @@ def _normalized(s: Sentence, fullwidth: KyteaFullwidthFilter,
     return new_s
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> int:
+def main(argv: Optional[List[str]] = None, *, device=None) -> int:
     p = argparse.ArgumentParser(
         description="A program to train models of Vaporetto."
     )

@@ -12,8 +12,12 @@ carries the tag models' n-gram weights per merged pattern
 Every matcher is compiled by the native one-call compiler
 (native/compile_matcher.cc): at the size of a 50k-word dictionary it takes
 well under a second, where a pure-Python merge and trie build take minutes.
-Output is a :class:`CompiledModel` of plain numpy arrays, which the
-predictor uploads to its device.
+Under ``VAPORETTO_TPU_NO_NATIVE=1`` the compiler takes that Python path, as
+the JAX package does without its library: the :class:`.merger.WeightMerger`
+merge, :func:`_build_matcher` over the Python trie builder, the same rows,
+hash projection and pads, and a trie with the same lookups. Output is a
+:class:`CompiledModel` of plain numpy arrays, which the predictor uploads
+to its device.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import numpy as np
 
 from ..errors import invalid_model
 from ..models.model import Model
-from ..native import compile_matcher_native
+from ..native import compile_matcher_native, disabled as native_disabled
+from .merger import PositionalWeight, PositionalWeightWithTag, WeightMerger
+from .trie import build_trie
 
 __all__ = ["CompiledModel", "CompiledMatcher", "CompiledTagMeta",
            "compile_model", "char_sym_table", "CACHE_MAX_WINDOW_SIZE"]
@@ -90,6 +96,85 @@ class CompiledModel:
     type_split_tables: Optional[Tuple[np.ndarray, np.ndarray,
                                       np.ndarray]] = None
     type_split_maxn: int = 0
+
+
+def _pack_weight_rows(
+    weights: List[Optional[PositionalWeight]],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Split merged positional weights into 8-wide chunks.
+
+    Weights of length <= 8 become one zero-padded row — exactly the
+    reference's ``WeightVector::Fixed`` (predictor.rs:118-135); longer
+    (rare: long dictionary words) become several rows with offsets stepped
+    by 8, reproducing ``WeightVector::Variable`` adds.
+    """
+    rows_first = np.zeros(len(weights), dtype=np.int32)
+    rows_cnt = np.zeros(len(weights), dtype=np.int32)
+    w8_rows: List[List[int]] = []
+    off_rows: List[int] = []
+    for i, pw in enumerate(weights):
+        rows_first[i] = len(w8_rows)
+        if pw is None or not pw.weight:
+            rows_cnt[i] = 0
+            continue
+        w = pw.weight
+        n_chunks = (len(w) + WEIGHT_FIXED_LEN - 1) // WEIGHT_FIXED_LEN
+        rows_cnt[i] = n_chunks
+        for c in range(n_chunks):
+            chunk = w[c * 8 : c * 8 + 8]
+            chunk = chunk + [0] * (8 - len(chunk))
+            w8_rows.append(chunk)
+            off_rows.append(pw.offset + 8 * c)
+    if not w8_rows:
+        w8_rows = [[0] * 8]
+        off_rows = [0]
+    w8 = np.array(w8_rows, dtype=np.int64)
+    if (w8 > 2**31 - 1).any() or (w8 < -(2**31)).any():
+        raise invalid_model("weight overflow during merge")
+    return (
+        rows_first,
+        rows_cnt,
+        w8.astype(np.int32),
+        np.array(off_rows, dtype=np.int32),
+        int(rows_cnt.max()) if len(rows_cnt) else 0,
+    )
+
+
+def _build_matcher(
+    merged: List[Tuple[Tuple[int, ...], object]],
+    n_symbols: int,
+    with_tags: bool,
+    n_tag_models: int,
+    window_size: int,
+) -> CompiledMatcher:
+    patterns = [key for key, _ in merged]
+    trie = build_trie(patterns, n_symbols)
+    if with_tags:
+        weights = []
+        tag_weight: List[List[Dict[int, List[int]]]] = [
+            [dict() for _ in range(window_size + 1)] for _ in range(n_tag_models)
+        ]
+        for i, (_, pwt) in enumerate(merged):
+            weights.append(pwt.weight)
+            for (token_id, rel_position), w in pwt.tag_info.items():
+                tag_weight[token_id][rel_position][i] = list(w)
+    else:
+        weights = [pw for _, pw in merged]
+        tag_weight = None
+    rows_first, rows_cnt, w8, off, max_chunks = _pack_weight_rows(weights)
+    return CompiledMatcher(
+        base=trie.base,
+        check=trie.check,
+        value=trie.value,
+        inherit=trie.inherit,
+        max_len=trie.max_len,
+        rows_first=rows_first,
+        rows_cnt=rows_cnt,
+        w8=w8,
+        off=off,
+        max_chunks=max_chunks,
+        tag_weight=tag_weight,
+    )
 
 
 def _build_char_hash(cps_sorted: np.ndarray, sym_ids: np.ndarray):
@@ -276,6 +361,66 @@ def _compile_type_trie(model: Model, n_tag_models: int = 0) -> CompiledMatcher:
     return _matcher(res, tag_weight)
 
 
+def _merge_tag_rows(merger: WeightMerger, tag_ngram_models, key_of):
+    """Add the tag models' n-gram rows to a side's merger (the Python twin
+    of :func:`_with_tag_rows`, in the same order)."""
+    for i, tag_ngrams in tag_ngram_models:
+        for d in tag_ngrams:
+            key = key_of(d.ngram)
+            for tw in d.weights:
+                merger.add(key, PositionalWeightWithTag.with_tag(
+                    i, tw.rel_position, tw.weights))
+
+
+def _compile_char_python(model: Model, n_tag_models: int = 0):
+    """:func:`_compile_char` in Python (the JAX package's path without its
+    library): the merge, the symbol projection, the hash and the matcher."""
+    with_tags = n_tag_models > 0
+    merger = WeightMerger()
+    for d in model.char_ngram_model:
+        pw = PositionalWeight(-model.char_window_size, d.weights)
+        merger.add(tuple(map(ord, d.ngram)),
+                   PositionalWeightWithTag(pw) if with_tags else pw)
+    for rec in model.dict_model:
+        if len(rec.word) > 32767:
+            raise invalid_model(
+                "words must be shorter than or equal to 32767 characters"
+            )
+        pw = PositionalWeight(-len(rec.word), rec.weights)
+        merger.add(tuple(map(ord, rec.word)),
+                   PositionalWeightWithTag(pw) if with_tags else pw)
+    if with_tags:
+        _merge_tag_rows(merger, ((i, tm.char_ngram_model) for i, tm in
+                                 enumerate(model.tag_models)),
+                        lambda g: tuple(map(ord, g)))
+    merged = merger.merge()
+    # symbol projection: codepoint -> dense id in codepoint order; OOV -> 0
+    cps = sorted({cp for key, _ in merged for cp in key})
+    sym_of = {cp: i + 1 for i, cp in enumerate(cps)}
+    char_hash = _build_char_hash(np.array(cps, dtype=np.int64),
+                                 np.arange(1, len(cps) + 1, dtype=np.int32))
+    merged_proj = [(tuple(sym_of[cp] for cp in key), w) for key, w in merged]
+    return (_build_matcher(merged_proj, len(cps), with_tags, n_tag_models,
+                           model.char_window_size), char_hash)
+
+
+def _compile_type_trie_python(model: Model,
+                              n_tag_models: int = 0) -> CompiledMatcher:
+    """:func:`_compile_type_trie` in Python."""
+    with_tags = n_tag_models > 0
+    merger = WeightMerger()
+    for d in model.type_ngram_model:
+        pw = PositionalWeight(-model.type_window_size, d.weights)
+        merger.add(tuple(bytes(d.ngram)),
+                   PositionalWeightWithTag(pw) if with_tags else pw)
+    if with_tags:
+        _merge_tag_rows(merger, ((i, tm.type_ngram_model) for i, tm in
+                                 enumerate(model.tag_models)),
+                        lambda g: tuple(bytes(g)))
+    return _build_matcher(merger.merge(), 6, with_tags, n_tag_models,
+                          model.type_window_size)
+
+
 def _build_type_cache_table(
     ngrams: List[Tuple[Tuple[int, ...], List[int]]], window_size: int
 ) -> np.ndarray:
@@ -428,7 +573,8 @@ def _merge_type_ngrams(model: Model):
     return ngrams
 
 
-def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
+def compile_model(model: Model, predict_tags: bool = False, *,
+                  prefer_type_trie: bool = False) -> CompiledModel:
     """Compile a :class:`Model` into dense device tables.
 
     Follows the variant dispatch of the reference (char_scorer.rs:92-124,
@@ -436,9 +582,13 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
     when ``window <= 3`` and no tag models are compiled in, else the trie
     matcher (its per-position match ids are the tag pass's type states).
     ``predict_tags`` compiles the tag models too (their n-gram weights per
-    merged pattern and :class:`CompiledTagMeta`).
+    merged pattern and :class:`CompiledTagMeta`). ``prefer_type_trie``
+    forces the trie in place of the cache (the runtime analogue of the
+    reference's cache-type-score feature flag): the same scores, another
+    layout for the kernel to read.
     """
     n_tag_models = len(model.tag_models) if predict_tags else 0
+    python = native_disabled()
 
     char_matcher = None
     char_hash = None
@@ -446,13 +596,14 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
         (model.char_ngram_model or model.dict_model)
         and model.char_window_size > 0
     ):
-        char_matcher, char_hash = _compile_char(model, n_tag_models)
+        char_matcher, char_hash = (_compile_char_python if python
+                                   else _compile_char)(model, n_tag_models)
 
     type_matcher = None
     type_cache_table = None
     type_pos = type_split = None
     if model.type_ngram_model and model.type_window_size > 0:
-        if (not n_tag_models
+        if (not n_tag_models and not prefer_type_trie
                 and model.type_window_size <= CACHE_MAX_WINDOW_SIZE):
             type_ngrams = _merge_type_ngrams(model)
             type_cache_table = _build_type_cache_table(
@@ -463,7 +614,8 @@ def compile_model(model: Model, predict_tags: bool = False) -> CompiledModel:
             type_split = _build_type_split_tables(type_ngrams,
                                                   model.type_window_size)
         else:
-            type_matcher = _compile_type_trie(model, n_tag_models)
+            type_matcher = (_compile_type_trie_python if python
+                            else _compile_type_trie)(model, n_tag_models)
 
     tag_meta = None
     n_tags = 0

@@ -14,7 +14,8 @@ i.e. a loop over k (static, = max pattern length) of vectorized double-array
 transitions (1 add + 2 gathers), with no recurrence over t at all. The
 deepest node with a terminal value seen at position t is exactly the longest
 pattern ending at t — matching ``find_overlapping_no_suffix_iter`` semantics
-(suffix weights were already merged in, native/compile_matcher.cc).
+(suffix weights were already merged in: native/compile_matcher.cc, or
+compile/merger.py under ``VAPORETTO_TPU_NO_NATIVE=1``).
 
 Symbols are 1-based dense ids; 0 is reserved for out-of-vocabulary symbols
 (an OOV char can never start or continue a pattern).
@@ -76,10 +77,14 @@ def build_trie(
 ) -> DoubleArrayTrie:
     """Build a double-array trie with the native builder
     (native/trie_builder.cc); pattern i gets value i. A failed native
-    build raises. :func:`_build_trie_python` is the same construction in
-    plain Python, kept as the tests' reference."""
-    from ..native import build_trie_native
+    build raises. Under ``VAPORETTO_TPU_NO_NATIVE=1`` the same construction
+    runs in plain Python (:func:`_build_trie_python`): the same lookups,
+    though slots may be placed elsewhere, and far slower at the size of a
+    large dictionary."""
+    from ..native import build_trie_native, disabled
 
+    if disabled():
+        return _build_trie_python(patterns, n_symbols)
     max_len = max((len(p) for p in patterns), default=0)
     base, check, value, inherit = build_trie_native(patterns, n_symbols)
     return DoubleArrayTrie(base, check, value, n_symbols, max_len, inherit)

@@ -16,6 +16,16 @@ host engine (``host_predictor.cc``, :class:`NativeHostPredictor`) behind
 Wrappers that decode input return None when the batch needs the general
 path (invalid UTF-8, an astral codepoint, NUL, or a line longer than the
 row): that is a property of the text, not of the library.
+
+``VAPORETTO_TPU_NO_NATIVE=1`` turns the library off, read at each call
+(:func:`disabled`): the library is then neither built nor loaded. The
+entry points that return None in the JAX package without its library
+return None (the callers take their Python paths: the compiler's merge and
+trie, ``parallel.data``'s decoder), :func:`available` is False and
+:func:`abi_version` 0, and everything that has no Python path here (the
+host engine, the native tag scorer and extractor, the lean path's stages)
+raises a ``RuntimeError`` naming the switch. Without the switch a failed
+build raises, as before. The CUDA kernels do not depend on this library.
 """
 
 from __future__ import annotations
@@ -55,8 +65,43 @@ def build() -> str:
     )
 
 
+#: the environment switch that turns the library off
+NO_NATIVE = "VAPORETTO_TPU_NO_NATIVE"
+
+
+def disabled() -> bool:
+    """Whether ``VAPORETTO_TPU_NO_NATIVE=1`` is set now (read at each call,
+    so the switch can change within a process; the JAX package reads it
+    once, at its first load)."""
+    return os.environ.get(NO_NATIVE) == "1"
+
+
+def switch_error(what: str) -> RuntimeError:
+    """The error of an entry point with no Python path under the switch."""
+    return RuntimeError(
+        f"{what} needs the native host library, which {NO_NATIVE}=1 turns "
+        f"off; unset {NO_NATIVE} to use it")
+
+
+def available() -> bool:
+    """Whether the native library is in use: False under the switch, else
+    True once it is built and loaded (a failed build raises)."""
+    if disabled():
+        return False
+    _load()
+    return True
+
+
+def abi_version() -> int:
+    """The library's ABI marker (5: ``vt_tensorize16*`` carry the types
+    output), or 0 under the switch."""
+    return 0 if disabled() else int(_load().vt_abi_version())
+
+
 def _load() -> ctypes.CDLL:
     global _lib
+    if disabled():
+        raise switch_error("this entry point")
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -131,6 +176,25 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_int32,  # bytes_per_row
                 I32P, I32P,  # rows_of, cols_of (nullable)
                 ctypes.c_int64,  # max_gaps
+                U8P, ctypes.c_int64,  # out, out_cap
+                ctypes.c_int32,  # n_threads
+            ]
+            lib.vt_abi_version.restype = ctypes.c_int
+            lib.vt_abi_version.argtypes = []
+            lib.vt_detok_scores.restype = ctypes.c_int64
+            lib.vt_detok_scores.argtypes = [
+                U8P, I64P, I64P, ctypes.c_int64,
+                I8P, ctypes.c_int32,  # boundaries, Lm1
+                U16P, I32P, I32P,  # cps16, lengths, scores
+                U8P, ctypes.c_int64,  # out, out_cap
+                ctypes.c_int32,  # n_threads
+            ]
+            lib.vt_detok_tags.restype = ctypes.c_int64
+            lib.vt_detok_tags.argtypes = [
+                U8P, I64P, I64P, ctypes.c_int64,
+                I8P, ctypes.c_int32,  # boundaries, Lm1
+                I32P, I8P, ctypes.c_int32,  # tid, choice, n_slots
+                I64P, I32P, I32P, U8P, I64P, ctypes.c_int64,  # plan
                 U8P, ctypes.c_int64,  # out, out_cap
                 ctypes.c_int32,  # n_threads
             ]
@@ -270,6 +334,8 @@ def build_trie_native(
     patterns: Sequence[Tuple[int, ...]], n_symbols: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Build the double-array (base, check, value, inherit) via C++."""
+    if disabled():
+        return None
     lib = _load()
     n = len(patterns)
     offsets = np.zeros(n + 1, dtype=np.int64)
@@ -317,6 +383,8 @@ def compile_matcher_native(
     weight vector for ``(tag_tok[i], tag_rel[i])`` instead of a boundary
     weight, and the result gains ``tag_pat/tag_tok/tag_rel/tag_wflat/
     tag_woffs``: the merged patterns' tag entries."""
+    if disabled():
+        return None
     lib = _load()
     n = int(len(pat_offs) - 1)
     pat_flat = np.ascontiguousarray(pat_flat, dtype=np.int32)
@@ -418,6 +486,8 @@ def tensorize_native(
     """The general path's decoder (``parallel.data.batched_lines``): UTF-8
     lines to (int32 codepoints (n, L), uint8 char types (n, L), int32
     lengths (n,)), 0-padded, lines clipped at L; None on invalid UTF-8."""
+    if disabled():
+        return None
     lib = _load()
     n = len(lines)
     offsets = np.zeros(n + 1, dtype=np.int64)
@@ -453,6 +523,8 @@ def tensorize16_native(
     host buffers), or None when the batch needs the general path
     (astral chars, NUL, lines longer than L, invalid UTF-8).
     """
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -499,6 +571,8 @@ def tensorize16_packed_native(
     the uint8 char types at the same placement (separators 0). Returns
     (cps, types), written into ``out`` when given, or None when the batch
     needs another path (astral/NUL/invalid UTF-8/overflow)."""
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -532,6 +606,8 @@ def tensorize16_packed_native(
 
 def find_newlines_native(blob: np.ndarray) -> np.ndarray:
     """int64 positions of every 0x0A byte in ``blob`` (memchr-based)."""
+    if disabled():
+        return None
     lib = _load()
     buf = _buf(blob)
     n = lib.vt_find_newlines(buf.ctypes.data_as(U8P), len(blob), None)
@@ -548,6 +624,8 @@ def count_chars_native(
     n_threads: int = 0,
 ) -> np.ndarray:
     """Per-line UTF-8 char counts (int32)."""
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -597,6 +675,8 @@ def detok_native(
     the next call with the same scratch). Without it, a fresh ``bytes``
     is returned.
     """
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -634,6 +714,8 @@ def detok_bits_native(
     consumes the device's 8-gaps-per-byte boundary readback directly,
     with optional per-line (row, col) placement for the short-line
     packing layout. Returns bytes/memoryview like :func:`detok_native`."""
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -787,10 +869,103 @@ class TagScoresPlan:
 PER_GAP = 30
 
 
+def detok_scores_native(
+    blob: np.ndarray,  # uint8 ORIGINAL UTF-8 bytes
+    starts: np.ndarray,  # int64 (n_lines,)
+    ends: np.ndarray,  # int64 (n_lines,)
+    boundaries: np.ndarray,  # int8 (n_lines, L-1)
+    cps16: np.ndarray,  # uint16 (n_lines, L) NORMALIZED codepoints
+    lengths: np.ndarray,  # int32 (n_lines,)
+    scores: np.ndarray,  # int32 (n_lines, L-1) raw gap scores
+    n_threads: int = 0,
+) -> Optional[bytes]:
+    """The v1 ``--scores`` writer (the JAX package's entry point of the
+    same name): one line a row, boundaries one int8 a gap; None under the
+    switch or when the output bound is short. The lean path uses
+    :func:`detok_scores2_native`."""
+    if disabled():
+        return None
+    lib = _load()
+    n = len(starts)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    boundaries = np.ascontiguousarray(boundaries, dtype=np.int8)
+    cps16 = np.ascontiguousarray(cps16, dtype=np.uint16)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    scores = np.ascontiguousarray(scores, dtype=np.int32)
+    Lm1 = boundaries.shape[1]
+    total = int((ends - starts).sum())
+    cap = 2 * total + n * (Lm1 + 2) + n * Lm1 * PER_GAP + 1
+    out = np.empty(cap, dtype=np.uint8)
+    written = lib.vt_detok_scores(
+        _buf(blob).ctypes.data_as(U8P),
+        starts.ctypes.data_as(I64P), ends.ctypes.data_as(I64P), n,
+        boundaries.ctypes.data_as(I8P), Lm1,
+        cps16.ctypes.data_as(U16P), lengths.ctypes.data_as(I32P),
+        scores.ctypes.data_as(I32P),
+        out.ctypes.data_as(U8P), cap, n_threads,
+    )
+    if written < 0:
+        return None
+    return out[:written].tobytes()
+
+
+def detok_tags_native(
+    blob: np.ndarray,  # uint8 ORIGINAL UTF-8 bytes
+    starts: np.ndarray,  # int64 (n_lines,)
+    ends: np.ndarray,  # int64 (n_lines,)
+    boundaries: np.ndarray,  # int8 (n_lines, L-1)
+    tid: np.ndarray,  # int32 (n_lines, L)
+    choice: np.ndarray,  # int8 (n_lines, L, n_slots)
+    plan: TagEmitPlan,
+    n_threads: int = 0,
+) -> Optional[bytes]:
+    """The v1 tag writer (the JAX package's entry point of the same
+    name): one line a row, boundaries one int8 a gap, int32 token ids;
+    None under the switch or when the output bound is short. The lean
+    path uses :func:`detok_tags2_native`."""
+    if disabled():
+        return None
+    lib = _load()
+    n = len(starts)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    boundaries = np.ascontiguousarray(boundaries, dtype=np.int8)
+    tid = np.ascontiguousarray(tid, dtype=np.int32)
+    choice = np.ascontiguousarray(choice, dtype=np.int8)
+    Lm1 = boundaries.shape[1]
+    n_slots = choice.shape[2]
+    total = int((ends - starts).sum())
+    n_tok_max = int((boundaries == 1).sum()) + n
+    cap = 2 * total + n * (Lm1 + 1) + n_tok_max * plan.max_tag_bytes + 1
+    out = np.empty(cap, dtype=np.uint8)
+    written = lib.vt_detok_tags(
+        _buf(blob).ctypes.data_as(U8P),
+        starts.ctypes.data_as(I64P), ends.ctypes.data_as(I64P), n,
+        boundaries.ctypes.data_as(I8P), Lm1,
+        tid.ctypes.data_as(I32P), choice.ctypes.data_as(I8P), n_slots,
+        plan.ent_start.ctypes.data_as(I64P),
+        plan.ent_base.ctypes.data_as(I32P),
+        plan.ent_ccol.ctypes.data_as(I32P),
+        plan.pool.ctypes.data_as(U8P),
+        plan.pool_off.ctypes.data_as(I64P),
+        plan.max_tag_bytes,
+        out.ctypes.data_as(U8P), cap, n_threads,
+    )
+    if written < 0:
+        return None
+    return out[:written].tobytes()
+
+
 def scores_detok_available() -> bool:
-    """Whether the native ``--scores`` writer is built in (it always is in
-    the port's library; a failed build raises instead)."""
-    return hasattr(_load(), "vt_detok_scores2")
+    """Whether the native ``--scores`` writers are in use:
+    :func:`available` (they are always built into the port's library)."""
+    return available()
+
+
+def detok_tags2_available() -> bool:
+    """Whether the native tag writer is in use: :func:`available`."""
+    return available()
 
 
 def detok_scores2_native(
@@ -815,6 +990,8 @@ def detok_scores2_native(
     The output buffer is sized from the writer's own per-line bound, ``2 *
     bytes + chars + 2 + chars * PER_GAP`` (an empty line's 2 included),
     and an undersized buffer raises."""
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -885,6 +1062,8 @@ def detok_tags2_native(
     max_bytes + 1) + 2`` with tag scores, at most ``max(chars, 1)`` tokens
     a line, so an empty line reserves its blocks too — and an undersized
     buffer raises."""
+    if disabled():
+        return None
     lib = _load()
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
@@ -970,6 +1149,8 @@ class NativeTagScorer:
     """
 
     def __init__(self, compiled):
+        if disabled():
+            raise switch_error("the native tag scorer")
         lib = _load()
         self._lib = lib
         meta = compiled.tag_meta
@@ -1173,6 +1354,8 @@ class NativeHostPredictor:
     def __init__(self, compiled):
         from ..compile.compiler import char_sym_table
 
+        if disabled():
+            raise switch_error("the native host engine (--backend host)")
         lib = _load()
         self._bufs = {}
         self._lock = threading.Lock()
@@ -1345,6 +1528,8 @@ class NativeExtractor:
     (``train.trainer.Trainer.gen_features``)."""
 
     def __init__(self, charw, charn, typew, typen, dictn, dict_words):
+        if disabled():
+            raise switch_error("the native feature extractor")
         self._lib = _load()
         offsets = np.zeros(len(dict_words) + 1, dtype=np.int64)
         np.cumsum([len(w) for w in dict_words], out=offsets[1:])

@@ -444,6 +444,174 @@ constexpr int64_t PER_GAP = 30;
 
 }  // namespace
 
+// The v1 writers, kept for the native module's detok_scores_native and
+// detok_tags_native (the JAX package's entry points of the same names):
+// one line per row at column 0, boundaries one int8 a gap, int32 token ids.
+//
+// Scores-printing detokenizer: per line, the tokenized text (vt_detok
+// semantics), then one "i:AB score" line per gap of the NORMALIZED text
+// (reference predict/src/main.rs:66-75 prints scores of the normalized
+// sentence), then a blank line. cps16: the normalized (n_lines, L) uint16
+// codepoints the kernel consumed;
+// scores: (n_lines, Lm1) int32 raw gap scores. Returns bytes written,
+// -1 if out_cap is insufficient.
+int64_t vt_detok_scores(const uint8_t* utf8, const int64_t* starts,
+                        const int64_t* ends, int64_t n_lines,
+                        const int8_t* bnd, int32_t Lm1,
+                        const uint16_t* cps16, const int32_t* lengths,
+                        const int32_t* scores, uint8_t* out,
+                        int64_t out_cap, int32_t n_threads) {
+  const int32_t L = Lm1 + 1;
+  std::vector<int64_t> out_len(n_lines, 0);
+  std::vector<int64_t> out_start(n_lines + 1, 0);
+  for (int64_t row = 0; row < n_lines; ++row) {
+    int64_t nbytes = ends[row] - starts[row];
+    out_start[row + 1] =
+        out_start[row] + 2 * nbytes + Lm1 + 2 + Lm1 * PER_GAP;
+  }
+  if (out_start[n_lines] > out_cap) return -1;
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t row = lo; row < hi; ++row) {
+      const uint8_t* p = utf8 + starts[row];
+      const uint8_t* end = utf8 + ends[row];
+      const int8_t* b = bnd + row * Lm1;
+      uint8_t* o = out + out_start[row];
+      uint8_t* o0 = o;
+      int32_t ci = 0;
+      while (p < end) {
+        uint8_t byte = *p;
+        if ((byte & 0xC0) != 0x80) {
+          if (ci > 0 && ci <= Lm1 && b[ci - 1] == 1) *o++ = ' ';
+          ++ci;
+          if (byte == ' ' || byte == '/' || byte == '\\') *o++ = '\\';
+        }
+        *o++ = byte;
+        ++p;
+      }
+      *o++ = '\n';
+      const uint16_t* cp = cps16 + row * L;
+      const int32_t* sc = scores + row * Lm1;
+      int32_t n = lengths[row];
+      if (n > 0) {  // empty lines have no Sentence -> no score block
+        for (int32_t i = 0; i + 1 < n; ++i) {
+          o = put_int(o, i);
+          *o++ = ':';
+          o = put_utf8(o, cp[i]);
+          o = put_utf8(o, cp[i + 1]);
+          *o++ = ' ';
+          o = put_int(o, sc[i]);
+          *o++ = '\n';
+        }
+        *o++ = '\n';
+      }
+      out_len[row] = o - o0;
+    }
+  };
+  vt::parallel_rows(n_lines, n_threads, 256, work);
+  int64_t w = 0;
+  for (int64_t row = 0; row < n_lines; ++row) {
+    if (w != out_start[row])
+      std::memmove(out + w, out + out_start[row], out_len[row]);
+    w += out_len[row];
+  }
+  return w;
+}
+
+// Tag-aware detokenizer: like vt_detok, but after each token's (escaped)
+// surface it appends the token's tags resolved from the tag pass's outputs
+// (reference tokenized writer sentence.rs:850-886: '/'-joined tags with
+// trailing-None truncation; the truncation point is static per token id
+// and precomputed into the emission plan).
+//
+//   tid:    (n_lines, L) int32 — token id at each token's LAST char
+//           (-1 = unrecognized).
+//   choice: (n_lines, L, n_slots) int8 — winning candidate per slot for
+//           multi-candidate slots (-1 otherwise).
+//   Emission plan per token id (host-built from the model's tag lists):
+//     ent_start[tid]..ent_start[tid+1]: one entry per emitted slot, in
+//     slot order ("/"-separated). ent_base = candidate-pool index of the
+//     slot's first candidate (-1 = empty slot: bare "/"); ent_ccol = the
+//     choice column to add (-1 = single candidate, use base directly).
+//   pool: concatenated PRE-ESCAPED UTF-8 tag strings; pool_off has
+//     n_pool + 1 offsets.
+//
+// Returns bytes written, or -1 when out_cap is insufficient.
+int64_t vt_detok_tags(const uint8_t* utf8, const int64_t* starts,
+                      const int64_t* ends, int64_t n_lines,
+                      const int8_t* bnd, int32_t Lm1, const int32_t* tid,
+                      const int8_t* choice, int32_t n_slots,
+                      const int64_t* ent_start, const int32_t* ent_base,
+                      const int32_t* ent_ccol, const uint8_t* pool,
+                      const int64_t* pool_off, int64_t max_tag_bytes,
+                      uint8_t* out, int64_t out_cap, int32_t n_threads) {
+  const int32_t L = Lm1 + 1;
+  std::vector<int64_t> out_len(n_lines, 0);
+  std::vector<int64_t> out_start(n_lines + 1, 0);
+  for (int64_t row = 0; row < n_lines; ++row) {
+    int64_t nbytes = ends[row] - starts[row];
+    const int8_t* b = bnd + row * Lm1;
+    int64_t ntok = 1;  // one tag block per token
+    for (int32_t i = 0; i < Lm1; ++i) ntok += b[i] == 1;
+    out_start[row + 1] =
+        out_start[row] + 2 * nbytes + Lm1 + 1 + ntok * max_tag_bytes;
+  }
+  if (out_start[n_lines] > out_cap) return -1;
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t row = lo; row < hi; ++row) {
+      const uint8_t* p = utf8 + starts[row];
+      const uint8_t* end = utf8 + ends[row];
+      const int8_t* b = bnd + row * Lm1;
+      const int32_t* trow = tid + row * L;
+      const int8_t* crow = choice + row * L * n_slots;
+      uint8_t* o = out + out_start[row];
+      uint8_t* o0 = o;
+      int32_t ci = 0;  // char index of the char starting at p
+      auto emit_tags = [&](int32_t last_char) {
+        int32_t t = trow[last_char];
+        if (t < 0) return;
+        for (int64_t ei = ent_start[t]; ei < ent_start[t + 1]; ++ei) {
+          *o++ = '/';
+          int32_t base = ent_base[ei];
+          if (base < 0) continue;  // empty-candidate slot: bare '/'
+          int32_t ccol = ent_ccol[ei];
+          int64_t k = base;
+          if (ccol >= 0) {
+            int8_t ch = crow[static_cast<int64_t>(last_char) * n_slots + ccol];
+            if (ch > 0) k += ch;
+          }
+          int64_t plo = pool_off[k], phi = pool_off[k + 1];
+          std::memcpy(o, pool + plo, phi - plo);
+          o += phi - plo;
+        }
+      };
+      while (p < end) {
+        uint8_t byte = *p;
+        if ((byte & 0xC0) != 0x80) {  // char start
+          if (ci > 0 && ci <= Lm1 && b[ci - 1] == 1) {
+            emit_tags(ci - 1);  // close the token ending at char ci-1
+            *o++ = ' ';
+          }
+          ++ci;
+          if (byte == ' ' || byte == '/' || byte == '\\') *o++ = '\\';
+        }
+        *o++ = byte;
+        ++p;
+      }
+      if (ci > 0) emit_tags(ci - 1);  // final token
+      *o++ = '\n';
+      out_len[row] = o - o0;
+    }
+  };
+  vt::parallel_rows(n_lines, n_threads, 256, work);
+  int64_t w = 0;
+  for (int64_t row = 0; row < n_lines; ++row) {
+    if (w != out_start[row])
+      std::memmove(out + w, out + out_start[row], out_len[row]);
+    w += out_len[row];
+  }
+  return w;
+}
+
 // Scores writer for the lean --scores path: per line, the tokenized text
 // (vt_detok_bits semantics), then one "i:AB score" line per gap of the
 // NORMALIZED text (reference predict/src/main.rs:66-75 prints the scores of

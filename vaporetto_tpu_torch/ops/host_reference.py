@@ -63,7 +63,7 @@ def _add_scores_host(match: np.ndarray, matcher, scores: np.ndarray,
 
 
 def reference_scores(compiled, codepoints: np.ndarray,
-                     char_types: np.ndarray,
+                     char_types: np.ndarray, *,
                      sym_table: Optional[np.ndarray] = None) -> np.ndarray:
     """Whole-pipeline scores for one sentence (un-padded gap scores).
     ``sym_table``: :func:`..compile.compiler.char_sym_table` of
@@ -102,7 +102,7 @@ def verify_batch(compiled, sentences) -> Optional[str]:
         char_sym_table(compiled)
     for s in sentences:
         expected = reference_scores(compiled, s.codepoints, s.char_types,
-                                    table)
+                                    sym_table=table)
         got = np.asarray(s.boundary_scores_list(), dtype=np.int32)
         if not np.array_equal(expected, got):
             return (

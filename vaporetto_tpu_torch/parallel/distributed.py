@@ -65,6 +65,7 @@ def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    *,
     device=None,
     timeout_s: float = 600.0,
 ) -> None:

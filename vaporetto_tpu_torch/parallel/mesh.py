@@ -100,20 +100,28 @@ def make_mesh(n_devices: int | None = None, axis: str = "dp") -> Mesh:
     return Mesh([torch.device("cuda", i) for i in range(n)], axis)
 
 
-def shard_predict_fn(predictor, mesh: Mesh):
+def shard_predict_fn(predictor, mesh: Mesh, axis: str = "dp"):
     """The predictor's raw batch function with the batch split over the
-    mesh: ``fn(cps, cts, lengths) -> (padded_scores, char_match,
-    type_match)``, each block on its entry's device over that device's
-    copy of the tables, the outputs joined in row order on the mesh's first
-    device. The batch size must divide by the mesh size."""
+    mesh along ``axis``, its one axis (any other name raises
+    ``ValueError``): ``fn(cps, cts, lengths) -> (padded_scores,
+    char_match, type_match)``, each block on its entry's device over that
+    device's copy of the tables, the outputs joined in row order on the
+    mesh's first device. The batch size must divide by the mesh size."""
+    from ..predictor import _check_axis
+
+    _check_axis(mesh, axis)
     return predictor.predict_raw_fn(mesh=mesh)
 
 
-def train_step_dryrun(mesh: Mesh) -> None:
+def train_step_dryrun(mesh: Mesh, axis: str = "dp") -> None:
     """The trainer's sharded solve at tiny shapes: ``train_binary`` with
-    the example rows split over the mesh and the shards' gradient sums
+    the example rows split over the mesh (along ``axis``, as
+    :func:`shard_predict_fn` takes it) and the shards' gradient sums
     reduced between the kernels (``train/solver.py``)."""
+    from ..predictor import _check_axis
     from ..train.solver import train_binary
+
+    _check_axis(mesh, axis)
 
     n = mesh.n_shards
     N, K, D = 8 * n, 8, 30

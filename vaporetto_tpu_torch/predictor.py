@@ -34,6 +34,13 @@ under ``VAPORETTO_TPU_SMALL_TABLES=1`` or ``VAPORETTO_TPU_TYPE_SPLIT=1``.
 ``VAPORETTO_TPU_DEBUG_CHECKS=1`` holds every device ``predict_batch`` to
 the numpy oracle (:mod:`.ops.host_reference`) and raises
 ``AssertionError`` on a difference (:meth:`Predictor.debug_verify`).
+
+``VAPORETTO_TPU_NO_NATIVE=1`` turns the native host library off
+(:mod:`.native`): the compiler takes its Python path, ``predict_batch``
+runs on the kernels as always, ``predict_tags_batch`` tags in Python
+(:meth:`Predictor._predict_tags_python`, also under
+``VAPORETTO_TPU_NO_NATIVE_TAGS=1``), :meth:`Predictor._host` is None, and
+the host engine raises an error naming the switch.
 """
 
 from __future__ import annotations
@@ -81,18 +88,25 @@ class Predictor:
     LONG_SENTENCE_THRESHOLD = 8192
 
     def __init__(self, model: Optional[Model] = None,
-                 predict_tags: bool = False, *,
-                 compiled: Optional[CompiledModel] = None, device=None,
-                 backend: str = "device"):
+                 predict_tags: bool = False,
+                 compiled: Optional[CompiledModel] = None,
+                 backend: str = "device", *, device=None):
         """``predict_tags``: compile the model's tag models too (tags need
         it; a given ``compiled`` model carries its own tag side).
         ``device``: where the tables live and the batches run; None means
         the current CUDA device. ``backend``: ``"device"`` (the kernels) or
         ``"host"`` (the native host engine: ``predict``/``predict_batch``
         and the ``serve_*_host_fn`` run on the CPU, and the device is
-        resolved only if a device function is asked for)."""
+        resolved only if a device function is asked for; it raises under
+        ``VAPORETTO_TPU_NO_NATIVE=1``)."""
         if backend not in ("device", "host"):
             raise ValueError(f"unknown backend {backend!r}")
+        if backend == "host":
+            from .native import disabled, switch_error
+
+            if disabled():
+                raise switch_error("the native host engine (--backend "
+                                   "host)")
         self.backend = backend
         self._device_arg = device
         self._device = _resolve_device(device) if backend == "device" \
@@ -166,7 +180,7 @@ class Predictor:
             t = t.to(dtype)
         return t.to(self.device if device is None else device).contiguous()
 
-    def predict_raw_fn(self, mesh=None):
+    def predict_raw_fn(self, *, mesh=None):
         """The raw batch predict function over device tables:
         ``fn(codepoints, char_types, lengths) -> (padded_scores,
         char_match, type_match)`` as tensors on the predictor's device
@@ -209,7 +223,8 @@ class Predictor:
         return fn
 
     def serve_boundaries_fn(self, wsconst_types: Sequence[int] = (),
-                            host_types: bool = False, mesh=None):
+                            mesh=None, mesh_axis: str = "dp",
+                            host_types: bool = False):
         """Lean serving: ``fn(cps, cts, lengths)`` (``host_types``) or
         ``fn(cps, lengths)`` -> uint8 (B, ceil((L-1)/8)) boundary bits on
         the device, packed column-major (:func:`unpack_gap_bits`).
@@ -221,7 +236,9 @@ class Predictor:
         are forced to NotWordBoundary in the kernel (KyteaWsConst,
         kytea_wsconst.rs:27-45).
 
-        ``mesh`` (:class:`parallel.mesh.Mesh`): data parallelism. The
+        ``mesh`` (:class:`parallel.mesh.Mesh`): data parallelism along
+        ``mesh_axis``, the mesh's one axis (``"dp"``; any other name
+        raises ``ValueError``). The
         tables are copied once to each distinct device of the mesh, the
         batch (B divisible by the mesh size) is split into contiguous row
         blocks, one per mesh entry, each block's kernel runs on its entry's
@@ -230,6 +247,7 @@ class Predictor:
         devices instead (:class:`serving.LeanServer` reads them back
         itself). The outputs are per row, so the split is exact.
         """
+        _check_axis(mesh, mesh_axis)
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
         def make(dev):
@@ -246,12 +264,15 @@ class Predictor:
         return _serve_fn(self, mesh, make, host_types)
 
     def serve_scores_fn(self, wsconst_types: Sequence[int] = (),
-                        host_types: bool = False, mesh=None):
+                        mesh=None, mesh_axis: str = "dp",
+                        host_types: bool = False):
         """Lean ``--scores`` serving: :meth:`serve_boundaries_fn` that
         also returns the raw int32 gap scores, ``(bits, gap_scores (B,
         L-1))``, from the same serve launch (reference predict
         main.rs:66-75: wsconst changes the boundary labels, never the
-        scores). ``mesh`` as :meth:`serve_boundaries_fn` takes it."""
+        scores). ``mesh`` and ``mesh_axis`` as :meth:`serve_boundaries_fn`
+        takes them."""
+        _check_axis(mesh, mesh_axis)
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
         def make(dev):
@@ -305,9 +326,10 @@ class Predictor:
         return self._device_tag_tables
 
     def serve_tags_fn(self, wsconst_types: Sequence[int] = (),
-                      host_types: bool = False,
+                      mesh=None, mesh_axis: str = "dp",
                       want_gap_scores: bool = False,
-                      want_tag_scores: bool = False, mesh=None):
+                      want_tag_scores: bool = False,
+                      host_types: bool = False):
         """Lean tag serving: ``fn(cps, cts, lengths)`` (``host_types``) or
         ``fn(cps, lengths)`` -> ``(bits, word)`` when ``fn.packed_tc``,
         else ``(bits, tid, choice)``, on the device (dtypes as
@@ -319,10 +341,11 @@ class Predictor:
 
         Two launches a batch: the boundary kernel's full epilogue (scores
         and match ids, and the gap scores when asked), then the tag kernel
-        over them. ``cps``/``cts`` and ``mesh`` as
+        over them. ``cps``/``cts``, ``mesh`` and ``mesh_axis`` as
         :meth:`serve_boundaries_fn` takes them (with a mesh, each block's
         two launches run on its device).
         """
+        _check_axis(mesh, mesh_axis)
         tt = self._tag_tables()
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
@@ -354,12 +377,25 @@ class Predictor:
 
     def _host(self):
         """The native host engine over this predictor's compiled tables
-        (built at first use)."""
-        if self._host_predictor is None:
-            from .native import NativeHostPredictor
+        (built at first use), or None under ``VAPORETTO_TPU_NO_NATIVE=1``,
+        as the JAX package's is None without its library."""
+        from .native import NativeHostPredictor, disabled
 
+        if disabled():
+            return None
+        if self._host_predictor is None:
             self._host_predictor = NativeHostPredictor(self.compiled)
         return self._host_predictor
+
+    def _host_engine(self):
+        """:meth:`_host`, raising under the switch instead of giving
+        None."""
+        host = self._host()
+        if host is None:
+            from .native import switch_error
+
+            raise switch_error("the native host engine (--backend host)")
+        return host
 
     def predict_host_batch(self, sentences: Sequence[Sentence]) -> None:
         """Predict a batch in place with the native host engine: one
@@ -367,7 +403,7 @@ class Predictor:
         library), lines of any length whole, with no chunking. Each
         sentence gets copies of its rows: the engine's outputs are scratch
         views that its next call overwrites."""
-        host = self._host()
+        host = self._host_engine()
         pad = self.compiled.pad_left
         scores_flat, s_offs, char_flat, type_flat, offs = host.predict_batch(
             [s.codepoints for s in sentences],
@@ -470,7 +506,7 @@ class Predictor:
 
     def _serve_host_core(self, wsconst_types: Sequence[int],
                          want_scores: bool):
-        host = self._host()
+        host = self._host_engine()
         ws = tuple(sorted(int(w) for w in wsconst_types))
 
         def fn(cps, lengths):
@@ -498,8 +534,13 @@ class Predictor:
         scorer, returning ``(int8 gap labels (B, L-1), int32 token id
         (B, L), int8 choice (B, L, S))`` — the token id and choices at
         each recognized token's last char, -1 elsewhere."""
-        host = self._host()
+        host = self._host_engine()
         scorer = self._tag_scorer()
+        if scorer is None:
+            raise RuntimeError(
+                "the host engine's tag pass needs the native tag scorer, "
+                "which VAPORETTO_TPU_NO_NATIVE_TAGS=1 or "
+                "VAPORETTO_TPU_NO_NATIVE=1 turns off")
         S = max(self.compiled.n_tags, 1)
         ws = tuple(sorted(int(w) for w in wsconst_types))
         has_char = scorer.has_char
@@ -547,9 +588,18 @@ class Predictor:
         self._store_tag_scores = flag
 
     def _tag_scorer(self):
-        if self._tag_scorer_obj is None:
-            from .native import NativeTagScorer
+        """The native batched tag scorer (built at first use), or None
+        while ``VAPORETTO_TPU_NO_NATIVE_TAGS=1`` or
+        ``VAPORETTO_TPU_NO_NATIVE=1`` is set (each read at every call):
+        :meth:`predict_tags_batch` then tags in Python."""
+        import os
 
+        from .native import NativeTagScorer, disabled
+
+        if os.environ.get("VAPORETTO_TPU_NO_NATIVE_TAGS") == "1" \
+                or disabled():
+            return None
+        if self._tag_scorer_obj is None:
             self._tag_scorer_obj = NativeTagScorer(self.compiled)
         return self._tag_scorer_obj
 
@@ -569,17 +619,21 @@ class Predictor:
         The whole pass — token-span enumeration, surface -> token_id
         lookup, scoring over the per-position match states, per-slot
         argmax — runs in one native call (native/tag_scorer.cc); Python
-        only assigns the chosen candidate strings. The plain Python
-        reference is :meth:`_predict_tags_python`.
+        only assigns the chosen candidate strings. Without the native
+        scorer (:meth:`_tag_scorer` is None) the plain Python pass
+        :meth:`_predict_tags_python` tags them, with the same results.
         """
         c = self.compiled
         meta = self._tag_meta()
         if c.n_tags == 0:
             return
+        native = self._tag_scorer()
+        if native is None:
+            self._predict_tags_python(sentences)
+            return
         for s in sentences:
             s.n_tags = c.n_tags
             s.tag_scores = [None] * len(s) if self._store_tag_scores else []
-        native = self._tag_scorer()
         sent_off = np.zeros(len(sentences) + 1, dtype=np.int64)
         np.cumsum([len(s) for s in sentences], out=sent_off[1:])
         total = int(sent_off[-1])
@@ -644,7 +698,7 @@ class Predictor:
         return serialize_compiled(self.compiled, self.predict_tags_enabled)
 
     @classmethod
-    def deserialize_from_slice(cls, data: bytes, device=None,
+    def deserialize_from_slice(cls, data: bytes, *, device=None,
                                backend: str = "device") -> "Predictor":
         """A predictor over an artifact's compiled model, with no model
         compile; ``device`` and ``backend`` as the constructor takes
@@ -652,12 +706,12 @@ class Predictor:
         from .compile.artifact import deserialize_compiled
 
         compiled, predict_tags = deserialize_compiled(data)
-        return cls(None, predict_tags, compiled=compiled, device=device,
-                   backend=backend)
+        return cls(None, predict_tags, compiled, backend, device=device)
 
     def _predict_tags_python(self, sentences: Sequence[Sentence]) -> None:
         """:meth:`predict_tags_batch` in plain Python, token by token: the
-        reference the native scorer is held to."""
+        reference the native scorer is held to, and the tag pass without
+        it."""
         c = self.compiled
         meta = self._tag_meta()
         if c.n_tags == 0:
@@ -689,6 +743,15 @@ class Predictor:
         _fill_token_tags(sentence, pos, tags_, scores)
         if self._store_tag_scores:
             sentence.tag_scores[pos] = (tags_, scores.tolist())
+
+
+def _check_axis(mesh, mesh_axis: str) -> None:
+    """A mesh has one axis: ``mesh_axis`` must name it (``"dp"`` unless the
+    mesh was given another name)."""
+    axis = "dp" if mesh is None else mesh.axis
+    if mesh_axis != axis:
+        raise ValueError(f"mesh axis {mesh_axis!r}: the port's mesh has one "
+                         f"axis, {axis!r}")
 
 
 def _rows(x, lo: int, hi: int, device: torch.device) -> torch.Tensor:

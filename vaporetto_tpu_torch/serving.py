@@ -99,9 +99,14 @@ def lean_path_supported(args_like) -> bool:
     ``--predict-tags`` with wsconst G (the tag pass's token spans come
     from the boundaries before the host mask), ``--tag-scores`` without
     ``--predict-tags`` (the general path raises as the reference does),
-    and the rich combinations on the host engine."""
+    and the rich combinations on the host engine. None does under
+    ``VAPORETTO_TPU_NO_NATIVE=1``: the lean path's host stages are native,
+    so the CLI then takes the general path, as the JAX package does
+    without its library."""
+    from .native import disabled
+
     backend = getattr(args_like, "backend", "device")
-    if backend not in ("device", "host"):
+    if backend not in ("device", "host") or disabled():
         return False
     if not all(w in _WSCONST_FAST for w in args_like.wsconst):
         return False
@@ -118,11 +123,18 @@ def lean_tags_supported(predictor) -> bool:
     """Whether the lean ``--predict-tags`` path can serve this predictor:
     on the device, its model has device tag tables
     (:meth:`Predictor.device_tag_tables`; a model over the tables' packing
-    limits has none); on the host engine, it has tags and every slot's
-    candidates fit the int8 choice output."""
+    limits has none); on the host engine, it has tags, the native tag
+    scorer is on (not under ``VAPORETTO_TPU_NO_NATIVE_TAGS=1``) and every
+    slot's candidates fit the int8 choice output. Under
+    ``VAPORETTO_TPU_NO_NATIVE=1``, neither."""
+    from .native import disabled
+
+    if disabled():
+        return False
     if predictor.backend == "host":
         meta = predictor.compiled.tag_meta
         return (meta is not None and predictor.compiled.n_tags > 0
+                and predictor._tag_scorer() is not None
                 and all(len(c) <= 127 for slots in meta.tags
                         for c in slots))
     return predictor.device_tag_tables() is not None
@@ -137,7 +149,7 @@ PACK_MAX_LINE = 64
 PACK_TARGET_ROWS = 4096
 
 
-def pack_separator(compiled, tag_reach: int = 0) -> int:
+def pack_separator(compiled, *, tag_reach: int = 0) -> int:
     """Separator width (codepoint-0 chars) between packed lines.
 
     Must cover (a) score spill: the rightmost gap any match's weights
@@ -247,7 +259,8 @@ class LeanServer:
     batches round their rows up to a multiple of it); every block's
     launches go out before the first readback waits, so the cards overlap.
     A ``backend="host"`` predictor serves through the native host engine
-    (not the rich combinations, not with a mesh).
+    (not the rich combinations, not with a mesh). Under
+    ``VAPORETTO_TPU_NO_NATIVE=1`` construction raises, naming the switch.
     """
 
     def __init__(
@@ -263,6 +276,10 @@ class LeanServer:
         grapheme: bool = False,
         tag_scores: bool = False,
     ):
+        from .native import disabled, switch_error
+
+        if disabled():
+            raise switch_error("LeanServer (its tensorizer and writers)")
         if mesh is not None and batch_lines % mesh.size:
             raise ValueError("batch_lines must divide by the mesh size")
         if tag_scores and not tags:
@@ -307,7 +324,8 @@ class LeanServer:
             self.plan = TagEmitPlan(c.tag_meta, c.n_tags)
             if self.tag_scores:
                 self._ts_plan = TagScoresPlan(c.tag_meta)
-            self._sep = pack_separator(c, predictor._tag_tables().max_rel())
+            self._sep = pack_separator(
+                c, tag_reach=predictor._tag_tables().max_rel())
         elif self.scores:
             self.fn = predictor.serve_scores_fn(ws, host_types=True,
                                                 mesh=mesh)

@@ -288,8 +288,9 @@ def train_crammer_singer(
     cost: float,
     eps: float,
     max_iter: int = 2000,
-    device=None,
     mesh=None,
+    *,
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Joint Crammer-Singer multiclass training (LIBLINEAR MCSVM_CS,
     solver enum 4); returns (W[C, D], biases[C]).
@@ -325,8 +326,9 @@ def train_boundary(
     eps: float,
     solver: int,
     max_iter: int = 2000,
-    device=None,
     mesh=None,
+    *,
+    device=None,
 ) -> Tuple[np.ndarray, float]:
     """The boundary trainer's solve: the WordBoundary weight column.
 
@@ -363,8 +365,9 @@ def train_binary(
     eps: float,
     solver: int,
     max_iter: int = 2000,
-    device=None,
     mesh=None,
+    *,
+    device=None,
 ) -> Tuple[np.ndarray, float]:
     """Train one binary classifier; returns (weights[1..=D], bias).
 
@@ -410,8 +413,9 @@ def train_one_vs_rest(
     eps: float,
     solver: int,
     max_iter: int = 2000,
-    device=None,
     mesh=None,
+    *,
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One-vs-rest training; returns (W[C, D], biases[C]).
 

@@ -174,7 +174,7 @@ class TagTrainer:
         )
 
     def train(self, epsilon: float, cost: float, solver: int,
-              device=None, mesh=None) -> List[TagModel]:
+              mesh=None, *, device=None) -> List[TagModel]:
         for token, tags in self.default_tags.items():
             if any(t is not None for t in tags) and token not in self.examples:
                 self.examples[token] = [(list(tags), [])]

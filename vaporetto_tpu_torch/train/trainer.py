@@ -23,7 +23,8 @@ The solver is FISTA in solver.py, on the card through the kernels of
 ``csrc/solver.cu`` (LIBLINEAR objective parity, not bitwise parity —
 documented substitution). Features come from the native extractor
 (``native/feature_extractor.cc``), or from :meth:`Trainer.gen_features` with
-``VAPORETTO_TPU_PY_EXTRACTOR=1``; both give the same features, with the same
+``VAPORETTO_TPU_PY_EXTRACTOR=1`` or ``VAPORETTO_TPU_NO_NATIVE=1``; both give
+the same features, with the same
 ids where there is no dictionary (with one, the native extractor numbers a
 sentence's dictionary features after all its n-grams).
 """
@@ -162,9 +163,12 @@ class Trainer:
         #: the last :meth:`train`'s problem shape and seconds
         self.stats: Dict[str, float] = {}
         self._native = None
-        if os.environ.get("VAPORETTO_TPU_PY_EXTRACTOR") != "1":
-            # the host library is required: a failed build raises
-            from ..native import NativeExtractor
+        from ..native import NativeExtractor, disabled
+
+        if os.environ.get("VAPORETTO_TPU_PY_EXTRACTOR") != "1" \
+                and not disabled():
+            # the host library is required unless VAPORETTO_TPU_NO_NATIVE=1
+            # turns it off: a failed build raises
 
             self._native = NativeExtractor(
                 char_window_size, char_ngram_size, type_window_size,
@@ -251,7 +255,7 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def train(self, epsilon: float, cost: float, solver: int,
-              max_iter: int = 2000, device=None, mesh=None) -> Model:
+              mesh=None, max_iter: int = 2000, *, device=None) -> Model:
         """Solve and assemble the model; ``device``: the torch device of
         the solves (None: the current CUDA device, which must exist;
         "cpu": the kernels' plain version); ``mesh``: every solve's example
