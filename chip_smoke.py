@@ -97,16 +97,19 @@ versions on the same inputs. Phases, each printed on its own line:
    on the card over 10 000 of [4]'s long lines as the 50k model segments
    them (``--tok``, its words as ``--dict``, ``--solver 5``): the solver
    kernels (``csrc/solver.cu``) against their plain version on that
-   problem (one iteration within rtol 1e-5), two solves with bitwise-equal
-   weights and byte-equal model files, the plain solve's objective,
-   iterations and held-out F1 beside the kernel's; ``predict`` and
-   ``evaluate`` with the trained model through the boundary kernel on
-   2 000 held-out lines; Crammer-Singer over three labels (``--part``
-   with unknown gaps, ``--solver 4``) and logistic (``--solver 0``); tag
-   training on 3 000 tag-token lines the tagged model tags, and
-   ``--predict-tags`` with the student through both kernels; the
-   kernels' times per iteration beside the plain version's,
-   ``torch.sparse.mm``'s and the byte bound;
+   problem (one iteration within rtol 1e-5), the problem laid out again
+   from the run's arguments and solved again with bitwise-equal weights,
+   the plain solve's objective, iterations and held-out F1 (of the float
+   weights) beside the kernel's; ``predict`` with the trained model
+   through the boundary kernel on 2 000 held-out lines, the char and word
+   F1 of its output; Crammer-Singer over three labels (``--part`` with
+   unknown gaps, ``--solver 4``) and logistic (``--solver 0``), and
+   ``predict`` and ``evaluate`` with the logistic model (evaluate's F1
+   equal to the char F1 of predict's output); tag training on 3 000 tag-token
+   lines the tagged model tags, and ``--predict-tags`` with the student
+   through both kernels; the kernels' times per iteration beside the
+   plain version's, ``torch.sparse.mm``'s and the byte bound; the
+   seconds of each sub-run;
 9. several cards and several processes, on the one card
    (:func:`multi_phase`): ``predict --dp 1`` over [4]'s lines equal to
    [6] (``--dp 2`` exits 2 naming the one card); ``LeanServer`` on a mesh
@@ -146,8 +149,9 @@ versions on the same inputs. Phases, each printed on its own line:
    compiled with ``prefer_type_trie``: the kernel equal to plain on [5]'s
    first batch, bits and in-line gap scores equal to the cache layout's,
    both layouts' serve times;
-12. a ``kernels`` JSON line (boundary with its variants, tags, solver with
-   its ``cols<PART>`` instantiation, update).
+12. the script's seconds so far, and a ``kernels`` JSON line (boundary
+   with its variants, tags, solver with its ``cols<PART>`` instantiation,
+   update).
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or
 exception exits nonzero; without CUDA the script exits nonzero before
@@ -1712,18 +1716,20 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
     - boundary: the first ``n_train`` of ``long_lines`` segmented by the
       teacher as ``--tok``, its dictionary as ``--dict``, ``--solver 5``;
       (a) one kernel iteration against one plain iteration on that
-      problem; (b) the run's trainer (``Trainer.train``, recorded) solves
-      and assembles again: bitwise-equal weights and a byte-equal model
-      file; (c) the plain solve on the same device: objectives within
-      1e-4 relative, iterations within one chunk, held-out char F1 within
-      0.005 (the trainer assembles the plain weights into a model, which
-      ``LeanServer`` runs on the held-out lines);
-    - ``predict`` and ``evaluate`` (char) with the trained model on the
-      next ``n_held`` lines against the teacher's segmentation, and the
-      word F1 of the predict output;
+      problem; (b) the problem laid out again from the run's recorded
+      ``Problem`` arguments and solved again: bitwise-equal weights (the
+      model file is the trainer's host assembly of those weights, so equal
+      weights decide it); (c) the plain solve on the same device:
+      objectives within 1e-4 relative, iterations within one chunk, and
+      the held-out char F1 of the two float weight vectors
+      (:func:`held_out_f1`, no model assembled) within 0.005;
+    - ``predict`` with the trained model on the next ``n_held`` lines: the
+      char and word F1 of its output against the teacher's segmentation;
     - Crammer-Singer with three labels: ``n_part`` of the training lines
       as ``--part`` with every fifth gap unknown, ``--solver 4``, (a) and
-      (b); ``--solver 0`` on the same lines as ``--tok``, (a);
+      (b); ``--solver 0`` on the same lines as ``--tok``, (a), and
+      ``predict`` and ``evaluate`` (char) with its model on the held-out
+      lines: evaluate's F1 equal to the char F1 of predict's output;
     - tags: ``n_tag`` token lines of the teacher's first ``n_tag_tokens``
       tag tokens, tagged by ``tpred``, ``--solver 5``: the tag solves'
       count and seconds, (b) on one token's solve; ``predict
@@ -1732,17 +1738,16 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
 
     Every run passes ``--eps eps`` (0.01: the CLI's default); the teachers'
     ``LeanServer`` runs take ``batch_lines`` (its default). Returns a
-    dict of what each run found, the boundary problem (``"problem"``: its
-    layouts stay on the device for the timing), and for phase [9]
-    (``"for [9]"``) the boundary run's problem arguments and trainer, the
-    held-out teacher lines and the ``--part`` corpus."""
+    dict of what each run found, the seconds of each sub-run
+    (``"seconds"``), the boundary problem (``"problem"``: its layouts stay
+    on the device for the timing), and for phase [9] (``"for [9]"``) the
+    boundary run's problem arguments and trainer, the held-out teacher
+    lines and the ``--part`` corpus."""
     import contextlib
 
     import torch
 
-    from vaporetto_tpu_torch import Predictor
     from vaporetto_tpu_torch.cli import evaluate, predict
-    from vaporetto_tpu_torch.cli.common import write_model_file
     from vaporetto_tpu_torch.metrics import char_metric, word_metric
     from vaporetto_tpu_torch.ops import solver as ops
     from vaporetto_tpu_torch.sentence import Sentence
@@ -1753,6 +1758,14 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
     os.makedirs(work, exist_ok=True)
     res = {"sizes": dict(train=n_train, held=n_held, part=n_part, tag=n_tag,
                          tag_held=n_tag_held, tag_tokens=n_tag_tokens)}
+    laps = res["seconds"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the last lap, as sub-run ``name``'s."""
+        now = time.perf_counter()
+        laps[name] = now - clock[0]
+        clock[0] = now
 
     def write(name, lines):
         path = os.path.join(work, name)
@@ -1769,31 +1782,34 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
     gold = write("held.tok", teacher[n_train:])
     dic = write("dict.txt", words)
     res["teacher seconds"] = time.perf_counter() - t0
+    lap("teacher")
 
     # ---- boundary: --solver 5 ------------------------------------------
-    # the CLI run; its trainer (features extracted) is kept for (b), (c)
-    models = [os.path.join(work, f"boundary{i}.bin") for i in (1, 2)]
+    # the CLI run; its trainer (features extracted) is kept for (c) and [9]
+    model_path = os.path.join(work, "boundary.bin")
     kept = []
     with _Recorded(ptrainer.Trainer, "train", kept):
         run = train_run(["--tok", tok, "--dict", dic, "--solver", "5",
-                         "--eps", str(eps), "--model", models[0]], device,
+                         "--eps", str(eps), "--model", model_path], device,
                          keep_problem=True)
-    trainer, targs, tkw = kept[0]["args"][0], kept[0]["args"][1:], \
-        kept[0]["kw"]
+    trainer = kept[0]["args"][0]
+    del kept
     solve = run["solves"][0]
     p = solve.pop("p")
+    lap("boundary run")
     res["(a) boundary"] = solver_step_check(p, solve["eps"])
-    # (b) the same problem solved and written again
-    again = []
-    with _Recorded(psolver, "_fista", again, _solve_record(False)):
-        write_model_file(trainer.train(*targs, **tkw), models[1])
-    w1, w2 = solve["w"], again[0]["w"]
-    with open(models[0], "rb") as f1, open(models[1], "rb") as f2:
-        same_file = f1.read() == f2.read()
-    if w1.tobytes() != w2.tobytes() or not same_file:
-        raise AssertionError(f"(b) two boundary solves: weights equal "
-                             f"{w1.tobytes() == w2.tobytes()}, files equal "
-                             f"{same_file}")
+    lap("(a)")
+    # (b) the same problem laid out again and solved again
+    args, kw = run["problem args"]
+    t1 = time.perf_counter()
+    w1 = solve["w"]
+    w2 = psolver._fista(psolver.Problem(*args, **kw), solve["eps"],
+                        solve["chunk"], solve["lip_of"])
+    sync(device)
+    again_s = time.perf_counter() - t1
+    if w1.tobytes() != w2.tobytes():
+        raise AssertionError("(b) two boundary solves give other weights")
+    lap("(b)")
     # (c) the plain solve on the same device and problem
     saved = ops.fista_step, ops.power_step
     ops.fista_step, ops.power_step = ops.fista_step_plain, ops.power_step_plain
@@ -1812,18 +1828,12 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
         raise AssertionError(f"(c) kernel objective {f_kernel} at "
                              f"{solve['it']} iterations, plain {f_plain} at "
                              f"{it_plain}")
-    # the plain weights assembled into a model by the same trainer
-
-    def plain_weights(idx, val, ys, n_features, *a, **kw):
-        return w_plain[1:n_features + 1], float(w_plain[n_features + 1])
-
-    real = ptrainer.train_boundary
-    ptrainer.train_boundary = plain_weights
-    try:
-        plain_model = trainer.train(*targs, **tkw)
-    finally:
-        ptrainer.train_boundary = real
-    del kept
+    (f1_kernel, f1_plain), held_gaps = held_out_f1(
+        trainer, teacher[n_train:], [w1, w_plain], run["features"])
+    if abs(f1_kernel - f1_plain) > 0.005:
+        raise AssertionError(f"(c) held-out char F1 {f1_kernel} (kernel) "
+                             f"against {f1_plain} (plain)")
+    lap("(c)")
 
     def cli(main, name, argv):
         buf = io.StringIO()
@@ -1842,13 +1852,11 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
 
     held_out = os.path.join(work, "held.out")
     on_card = torch.device(device or "cuda").type == "cuda"
-    cli(predict.main, "predict held-out", ["--model", models[0], "--input",
+    cli(predict.main, "predict held-out", ["--model", model_path, "--input",
                                            held_raw, "--output", held_out])
     if on_card and res["predict held-out"]["launches"][0] <= 0:
         raise AssertionError("predict with the trained model launched no "
                              "boundary kernel")
-    cli(evaluate.main, "evaluate char",
-        ["--model", models[0], "--input", gold, "--metric", "char"])
 
     def against_gold(out_lines):
         """(char, word) metrics of tokenized output lines against the
@@ -1860,28 +1868,21 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
                    for g, o in pairs]
         return char_metric(results), word_metric(results)
 
-    # the predict output: the char F1 evaluate printed, and the word F1
+    # the predict output's char and word F1
     with open(held_out, encoding="utf-8") as f:
         char_m, word_m = against_gold(f.read().split("\n"))
+    res["char F1"] = {"F1": char_m.f1, "Precision": char_m.precision,
+                      "Recall": char_m.recall}
     res["word F1"] = word_m.f1
-    f1_kernel = float(res["evaluate char"]["F1"])
-    if abs(char_m.f1 - f1_kernel) > 1e-12:
-        raise AssertionError(f"predict output's char F1 {char_m.f1}, "
-                             f"evaluate {f1_kernel}")
-    # the plain solve's model through LeanServer on the same lines
-    f1_plain = against_gold(_serve(Predictor(plain_model, device=device),
-                                   raw[n_train:], batch_lines=batch_lines)
-                            .decode("utf-8").split("\n"))[0].f1
-    if abs(f1_kernel - f1_plain) > 0.005:
-        raise AssertionError(f"(c) held-out char F1 {f1_kernel} (kernel) "
-                             f"against {f1_plain} (plain)")
     res["boundary"] = {**run, "solve": solve, "(b) equal": True,
-                       "(b) seconds": again[0]["seconds"],
+                       "(b) seconds": again_s,
                        "(c)": {"objective kernel": f_kernel,
                                "objective plain": f_plain,
                                "it plain": it_plain,
                                "plain seconds": plain_s,
+                               "held gaps": held_gaps,
                                "F1 kernel": f1_kernel, "F1 plain": f1_plain}}
+    lap("predict")
 
     # ---- Crammer-Singer over three labels; logistic -------------------
     part = write("train.part", [_part_line(ln) for ln in teacher[:n_part]])
@@ -1898,13 +1899,34 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
         raise AssertionError("(b) two Crammer-Singer solves differ")
     del q
     res["cs"] = {**r, "solve": cs}
+    lap("cs")
     tok2 = write("part.tok", teacher[:n_part])
+    logistic = os.path.join(work, "logistic.bin")
     r = train_run(["--tok", tok2, "--solver", "0", "--eps",
-                   str(eps), "--model", os.path.join(work, "logistic.bin")],
-                  device, keep_problem=True)
+                   str(eps), "--model", logistic], device, keep_problem=True)
     lg = r["solves"][0]
     res["(a) logistic"] = solver_step_check(lg.pop("p"), lg["eps"])
     res["logistic"] = {**r, "solve": lg}
+    lap("logistic")
+    # evaluate's char F1 against char_metric of predict's output, both
+    # with the logistic model on the held-out lines
+    logistic_out = os.path.join(work, "logistic.out")
+    cli(predict.main, "predict logistic", ["--model", logistic, "--input",
+                                           held_raw, "--output", logistic_out])
+    cli(evaluate.main, "evaluate char",
+        ["--model", logistic, "--input", gold, "--metric", "char"])
+    if on_card and min(res["predict logistic"]["launches"][0],
+                       res["evaluate char"]["launches"][0]) <= 0:
+        raise AssertionError("predict or evaluate with a trained model "
+                             "launched no boundary kernel")
+    with open(logistic_out, encoding="utf-8") as f:
+        f1_logistic = against_gold(f.read().split("\n"))[0].f1
+    f1_eval = float(res["evaluate char"]["F1"])
+    if abs(f1_logistic - f1_eval) > 1e-12:
+        raise AssertionError(f"predict output's char F1 {f1_logistic}, "
+                             f"evaluate {f1_eval}")
+    res["evaluate char"]["predict F1"] = f1_logistic
+    lap("evaluate")
 
     # ---- tags --------------------------------------------------------
     # a corpus line holds at least one char
@@ -1950,6 +1972,7 @@ def train_phase(work, pred, tpred, words, long_lines, tokens, device=None,
                    "(b) classes": int(one["args"][3]),
                    "tagged tokens": want,
                    "share equal": have / max(want, 1)}
+    lap("tags")
     res["problem"] = p
     res["for [9]"] = {"problem args": run.pop("problem args"),
                       "trainer": trainer, "held gold": teacher[n_train:],
@@ -1981,22 +2004,25 @@ def train_report(tr, st_, smi, train_s):
     cc = b_run["(c)"]
     log(f"[7] (a) one iteration, kernel against plain (index_add_) on this "
         f"problem: w, z, delta within rtol 1e-5, atol 1e-7 max|g|; max "
-        f"|difference| {tr['(a) boundary']:.3e}. (b) the trainer's second "
-        f"solve and assembly ({b_run['(b) seconds']:.2f}s of solve): weights "
-        f"bitwise equal, model files byte-equal. (c) plain solve on the "
-        f"card: objective {cc['objective plain']:.6f} at {cc['it plain']} "
-        f"iterations in {cc['plain seconds']:.2f}s, kernel "
-        f"{cc['objective kernel']:.6f} at {bs['it']}; held-out char F1 "
-        f"{cc['F1 kernel']:.5f} (kernel) against {cc['F1 plain']:.5f} "
-        f"(plain)")
-    ph = tr["predict held-out"]
+        f"|difference| {tr['(a) boundary']:.3e}. (b) the problem laid out "
+        f"again from the run's arguments and solved again "
+        f"({b_run['(b) seconds']:.2f}s): weights bitwise equal. (c) plain "
+        f"solve on the card: objective {cc['objective plain']:.6f} at "
+        f"{cc['it plain']} iterations in {cc['plain seconds']:.2f}s, kernel "
+        f"{cc['objective kernel']:.6f} at {bs['it']}; held-out char F1 of "
+        f"the float weights on {cc['held gaps']} gaps {cc['F1 kernel']:.5f} "
+        f"(kernel) against {cc['F1 plain']:.5f} (plain)")
+    ph, cf = tr["predict held-out"], tr["char F1"]
+    ev = tr["evaluate char"]
     log(f"[7] the trained model: predict on {n['held']} held-out lines "
-        f"{ph['seconds']:.3f}s, boundary launches {ph['launches'][0]}; "
-        f"evaluate against the teacher: char F1 "
-        f"{tr['evaluate char']['F1']} (P {tr['evaluate char']['Precision']},"
-        f" R {tr['evaluate char']['Recall']}; "
-        f"{tr['evaluate char']['seconds']:.3f}s), word F1 of the predict "
-        f"output {tr['word F1']:.5f}")
+        f"{ph['seconds']:.3f}s, boundary launches {ph['launches'][0]}; its "
+        f"output against the teacher: char F1 {cf['F1']} (P "
+        f"{cf['Precision']}, R {cf['Recall']}), word F1 {tr['word F1']:.5f}."
+        f" evaluate --metric char with the --solver 0 model on the same "
+        f"lines: F1 {ev['F1']} (P {ev['Precision']}, R {ev['Recall']}; "
+        f"{ev['seconds']:.3f}s, boundary launches {ev['launches'][0]}), "
+        f"equal to the char F1 of that model's predict output "
+        f"({ev['predict F1']}, {tr['predict logistic']['seconds']:.3f}s)")
     for name, label in (("cs", "--part, every fifth gap unknown, --solver 4 "
                          "(Crammer-Singer, C = 3)"),
                         ("logistic", "--tok, --solver 0 (logistic)")):
@@ -2037,6 +2063,8 @@ def train_report(tr, st_, smi, train_s):
         f"{st_['col_slices']} slices, {st_['col_steps']} steps; "
         f"{st_['n_seg']} segments of {st_['long_entries']} entries) "
         f"({train_s:.1f}s for the phase)")
+    log("[7] seconds by sub-run: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in tr["seconds"].items()))
 
 
 def tag_build_ms(tg):
@@ -2121,6 +2149,7 @@ def update_entry(mr):
         "bound_by": "bytes",
         "library_ms": None,
         "live_features": s0["n_live"],
+        "prefix_features": s0["n_prefix"],
         "reduce_ms": d["timing"]["reduce_ms"],
         "sharded_iteration_ms": d["timing"]["ms"],
         "sharded_iteration_bound_ms": d["timing"]["bound_ms"],
@@ -2282,7 +2311,9 @@ def time_sharded(sh):
     at 3.35 TB/s: rows and cols<PART> as time_solver counts rows and cols
     but with each visited feature's sums written once in place of w and z
     (4 C B), update 20 C B for each live feature (g, w and z read, w and z
-    written; its dense pass also visits the others, which need nothing).
+    written; its pass over the live prefix also visits the features below
+    the largest id that have no entry, which need nothing), the reduction
+    its shards' prefixes read and one written.
     The timing launches do not count."""
     import numpy as np
     import torch
@@ -2329,12 +2360,14 @@ def time_sharded(sh):
                  / HBM_BYTES_PER_S * 1e3,
                  update_bound_bytes=20 * n_live * q.C,
                  update_bound_ms=20 * n_live * q.C / HBM_BYTES_PER_S * 1e3,
-                 n=q.n, nnz=q.nnz, features=features, n_live=n_live)
+                 n=q.n, nnz=q.nnz, features=features, n_live=n_live,
+                 n_prefix=q.n_prefix)
         res["shards"].append(r)
     res["reduce_ms"] = cuda_ms(
         lambda: sh._reduce([q.part_g for q in sh.parts],
                            {q.device: q.gsum for q in sh.parts}), [()], 20)
-    res["reduce_bytes"] = 3 * sh.n_dim * sh.C * 4  # two read, one written
+    # the shards' live prefixes read, one written
+    res["reduce_bytes"] = (len(sh.parts) + 1) * sh.n_prefix * sh.C * 4
     sh_ = res["shards"]
     res["ms"] = sum(r["rows_ms"] + r["cols_part_ms"] + r["update_ms"]
                     for r in sh_) + res["reduce_ms"]
@@ -2681,7 +2714,8 @@ def multi_report(mr, smi, phase_s, unsharded_ms):
         f"{s1['rows_ms']:.4f}, cols<PART> {s0['cols_part_ms']:.4f} / "
         f"{s1['cols_part_ms']:.4f}, update {s0['update_ms']:.4f} / "
         f"{s1['update_ms']:.4f} (bound {s0['update_bound_ms']:.4f}: "
-        f"{s0['update_bound_bytes']} B, {s0['n_live']} live features; plain "
+        f"{s0['update_bound_bytes']} B, {s0['n_live']} live features; a "
+        f"pass over the live prefix of {s0['n_prefix']} features; plain "
         f"{s0['update_plain_ms']:.4f}); reduction {t['reduce_ms']:.4f} "
         f"({t['reduce_bytes']} B); the iteration {t['ms']:.4f} against the "
         f"unsharded {unsharded_ms:.4f} ([7]) and its bound "
@@ -3338,7 +3372,8 @@ def variants_phase(pred, words, sep, smi):
                     raise AssertionError(f"max_len {k}: no hash tables")
                 compare_kernel(t, *(x.cpu().numpy().astype(np.int32)
                                     for x in batches[0]))
-                row["hash_groups"] = t.char_hm.groups
+                g = launch_geometry(t, 8192, 256)
+                row["hash_geometry"] = (g.warps, g.staged, g.fixed)
             row[name.replace(" ", "_") + "_ms"] = cuda_ms(
                 lambda c, ty, ln: boundary(t, c, ty, ln, serve=True),
                 batches, 20, reps=3)
@@ -3353,7 +3388,9 @@ def variants_phase(pred, words, sep, smi):
     log("[10] (c) serve (8192, 256), walk / hash / walk ms by char max_len: "
         + "; ".join(f"{r['max_len']}: {r['walk_ms']:.4f} / "
                     f"{r['hash_ms']:.4f} / {r['walk_again_ms']:.4f} "
-                    f"({r['hash_groups']} probe groups)"
+                    f"(hash: {r['hash_geometry'][0]} warps, "
+                    f"{r['hash_geometry'][2]} B "
+                    f"{'staged' if r['hash_geometry'][1] else 'not staged'})"
                     for r in res["crossover"])
         + f"; the hash matcher is faster at every max_len from {wins_from}"
         f" (17: at none); HASH_MATCH_MIN_LEN is {HASH_MATCH_MIN_LEN}; {smi}")
@@ -3797,6 +3834,7 @@ def examples_phase(work, model, pred, tmodel, lines, tlines, words, sep,
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     import torch
 
     timing_only = "--timing-only" in argv
@@ -4274,7 +4312,9 @@ def main(argv) -> int:
     tr = train_phase(os.path.join(work, "train"), pred, tpred, words,
                      lines[20_000:40_000], tokens)
     prob = tr.pop("problem")
+    t1 = time.perf_counter()
     st_ = time_solver(prob)
+    tr["seconds"]["timing"] = time.perf_counter() - t1
     train_report(tr, st_, smi, time.perf_counter() - t0)
     log("[7] solver ptxas by instantiation: " + ", ".join(
         f"{k} {v}" for k, v in solver_ptxas(ptxas["solver"]).items()))
@@ -4299,6 +4339,8 @@ def main(argv) -> int:
     examples_phase(work, model, pred, tmodel, lines, tlines, words, sep, smi)
 
     # ---- 12. kernels --------------------------------------------------
+    # the script's wall time so far, the kernels' build included
+    log(f"[12] script seconds {time.perf_counter() - t_start:.1f}")
     main_shape, tmain, tdense = shapes[0], tshapes[0], tshapes[-1]
     log(json.dumps({"kernels": [{
         "name": "boundary",

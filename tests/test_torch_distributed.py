@@ -320,7 +320,7 @@ def test_chip_smoke_multi_phase_on_cpu(tmp_path):
                            "update_bound_ms", "update_plain_ms",
                            "partial_plain_ms", "cols_part_bound_ms",
                            "rows_bound_ms"), 1.0)
-    shard.update(update_bound_bytes=1, n_live=1)
+    shard.update(update_bound_bytes=1, n_live=1, n_prefix=1)
     d["timing"] = {"shards": [shard, shard], "reduce_ms": 1.0,
                    "reduce_bytes": 1, "ms": 1.0, "bound_ms": 1.0}
     chip_smoke.multi_report(mr, "no card", 1.0, 1.0)

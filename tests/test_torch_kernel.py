@@ -26,13 +26,17 @@ card as on the CPU and on the host engine, launching the boundary kernel
 only on the card.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from vaporetto_tpu_torch import Predictor
-from vaporetto_tpu_torch.ops.boundary import boundary, launch_geometry
+from vaporetto_tpu_torch.ops import boundary as ops_boundary
+from vaporetto_tpu_torch.ops.boundary import (boundary, hash_side_tables,
+                                              launch_geometry)
 from vaporetto_tpu_torch.ops.tags import tags
 from vaporetto_tpu_torch.serving import pack_separator
 
@@ -52,6 +56,22 @@ CASES = {
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
+
+
+def wide_displacements(hm):
+    """``hm`` (``HashMatchTables``, on any device) on the host with every
+    bucket's displacement raised by a multiple of its length's region
+    size to above 255. A slot is taken mod the region size, so every
+    lookup lands where it did and the matches stay the same; the kernel's
+    layout then takes 4-byte bucket records (a 16-bit displacement and a
+    16-bit fingerprint mask)."""
+    d = torch.as_tensor(hm.d).cpu().numpy().copy()
+    for _, d_off, d_shift, _, _, mask, _ in hm.metas:
+        size = mask + 1
+        d[d_off:d_off + (1 << (32 - d_shift)), 0] += size * (255 // size + 1)
+    assert 255 < d[:, 0].min() and d[:, 0].max() < 1 << 16
+    return dataclasses.replace(hm, d=d,
+                               l2=torch.as_tensor(hm.l2).cpu().numpy())
 
 
 @pytest.fixture(scope="module")
@@ -179,6 +199,67 @@ def test_hash_matcher_matches_plain_on_card(case):
     assert (tabs.char_hm is None) == (case == "long_word")
     assert (tabs.type_hm is not None) == (case == "type_trie")
     cps, cts, lengths = chip_smoke.random_batch(B, L, 5,
+                                                [w for w in words if w])
+    assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_len", [2, 7, 16])
+def test_redesigned_hash_matcher_matches_plain_on_card(max_len):
+    """The filtered hash matcher (fingerprint records, probes gathered
+    across positions) against its plain version at char max_len 2, 7 and
+    16 (the 50k model's generator at 3 000 words cut to each length),
+    over both epilogues with and without gap scores (compare_kernel), on
+    ragged and padding-heavy rows and on packed rows."""
+    _card()
+    base = chip_smoke.big_model(3000, 300)
+    model, words = chip_smoke.length_model(base, max_len)
+    pred = Predictor(model)
+    tabs = chip_smoke.variant_tables(pred.compiled, pred.device,
+                                     HASHMATCH_MIN="1")
+    assert tabs.char_hm is not None and tabs.char_hm.kmax == max_len
+    sep = pack_separator(pred.compiled)
+    batches = chip_smoke.geometry_batches(words, sep)
+    for case in ("edge lengths (67, 256)",
+                 "packed rows with separators (256, 512)"):
+        assert chip_smoke.compare_kernel(tabs, *batches[case],
+                                         ((), KANJI_DIGIT)) == 0
+    cps, cts, lengths = chip_smoke.random_batch(512, 256, 7, words)
+    assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
+                                     ((), KANJI_DIGIT)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("max_len", [7, 16, "type trie"])
+def test_wide_bucket_records_match_plain_on_card(max_len, staged,
+                                                 monkeypatch):
+    """The hash matcher's 4-byte bucket records (16-bit displacements and
+    fingerprint masks, taken when a displacement exceeds 255) against the
+    plain version on the same widened tables (:func:`wide_displacements`)
+    at char max_len 7 and 16 and on the type trie, staged in shared
+    memory and read from global memory, over both epilogues with and
+    without gap scores (compare_kernel)."""
+    _card()
+    if max_len == "type trie":
+        model, words, B, L = CASES["type_trie"]()
+        side = "type_hm"
+    else:
+        model, words = chip_smoke.length_model(
+            chip_smoke.big_model(3000, 300), max_len)
+        B, L, side = 512, 256, "char_hm"
+    pred = Predictor(model)
+    tabs = chip_smoke.variant_tables(pred.compiled, pred.device,
+                                     HASHMATCH_MIN="1")
+    wide = hash_side_tables(wide_displacements(getattr(tabs, side).plain),
+                            pred.device)
+    assert wide.rec_bytes == 4 and wide.rec.dtype == torch.int32
+    tabs = dataclasses.replace(tabs, **{side: wide})
+    if not staged:
+        monkeypatch.setattr(ops_boundary, "HASH_STAGE_BUDGET", 0)
+    assert launch_geometry(tabs, B, L).staged == staged
+    cps, cts, lengths = chip_smoke.random_batch(B, L, 7,
                                                 [w for w in words if w])
     assert chip_smoke.compare_kernel(tabs, cps, cts, lengths,
                                      ((), KANJI_DIGIT)) == 0
@@ -491,6 +572,42 @@ def test_part_and_update_equal_fused_cols_on_one_shard_on_card(
         for k in ("w", "z", "state"):
             assert torch.equal(getattr(p, k), getattr(q, k)), k
     assert float(p.w.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,l1,C", [(1, True, 1), (0, False, 1),
+                                       (3, False, 3)])
+def test_update_over_the_prefix_matches_plain_on_card(loss, l1, C):
+    """update visits the live prefix only: from a state after some
+    iterations, its w, z and state against the dense
+    ``fista_update_plain``'s on the same shard: the tail past the prefix
+    +0 bit for bit in both, the prefix within rtol 1e-6 and atol 1e-7 of
+    the largest (the kernel, like cols, may fuse a multiply and an add
+    that the plain version rounds twice), the state and delta the same."""
+    _card()
+    from vaporetto_tpu_torch.ops import solver as ops
+
+    sh = _sharded_problem(loss, l1, C)
+    for _ in range(5):
+        sh.fista_iteration()
+    q = sh.parts[0]
+    m = q.n_prefix * C
+    assert q.n_prefix < q.n_dim and m % 4  # a scalar tail too
+    start = q.clone_state()
+    ops.fista_update(q)
+    kern = q.clone_state()
+    q.set_state(start)
+    ops.fista_update_plain(q)
+    for k in ("w", "z"):
+        got, want = kern[k], getattr(q, k)
+        assert not bool(got[m:].view(torch.int32).any())
+        assert not bool(want[m:].view(torch.int32).any())
+        scale = float(want.abs().max())
+        assert torch.allclose(got, want, rtol=1e-6, atol=1e-7 * scale), k
+    assert torch.equal(kern["state"][:2], q.state[:2])
+    dk, dp = (float(st[2:3].view(torch.float32)) for st in
+              (kern["state"], q.state))
+    assert abs(dk - dp) <= 1e-6 * dp
 
 
 @pytest.mark.cuda

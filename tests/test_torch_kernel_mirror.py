@@ -16,13 +16,16 @@ the kernel's algorithm step for step:
   offset + 8c), the type window per in-line gap, the serve bit pack, and
   the gap-score store (the row's score at pad_left + g for every g < L-1);
 - on a side that takes the CHD hash matcher, its probes on the kernel's
-  own layout (``HashSide``): per end position, the rolling hash grown one
-  symbol at a time along each group's probe slots (lengths ascending), no
-  probe past a window holding symbol 0, the entry row's pairs compared
-  with the window's (a row's parts may span groups), the id from the
-  row's last int, a later (longer)
-  match overwriting; and the type score from the cache, the per-offset
-  tables or the split tables, read from the kernel's flat copy.
+  own layout (``HashSide``): 32 positions at a time, one a lane, all
+  lanes taking the lengths together, ascending: the rolling hash grown
+  one symbol a length, no length past a window holding symbol 0, the
+  bucket record's fingerprint bit deciding whether the length's entry
+  row is loaded, ``SLOTS`` lengths' loads before their compares, the
+  entry row's first part compared with the window's and its other parts
+  read only when that matches, the id from the row's last int, a later
+  (longer) match overwriting; and the type score from the cache, the
+  per-offset tables or the split tables, read from the kernel's flat
+  copy.
 
 It must equal the port's plain matcher and scores, and the JAX package's
 matcher, exactly (tolerance 0: every value is an int32), on the 50k-style
@@ -39,18 +42,26 @@ import chip_smoke
 from vaporetto_tpu.ops import match as jmatch
 from vaporetto_tpu_torch import Predictor
 from vaporetto_tpu.ops import hashmatch as jhm
-from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, SLOTS, TYPE_CACHE,
+from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, TYPE_CACHE,
                                               TYPE_POS, TYPE_SPLIT,
                                               _pattern_records,
                                               boundary, boundary_scores_plain,
+                                              _fingerprint_bits,
                                               hash_side_tables,
                                               serve_bits_plain)
+from vaporetto_tpu_torch.ops.hashmatch import (extract_patterns,
+                                               hash_match_longest)
 from vaporetto_tpu_torch.ops.match import (hash_project_fused,
                                            match_longest_fused)
 from vaporetto_tpu_torch.predictor import pack_gap_bits_np
 
+from test_torch_kernel import wide_displacements
+
 #: the kernel's WALKS (csrc/boundary.cu): a chunk of starts is 32 * WALKS
 SPAN = 32 * 2
+#: the kernel's SLOTS: the hash lengths whose loads go out before their
+#: compares
+SLOTS = 2
 
 
 def _np(t):
@@ -93,47 +104,82 @@ M32 = 0xFFFFFFFF
 C1 = 0x9E3779B1
 
 
-def _hash_probe(sym, n, hs):
+def _records(hs):
+    """(record of each bucket as unsigned ints, fingerprint bits, bits of
+    the displacement) of a hash side."""
+    half = 4 * hs.rec_bytes
+    rec = _np(hs.rec).astype(np.int64) & ((1 << (2 * half)) - 1)
+    return rec.tolist(), _fingerprint_bits(hs.rec_bytes), half
+
+
+def _filter(rec, fb, half, m, h):
+    """(passes, displacement) of the window hash ``h`` at a length whose
+    record is ``m``: its bucket's fingerprint bit."""
+    hc = (h * C1) & M32
+    r = rec[m[4] + (hc >> m[5])]
+    f = (hc >> (m[5] - fb)) & ((1 << fb) - 1)
+    return bool((r >> (half + f)) & 1), r & ((1 << half) - 1)
+
+
+def _hash_compare(sym, rows, t, k, addr):
+    """The id of the entry row at int4 offset ``addr`` if its length-k
+    pattern is the window ending at ``t``, else None: the first part's
+    pairs, then the others only when those match; the id last."""
+    parts = ((k + 1) // 2 + 4) // 4
+    for q in range(parts):
+        r = rows[addr + q]
+        for u in range(4):
+            j = 4 * q + u
+            if 2 * j >= k:
+                break
+            hi = int(sym[t - 2 * j - 1]) if 2 * j + 1 < k else 0
+            if int(r[u]) != (int(sym[t - 2 * j]) | hi << 16):
+                return None
+    return int(r[3])
+
+
+def _hash_probe(sym, n, hs, slots=SLOTS, stats=None):
     """The kernel's hash probes over one row of ``n`` live positions: the
-    longest pattern id ending at each position (-1: none)."""
-    rows, d, slots = _np(hs.rows), _np(hs.d).tolist(), _np(hs.slots)
+    longest pattern id ending at each position (-1: none). The warp takes
+    32 positions at a time (one a lane) and the lengths together,
+    ascending; ``slots`` lengths' loads go out before a group compares
+    them. ``stats`` (a dict) counts the probes and the groups."""
+    rows, meta = _np(hs.rows), _np(hs.meta).tolist()
+    rec, fb, half = _records(hs)
     base = hs.base & M32
     best = np.full(len(sym), -1, dtype=np.int64)
-    for t in range(n):
-        found, h, p, e, dead, ok = -1, 0, 1, 0, False, False
-        for g in range(hs.groups):
-            if dead:
+    st = stats if stats is not None else {}
+    for key in ("probes", "rounds"):
+        st.setdefault(key, 0)
+    for t0 in range(0, n, 32):
+        ts = list(range(t0, min(t0 + 32, n)))
+        h, live, p = dict.fromkeys(ts, 0), dict.fromkeys(ts, True), 1
+        for e0 in range(0, hs.kmax, slots):
+            if not any(live.values()):
                 break
-            grp = slots[g * SLOTS:(g + 1) * SLOTS].tolist()  # Python ints
-            row, live = [None] * SLOTS, [False] * SLOTS
-            for i, m in enumerate(grp):
-                k = m[0]
-                if k == 0:
-                    continue
-                while not dead and e < k:
-                    sy = int(sym[t - e]) if t - e >= 0 else 0
-                    dead = sy == 0
-                    h, p, e = (h + sy * p) & M32, (p * base) & M32, e + 1
-                if dead:
-                    continue
-                b = m[1] + (((h * C1) & M32) >> m[2])
-                slot = ((((h * (m[6] & M32)) & M32) >> m[4]) + d[b]) & m[5]
-                row[i], live[i] = rows[m[3] + slot * (m[7] & 0xFF)], True
-            for i, m in enumerate(grp):
-                k, q = m[0], (m[7] >> 8) & 0xFF
-                if q == 0:
-                    ok = live[i]
-                if not ok or k == 0:
-                    continue
-                for u in range(4):
-                    j = 4 * q + u
-                    if 2 * j >= k:
-                        break
-                    hi = int(sym[t - 2 * j - 1]) if 2 * j + 1 < k else 0
-                    ok = ok and row[i][u] == (int(sym[t - 2 * j]) | hi << 16)
-                if ok and m[7] >> 16:
-                    found = row[i][3]
-        best[t] = found
+            st["rounds"] += 1
+            loads = []  # every load of the group first
+            for e in range(e0, min(e0 + slots, hs.kmax)):
+                m = meta[e]
+                for t in ts:
+                    sy = int(sym[t - e]) if live[t] and t - e >= 0 else 0
+                    live[t] = sy != 0
+                    h[t] = (h[t] + sy * p) & M32
+                    if not live[t] or m[4] < 0:
+                        continue
+                    ok, d = _filter(rec, fb, half, m, h[t])
+                    if not ok:
+                        continue
+                    slot = ((((h[t] * (m[3] & M32)) & M32) >> m[1]) + d) \
+                        & m[2]
+                    loads.append((t, e + 1, m[0] + slot * (
+                        ((e + 2) // 2 + 4) // 4)))
+                p = (p * base) & M32
+            for t, k, addr in loads:  # then the compares, lengths ascending
+                st["probes"] += 1
+                found = _hash_compare(sym, rows, t, k, addr)
+                if found is not None:
+                    best[t] = found
     return best
 
 
@@ -396,42 +442,153 @@ def test_pattern_records_need_chunks_eight_apart():
 
 def test_hash_layout_holds_the_jax_tables():
     """The kernel's entry rows hold each pattern's pairs and id where the
-    JAX layout's row does; a length's parts take consecutive probe slots,
-    the lengths ascending (at 16 chars, rows of three parts across groups);
-    displacements are 1 byte below 256, else 2."""
+    JAX layout's row does (at 16 chars, rows of three parts); a length's
+    record holds its region, slot mixing and bucket range as the JAX meta;
+    a bucket's record holds its JAX displacement in the low half and, in
+    the high half, exactly the fingerprint bits of its patterns' hashes
+    (recomputed here from the trie's patterns); displacements above 255
+    take 4-byte records."""
     tabs, _ = _model("16-char words", HASHMATCH_MIN="1")
     hs = tabs.char_hm
     hm = hs.plain
-    l2, rows, slots = hm.l2.numpy(), hs.rows.numpy(), hs.slots.numpy()
-    assert hs.d_bytes == 1 and hs.d.nbytes % 16 == 0
-    np.testing.assert_array_equal(hs.d.numpy()[:len(hm.d)],
-                                  hm.d.numpy()[:, 0])
-    seen = []
-    for g in range(hs.groups):
-        grp = slots[g * SLOTS:(g + 1) * SLOTS]
-        for k, _, _, r_off, _, mask, _, flags in grp[grp[:, 0] > 0]:
-            q_n, q = flags & 0xFF, (flags >> 8) & 0xFF
-            meta = next(m for m in hm.metas if m[0] == k)
-            n_pairs = (k + 1) // 2
-            assert q_n == -(-(n_pairs + 1) // 4)
-            region = l2[meta[3]:meta[3] + mask + 1]
-            part = rows[r_off + np.arange(mask + 1) * q_n]  # (slots, 4)
-            cols = np.arange(4 * q, 4 * q + 4)
-            for c_i, c in enumerate(cols):
-                if c < n_pairs:
-                    np.testing.assert_array_equal(part[:, c_i],
-                                                  region[:, 1 + c])
-                elif c == 4 * q_n - 1:  # the id, in the last part
-                    np.testing.assert_array_equal(part[:, c_i], region[:, 0])
-            seen.append((k, q, q_n))
-    q_of = {k: q_n for k, _, q_n in seen}
-    assert [(k, q) for k, q, _ in seen] == [
-        (m[0], q) for m in hm.metas for q in range(q_of[m[0]])]
-    assert max(q_of.values()) == 3 and hs.groups * SLOTS == len(slots)
-    # a displacement above 255 takes two bytes
+    l2, rows, meta = hm.l2.numpy(), hs.rows.numpy(), hs.meta.numpy()
+    assert hs.rec_bytes == 2 and hs.rec.nbytes % 16 == 0
+    assert hs.kmax == hm.kmax == 16 and meta.shape == (16, 8)
+    rec, fb, half = _records(hs)
+    np.testing.assert_array_equal(
+        np.asarray(rec[:len(hm.d)]) & 0xFF, hm.d.numpy()[:, 0])
+    present = {m[0] for m in hm.metas}
+    assert [k for k in range(1, 17) if meta[k - 1, 4] >= 0] == sorted(
+        present)
+    for k, d_off, d_shift, l2_off, slot_shift, mask, c2 in hm.metas:
+        r_off, m_ss, m_mask, m_c2, m_d, m_ds = meta[k - 1, :6]
+        assert (m_ss, m_mask, m_c2, m_d, m_ds) == (slot_shift, mask, c2,
+                                                   d_off, d_shift)
+        n_pairs = (k + 1) // 2
+        q_n = -(-(n_pairs + 1) // 4)
+        region = l2[l2_off:l2_off + mask + 1]
+        part = rows[r_off:r_off + (mask + 1) * q_n].reshape(mask + 1, -1)
+        np.testing.assert_array_equal(part[:, :n_pairs],
+                                      region[:, 1:1 + n_pairs])
+        np.testing.assert_array_equal(part[:, -1], region[:, 0])
+    assert max(-(-((k + 1) // 2 + 1) // 4) for k in present) == 3
+    # the fingerprint masks, bucket by bucket, from the patterns themselves
+    syms, lengths, _ = extract_patterns(
+        Predictor(chip_smoke.length_model(chip_smoke.big_model(2000, 300),
+                                          16)[0],
+                  device="cpu").compiled.char_matcher)
+    base = hm.base & M32
+    want = np.zeros(len(hm.d), dtype=np.int64)
+    for srow, k in zip(syms.tolist(), lengths.tolist()):
+        h, p = 0, 1
+        for e in range(k):
+            h, p = (h + srow[e] * p) & M32, (p * base) & M32
+        m = meta[k - 1].tolist()
+        hc = (h * C1) & M32
+        want[m[4] + (hc >> m[5])] |= 1 << ((hc >> (m[5] - fb)) & 7)
+    np.testing.assert_array_equal(np.asarray(rec[:len(hm.d)]) >> half, want)
+    # a displacement above 255 takes a 4-byte record
     big = jhm.HashMatchTables(
         d=np.array([[3, 0], [300, 0]], dtype=np.int32), l2=l2[:4],
         metas=[(1, 0, 31, 0, 30, 3, 5)], base=hm.base, kmax=1, n_pairs=1)
     wide = hash_side_tables(big, "cpu")
-    assert wide.d_bytes == 2 and wide.d.dtype == torch.int16
-    np.testing.assert_array_equal(wide.d.numpy()[:2], [3, 300])
+    assert wide.rec_bytes == 4 and wide.rec.dtype == torch.int32
+    np.testing.assert_array_equal(wide.rec.numpy()[:2] & 0xFFFF, [3, 300])
+
+
+
+def _hash_case(k):
+    """(hash side, the compiled matcher, (B, L) symbols with dictionary
+    words spliced in, row lengths) for the 50k-style model at char
+    max_len ``k``, or the small model's type trie; with " wide" after
+    ``k``, the same tables with every displacement above 255
+    (``wide_displacements``), so the side takes 4-byte bucket records."""
+    if str(k).endswith(" wide"):
+        hs, matcher, syms, ln = _hash_case(
+            k[:-len(" wide")] if k.startswith("type") else int(k.split()[0]))
+        hs = hash_side_tables(wide_displacements(hs.plain), "cpu")
+        assert hs.rec_bytes == 4
+        return hs, matcher, syms, ln
+    if k == "type trie":
+        tabs, words = _model("type trie", HASHMATCH_MIN="1")
+        model, _ = chip_smoke.small_model(3, 4)
+        matcher = Predictor(model, device="cpu").compiled.type_matcher
+        _, cts, ln = chip_smoke.random_batch(8, 96, 31, words)
+        syms = np.where(np.arange(96)[None] < ln[:, None], cts, 0)
+        return tabs.type_hm, matcher, syms, ln
+    model, words = chip_smoke.length_model(chip_smoke.big_model(2000, 300),
+                                           k)
+    tabs = chip_smoke.variant_tables(Predictor(model, device="cpu").compiled,
+                                     "cpu", HASHMATCH_MIN="1")
+    matcher = Predictor(model, device="cpu").compiled.char_matcher
+    cps, _, ln = chip_smoke.random_batch(8, 96, 31, words)
+    syms = hash_project_fused(torch.from_numpy(cps), tabs.hash_mul,
+                              tabs.hash_shift, tabs.hash2).numpy()
+    return tabs.char_hm, matcher, syms, ln
+
+
+@pytest.mark.parametrize("k", [2, 5, 7, 11, 16, "type trie", "7 wide",
+                               "16 wide", "type trie wide"])
+def test_fingerprint_filter_skips_only_windows_that_cannot_match(k):
+    """By brute force over every window (end position, length) of seeded
+    rows with dictionary words spliced in: a window that equals a pattern
+    of its length passes its bucket's fingerprint bit (so no probe the
+    filter skips can match), and the filter skips most of the others on
+    the char side (the type trie's 7 symbols make most windows patterns'
+    hashes' neighbours, so only that it skips some)."""
+    hs, matcher, syms, ln = _hash_case(k)
+    psyms, lengths, _ = extract_patterns(matcher)
+    patterns = {tuple(r[:n]) for r, n in zip(psyms.tolist(),
+                                             lengths.tolist())}
+    meta = _np(hs.meta).tolist()
+    rec, fb, half = _records(hs)
+    base = hs.base & M32
+    n_match = n_other = skipped = 0
+    for row, n in zip(syms.tolist(), ln.tolist()):
+        for t in range(n):
+            h, p = 0, 1
+            for e in range(hs.kmax):
+                if t - e < 0 or row[t - e] == 0:
+                    break
+                h, p = (h + row[t - e] * p) & M32, (p * base) & M32
+                m = meta[e]
+                window = tuple(row[t - e:t + 1][::-1])
+                if m[4] < 0:  # no pattern of this length
+                    assert window not in patterns
+                    continue
+                passes = _filter(rec, fb, half, m, h)[0]
+                if window in patterns:
+                    n_match += 1
+                    assert passes, (t, e + 1)
+                else:
+                    n_other += 1
+                    skipped += not passes
+    assert n_match > 0 and skipped > 0
+    if not str(k).startswith("type trie"):
+        assert skipped > 0.5 * n_other, (skipped, n_other)
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3])
+@pytest.mark.parametrize("k", [2, 7, 16, "type trie", "7 wide", "16 wide",
+                               "type trie wide"])
+def test_hash_mirror_equals_plain_and_jax(k, slots):
+    """The mirror of the redesigned hash_row (fingerprint filter, all
+    lanes at one length, ``slots`` lengths' loads before their compares, a
+    long row's other parts read after its first) equals the port's plain
+    ``hash_match_longest`` and the JAX package's exactly, whatever the
+    kernel's SLOTS, at char max_len 2, 7 and 16 and on the type trie, with
+    2- and 4-byte bucket records."""
+    hs, _, syms, ln = _hash_case(k)
+    got = np.stack([_hash_probe(np.asarray(r, np.int64), int(n), hs, slots)
+                    for r, n in zip(syms, ln)])
+    hm = hs.plain
+    port = hash_match_longest(torch.from_numpy(np.asarray(syms)), hm).numpy()
+    jhm_tables = jhm.HashMatchTables(
+        d=hm.d.numpy(), l2=hm.l2.numpy(), metas=hm.metas, base=hm.base,
+        kmax=hm.kmax, n_pairs=hm.n_pairs)
+    want = np.asarray(jhm.hash_match_longest(
+        jnp.asarray(np.asarray(syms, np.int32)), jnp.asarray(jhm_tables.d),
+        jnp.asarray(jhm_tables.l2), jhm_tables))
+    np.testing.assert_array_equal(got, port)
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 0).any()

@@ -364,6 +364,52 @@ def test_shards_split_the_padded_rows():
                     cost=1.0, max_iter=5, device="cpu", shard=(0, 3))
 
 
+def test_reduce_over_the_prefix_equals_the_full_sum():
+    """``Shards._reduce`` adds and copies only the live prefix (the ids up
+    to the largest, C elements each): the result equals the full
+    shard-order sum bit for bit, and the tail past the prefix stays +0,
+    for the sums (n_dim C) and the power step's buffer (n_dim)."""
+    idx, val, _, labels, d = _examples(6, n=70, d=20, k=6)
+    n_dim, n_pad, _ = psolver._pads(70, idx.shape[1], d, MESH)
+    sh = psolver.Shards(MESH, idx, val, labels, n_pad, n_dim,
+                        loss=ops.CRAMMER_SINGER, l1=False, cost=1.0,
+                        max_iter=5, C=3)
+    assert sh.n_prefix == int(idx.max()) + 1 == d + 2 < n_dim
+    assert all(q.n_prefix == sh.n_prefix for q in sh.parts)
+    rng = np.random.default_rng(7)
+    for size, out in ((n_dim * 3, {q.device: q.gsum for q in sh.parts}),
+                      (n_dim, sh._power)):
+        m = sh.n_prefix * (size // n_dim)
+        parts = []
+        for _ in sh.parts:
+            x = torch.zeros(size)
+            x[:m] = torch.from_numpy(rng.normal(size=m).astype(np.float32))
+            parts.append(x)
+        want = torch.add(parts[0], parts[1])
+        for x in parts[2:]:
+            want.add_(x)
+        got = sh._reduce(parts, out)[parts[0].device]
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+        assert not got[m:].numpy().view(np.uint32).any()
+
+
+def test_two_shard_solve_matches_jax_objective():
+    """A solve split over two CPU shards (the live-prefix reduction and
+    update) reaches the JAX package's two-device objective within 1e-4
+    relative, and two such solves are bitwise equal."""
+    idx, val, y, _, d = _examples(1, n=300, d=60, k=10)
+    mesh = Mesh(["cpu"] * 2)
+    runs = [psolver.train_binary(idx, val, y, d, 1.0, 0.01, 2, mesh=mesh)
+            for _ in "ab"]
+    (w, b), (w2, b2) = runs
+    assert w.tobytes() == w2.tobytes() and b == b2
+    jw, jb = jsolver.train_binary(idx, val, y, d, 1.0, 0.01, 2,
+                                  mesh=jax_make_mesh(2))
+    f, jf = (_objective(idx, val, y, d, a, c, 2) for a, c in
+             ((w, b), (np.asarray(jw), jb)))
+    assert abs(f - jf) <= 1e-4 * abs(jf), (f, jf)
+
+
 @pytest.mark.parametrize("solver", [5, 4])
 def test_one_shard_mesh_solves_as_one_problem(solver):
     """A mesh of one entry in one process has nothing to reduce: the

@@ -403,16 +403,19 @@ class _Mirror:
         _advance(p, state, dmax[0])
 
     def update(self, g, state, w, z):
-        """One update launch over the sums ``g`` of every shard: a thread
-        per feature and class (any order: each is updated once, the max is
-        exact), then the stopping state."""
-        p, C = self.p, self.C
+        """One update launch over the sums ``g`` of every shard: the live
+        prefix only (``p.n_prefix`` features, feature-major, k = j C + c),
+        a thread four elements at a time, then the prefix's last
+        ``n % 4`` one at a time (any order: each is updated once, the max
+        is exact), then the stopping state; past the prefix nothing is
+        read or written."""
+        p = self.p
         beta = _beta(p, state)
         dmax = np.float32(0)
-        for j in range(p.n_dim):
-            for c in range(C):
-                dmax = max(dmax, _apply(p, int(j) * C + c, g[j * C + c], w,
-                                        z, beta))
+        n = p.n_prefix * self.C
+        for k in [4 * i + u for i in range(n // 4) for u in range(4)] + \
+                list(range(n // 4 * 4, n)):
+            dmax = max(dmax, _apply(p, k, g[k], w, z, beta))
         _advance(p, state, dmax)
 
     def solve(self, step, eps, chunk):
@@ -853,3 +856,41 @@ def test_mirror_sharded_step_matches_plain(loss, l1, C, small_segments):
     for q in sh.parts[1:]:
         for k in ("w", "z", "state"):
             assert torch.equal(getattr(q, k), getattr(sh.parts[0], k))
+
+
+@pytest.mark.parametrize("loss,l1,C", [(ops.L2_HINGE, False, 1),
+                                       (ops.L2_HINGE, True, 1),
+                                       (ops.CRAMMER_SINGER, False, 3)])
+def test_prefix_update_equals_dense_plain(loss, l1, C):
+    """The update kernel's pass over the live prefix only (the mirror:
+    groups of four elements, then the last n_prefix C % 4 one at a time)
+    gives the dense ``fista_update_plain``'s w, z and delta bit for bit,
+    from a state with w = z = g = 0 past the largest feature id, as in a
+    solve; the tail stays +0 (every bit clear)."""
+    idx, val, y, labels, d = _examples(12, n=80, d=25, k=7)
+    n_dim, n_pad, _ = psolver._pads(len(y), idx.shape[1], d)
+    p = ops.Problem(idx, val, labels if C > 1 else y, n_pad, n_dim,
+                    loss=loss, l1=l1, cost=0.8, max_iter=50, C=C,
+                    device="cpu", shard=(0, 1))
+    n_prefix = int(idx.max()) + 1
+    assert n_prefix == d + 2 < n_dim and (n_prefix * C) % 4
+    w0, z0 = _start_state(p, C, n_dim)
+    g = np.random.default_rng(13).normal(size=n_dim * C).astype(np.float32)
+    for a in (w0, z0, g):
+        a[n_prefix * C:] = 0.0
+    p.set_gsum(torch.from_numpy(g.copy()), n_prefix)
+    st = {"it": 3, "active": True, "delta": np.float32(1.0)}
+    w, z = w0.copy(), z0.copy()
+    _Mirror(p).update(g, st, w, z)
+    p.w.copy_(torch.from_numpy(w0))
+    p.z.copy_(torch.from_numpy(z0))
+    p.state[0], p.state[1] = 3, 1
+    ops.fista_update_plain(p)
+    assert w.tobytes() == p.w.numpy().tobytes()
+    assert z.tobytes() == p.z.numpy().tobytes()
+    it, delta = int(p.state[0]), float(p.state[2:3].view(torch.float32))
+    assert (it, np.float32(delta)) == (st["it"], st["delta"]) == (4, delta)
+    for a in (w, z, p.w.numpy(), p.z.numpy()):
+        assert not a[n_prefix * C:].view(np.uint32).any()
+    with pytest.raises(ValueError, match="n_prefix"):
+        p.set_gsum(p.gsum, n_dim + 1)

@@ -141,10 +141,10 @@ def test_chip_smoke_train_phase_on_cpu(tmp_path):
     """chip_smoke.py's phase [7] at a small size on the CPU (the plain
     version on both sides of its kernel checks): the teacher's corpora,
     the train CLI's runs (boundary, Crammer-Singer over three labels,
-    logistic, tags), bitwise-equal repeated solves and byte-equal model
-    files, the plain solve beside the first, and the trained models
-    through predict and evaluate. A loose --eps, small corpora and small
-    teacher batches keep it short."""
+    logistic, tags), bitwise-equal repeated solves, the plain solve beside
+    the first, the boundary model through predict and the logistic one
+    through evaluate, and the seconds of each sub-run. A loose --eps,
+    small corpora and small teacher batches keep it short."""
     import numpy as np
 
     import chip_smoke
@@ -169,7 +169,13 @@ def test_chip_smoke_train_phase_on_cpu(tmp_path):
     assert b["examples"] > 2000 and b["solve"]["it"] > 8
     assert b["(b) equal"] and b["solver launches"] == 0  # the plain version
     assert res["cs"]["solve"]["C"] == 3
+    assert res["char F1"]["F1"] > 0.5
     assert float(res["evaluate char"]["F1"]) > 0.5
+    assert float(res["evaluate char"]["F1"]) == pytest.approx(
+        res["evaluate char"]["predict F1"], abs=1e-12)
+    assert list(res["seconds"]) == ["teacher", "boundary run", "(a)", "(b)",
+                                    "(c)", "predict", "cs", "logistic",
+                                    "evaluate", "tags"]
     assert res["tags"]["solves"] > 0 and res["tags"]["tagged tokens"] > 0
     assert res["(a) boundary"] == 0.0  # plain against plain
     # the phase's report and its kernels entry, with made-up times

@@ -84,8 +84,7 @@
 // 6. Registers: __launch_bounds__(MAX_THREADS, 1) caps a thread at 64
 //    registers so that 32 warps fit one SM; WALKS, ADDS, ADD_LOADS, TEXT
 //    and SLOTS are the widest batches with which ptxas reports no spills
-//    (the build log keeps its report; chip_smoke.py prints it; SLOTS 3 and
-//    4 spilled 56-152 bytes).
+//    (the build log keeps its report; chip_smoke.py prints it).
 //
 // 7. The JAX package's variants, chosen per model by its switches when the
 //    host builds the tables (ops/boundary.py boundary_tables), run by the
@@ -94,20 +93,28 @@
 //    them spill, and the small tables' pass, never run by the default
 //    model, cost its walk 3-5%: see PERF.md.)
 //    - the CHD hash matcher (JAX ops/hashmatch.py) in place of the walk on
-//      a side whose tables build (hash_row). Each lane takes end positions
-//      t < len and looks every pattern length k up directly: the window's
-//      rolling hash, grown one symbol at a time from the row's symbols in
-//      shared memory, picks a bucket, the bucket's displacement (1 or 2
-//      bytes, staged with the hot tables when they fit) picks the entry
-//      row, whose pattern symbols are compared with the window's and whose
-//      last int is the pattern id. The probes of one position are
-//      independent, so a group of SLOTS row loads (16 B each; a length of 7
-//      or more takes two or three) is in flight at once, where the walk's
-//      steps wait on each other; a window holding symbol 0 (padding,
-//      separator, OOV, or before the row start) ends the lengths, since
-//      pattern symbols are >= 1. Lengths go ascending and a later match
+//      a side whose tables build (hash_row). Each lane takes end
+//      positions t < len and looks pattern lengths k up directly, all
+//      lanes at the same length: the window's rolling hash, grown one
+//      symbol a length from the row's symbols in shared memory, picks a
+//      bucket, and the bucket's record (2 or 4 bytes, staged with the hot
+//      tables and read by shared-memory loads) holds its displacement and
+//      a fingerprint mask of its patterns' hashes. A window whose
+//      fingerprint bit is clear equals none of them, so most lengths end
+//      there, in shared memory; the others (a true match, or a false pass
+//      of the filter) take the displacement to the entry row, whose
+//      pattern symbols are compared with the window's and whose last int
+//      is the pattern id. The loads of SLOTS lengths go out before any is
+//      waited on. A window holding symbol 0 (padding, separator, OOV, or
+//      before the row start) ends a position's lengths, since pattern
+//      symbols are >= 1. Lengths go ascending and a later match
 //      overwrites, so the longest wins, and best[t] holds what the walk
-//      stores there.
+//      stores there. (Filtering by the symbols a length's patterns end or
+//      start with would skip almost nothing on a large vocabulary: on the
+//      50k model nearly every symbol ends a pattern of every length. Two
+//      positions a lane, or SLOTS 3, spilled at the 64-register cap.) The
+//      type window score is gathered with the pattern records in
+//      add_matches.
 //    - the type window score from the 8^(2w) cache (global memory), from
 //      2w per-offset tables of 8^M entries, or from left, crossing and right
 //      tables (type_gap; the mode a warp-uniform runtime argument), the
@@ -174,21 +181,21 @@ struct VtBoundaryArgs {
   // (the variants' fields last: the fields above keep their offsets)
   // hash matcher of the char side / of the type trie (rows null: the walk)
   const int4* c_hm_rows;    // entry rows: pairs, -1, the id last
-  const void* c_hm_d;       // displacements, c_hm_d_bytes each
-  int64_t c_hm_d_bytes, c_hm_d_size;  // 1 or 2; bytes, a multiple of 16
-  const int* c_hm_slots;    // (groups * SLOTS, 8) probe slots
-  int64_t c_hm_groups, c_hm_base;
+  const void* c_hm_rec;     // bucket records, c_hm_rec_bytes each
+  int64_t c_hm_rec_bytes, c_hm_rec_size;  // 2 or 4; bytes, a multiple of 16
+  const int* c_hm_meta;     // (kmax, 8) length records
+  int64_t c_hm_kmax, c_hm_base;
   const int4* t_hm_rows;
-  const void* t_hm_d;
-  int64_t t_hm_d_bytes, t_hm_d_size;
-  const int* t_hm_slots;
-  int64_t t_hm_groups, t_hm_base;
+  const void* t_hm_rec;
+  int64_t t_hm_rec_bytes, t_hm_rec_size;
+  const int* t_hm_meta;
+  int64_t t_hm_kmax, t_hm_base;
   // type table: 0 none, 1 cache (t_cache), 2 per-offset, 3 split (t_small)
   int64_t t_mode;
   const int32_t* t_small;   // 2w tables of 8^M, or left | crossing | right
   int64_t t_small_size, t_m;  // bytes (a multiple of 16); M, or maxn
   // byte offsets into dynamic shared memory (-1: read from global memory)
-  int64_t sm_c_d, sm_t_d, sm_small, sm_c_slots, sm_t_slots, sm_rows;
+  int64_t sm_c_rec, sm_t_rec, sm_small, sm_c_meta, sm_t_meta, sm_rows;
 };
 
 namespace {
@@ -203,7 +210,7 @@ constexpr int WALKS = 2;      // walks a lane advances together
 constexpr int ADDS = 2;       // pattern records a lane gathers together
 constexpr int ADD_LOADS = 2;  // first weight chunks gathered together
 constexpr int TEXT = 4;       // chars a lane loads together
-constexpr int SLOTS = 2;      // hash probe rows a lane loads together
+constexpr int SLOTS = 2;      // hash lengths a lane probes together
 constexpr int NO_CHILD = -2;  // below every output link (>= -1)
 constexpr uint32_t HASH_C1 = 0x9E3779B1u;  // the CHD bucket multiplier
 constexpr unsigned FULL = 0xffffffffu;
@@ -383,86 +390,95 @@ __device__ __forceinline__ void walk_row(
 // One hash matcher side, as the kernel reads it.
 struct HashSide {
   const int4* rows;   // entry rows (global memory)
-  const void* d;      // displacements (shared or global memory)
-  int d_bytes;        // 1 or 2
-  const int* slots;   // probe slots (shared memory)
-  int groups;
+  const void* rec;    // bucket records (shared or global memory)
+  int rec_bytes;      // 2 (1-byte displacement, 8-bit mask) or 4 (16, 16)
+  const int* meta;    // length k's record at 8 (k - 1) (shared memory):
+                      // region, slot_shift, mask, c2, first bucket (-1:
+                      // no pattern of length k), d_shift
+  int kmax;
   uint32_t base;
 };
 
+// Compares entry row r (the first part of a length-k pattern's row, at
+// int4 offset a) with the window of k symbols ending at t, and stores
+// the row's id in best[t] if they are equal. Part q holds pairs
+// 4q..4q+3 (pair j: symbols 2j and 2j+1 from the end) and the id is the
+// last part's last int; the other parts are read only when the first
+// part's eight symbols match.
+__device__ __forceinline__ void hash_compare(const int32_t* sym,
+                                             int32_t* best, int t, int k,
+                                             const int4* rows, int a,
+                                             int4 r) {
+  const int parts = ((k + 1) / 2 + 4) / 4;
+  bool ok = true;
+  for (int q = 0;; ++q) {
+    const int c[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = 4 * q + u;
+      if (2 * j >= k) break;
+      const int hi = 2 * j + 1 < k ? sym[t - 2 * j - 1] : 0;
+      ok = ok && c[u] == (sym[t - 2 * j] | (hi << 16));
+    }
+    if (!ok || q + 1 == parts) break;
+    r = __ldg(rows + a + q + 1);
+  }
+  if (ok) best[t] = r.w;
+}
+
 // The longest pattern id ending at every position t < len, by the CHD
-// tables, into best[t] (-1: none); lane l takes t = l, l + 32, ... With a
-// type cache (cache non-null), gap t's score is gathered first and added
-// last, as walk_row does. The probe slots list the lengths ascending,
-// SLOTS a group (a length of Q parts takes Q consecutive slots, which may
-// run on into the next group; k == 0: unused), so the rolling hash grows
-// along them and a match found later is longer.
+// tables, into best[t] (which holds -1 before); lane l takes t = l,
+// l + 32, ..., and all lanes take the lengths together, ascending: each
+// grows its window's rolling hash by one symbol (the length's record then
+// read alike by every lane), stops at a window that holds symbol 0, and
+// reads the bucket's record. Only a window whose fingerprint bit is set
+// there can equal a pattern: its entry row is loaded. The loads of SLOTS
+// lengths go out before any is waited on; then they are compared, in
+// length order, so a later match is longer and overwrites. A group of
+// lengths in which no lane of the warp loads costs no round trip.
 __device__ __forceinline__ void hash_row(const int32_t* sym, int32_t* best,
                                          int len, int lane,
-                                         const HashSide& hs,
-                                         const uint8_t* ty,
-                                         const int32_t* __restrict__ cache,
-                                         int w, int* sc, int pad_left) {
-  for (int t = lane; t < len; t += 32) {
-    const int tv =
-        (cache != nullptr && t < len - 1)
-            ? __ldg(cache + type_window(ty, t, len, w, 2 * w))
-            : 0;
-    int found = -1;
-    uint32_t h = 0, p = 1;  // h: hash of the e symbols ending at t
-    int e = 0;
-    bool dead = false;  // a window this long holds symbol 0
-    bool ok = false;    // the current length's parts so far all match
-    for (int g = 0; g < hs.groups && !dead; ++g) {
-      const int* sl = hs.slots + g * SLOTS * 8;
+                                         const HashSide& hs) {
+  const int fbits = hs.rec_bytes == 2 ? 3 : 4;
+  const int half = 4 * hs.rec_bytes;  // bits of the displacement
+  for (int t = lane; t < len + lane; t += 32) {
+    uint32_t h = 0, p = 1;  // the window's hash, base^e
+    bool live = t < len;
+    for (int e0 = 0; e0 < hs.kmax && __any_sync(FULL, live); e0 += SLOTS) {
+      int at[SLOTS];  // entry row offsets (-1: no load)
       int4 row[SLOTS];
-      bool live[SLOTS];
 #pragma unroll
-      for (int i = 0; i < SLOTS; ++i) {  // every load of the group first
-        const int* m = sl + 8 * i;
-        const int k = m[0];
-        live[i] = false;
-        if (k == 0) continue;
-        while (!dead && e < k) {
-          const int sy = t - e >= 0 ? sym[t - e] : 0;
-          dead = sy == 0;
-          h += static_cast<uint32_t>(sy) * p;
-          p *= hs.base;
-          ++e;
-        }
-        if (dead) continue;
-        const uint32_t b = static_cast<uint32_t>(m[1]) +
-                           ((h * HASH_C1) >> m[2]);
-        const uint32_t dv =
-            hs.d_bytes == 1 ? static_cast<const uint8_t*>(hs.d)[b]
-                            : static_cast<const uint16_t*>(hs.d)[b];
+      for (int w = 0; w < SLOTS; ++w) {  // every load of the group first
+        const int e = e0 + w;
+        at[w] = -1;
+        if (e >= hs.kmax) continue;
+        const int* m = hs.meta + 8 * e;
+        const int2 bk = *reinterpret_cast<const int2*>(m + 4);
+        const int sy = live && t - e >= 0 ? sym[t - e] : 0;
+        live = sy != 0;
+        h += static_cast<uint32_t>(sy) * p;
+        p *= hs.base;
+        if (!live || bk.x < 0) continue;  // no pattern of this length
+        const uint32_t hc = h * HASH_C1;
+        const uint32_t b = static_cast<uint32_t>(bk.x) + (hc >> bk.y);
+        const uint32_t rec =
+            hs.rec_bytes == 2 ? static_cast<const uint16_t*>(hs.rec)[b]
+                              : static_cast<const uint32_t*>(hs.rec)[b];
+        const uint32_t f = (hc >> (bk.y - fbits)) & ((1u << fbits) - 1);
+        if (!((rec >> (half + f)) & 1u)) continue;  // no such pattern
+        const int4 q = *reinterpret_cast<const int4*>(m);
         const uint32_t slot =
-            (((h * static_cast<uint32_t>(m[6])) >> m[4]) + dv) &
-            static_cast<uint32_t>(m[5]);
-        row[i] = __ldg(hs.rows + m[3] +
-                       static_cast<int64_t>(slot) * (m[7] & 0xff));
-        live[i] = true;
+            (((h * static_cast<uint32_t>(q.w)) >> q.y) +
+             (rec & ((1u << half) - 1))) &
+            static_cast<uint32_t>(q.z);
+        at[w] = q.x + static_cast<int>(slot) * (((e + 2) / 2 + 4) / 4);
+        row[w] = __ldg(hs.rows + at[w]);
       }
 #pragma unroll
-      for (int i = 0; i < SLOTS; ++i) {
-        const int* m = sl + 8 * i;
-        const int k = m[0];
-        const int q = (m[7] >> 8) & 0xff;
-        if (q == 0) ok = live[i];  // a length's first part
-        if (!ok || k == 0) continue;
-        const int c[4] = {row[i].x, row[i].y, row[i].z, row[i].w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = 4 * q + u;  // pair j: symbols 2j and 2j+1 from t
-          if (2 * j >= k) break;
-          const int hi = 2 * j + 1 < k ? sym[t - 2 * j - 1] : 0;
-          ok = ok && c[u] == (sym[t - 2 * j] | (hi << 16));
-        }
-        if (ok && (m[7] >> 16)) found = row[i].w;  // the id: last int
-      }
+      for (int w = 0; w < SLOTS; ++w)
+        if (at[w] >= 0)
+          hash_compare(sym, best, t, e0 + w + 1, hs.rows, at[w], row[w]);
     }
-    best[t] = found;
-    if (tv != 0) atomicAdd(&sc[pad_left + t], tv);
   }
 }
 
@@ -481,25 +497,39 @@ __device__ __forceinline__ void add_chunk(int* sc, int S, int p0, int4 lo,
 // Reads the longest match of every end position t < len out of best[],
 // writes it to out[t] (when out is non-null) and adds its weight chunks:
 // the pattern records of ADDS positions are gathered together, then their
-// first chunks ADD_LOADS at a time.
+// first chunks ADD_LOADS at a time. With CACHE and a type cache (cache
+// non-null), gap t's type window score is gathered with t's pattern record
+// and added with it (hash_row's probes have no gather of their own to hide
+// it behind, as walk_row's steps do).
+template <bool CACHE>
 __device__ __forceinline__ void add_matches(
     const int32_t* best, int len, int lane, int* sc, int S,
     int pad_left, const int4* __restrict__ ids, const int4* __restrict__ w8,
-    int32_t* out) {
+    int32_t* out, const uint8_t* ty = nullptr,
+    const int32_t* __restrict__ cache = nullptr, int w = 0) {
   for (int t0 = lane; t0 < len; t0 += 32 * ADDS) {
-    int first[ADDS], cnt[ADDS], p0[ADDS];
+    int first[ADDS], cnt[ADDS], p0[ADDS], tv[ADDS];
 #pragma unroll
     for (int k = 0; k < ADDS; ++k) {
       const int t = t0 + 32 * k;
       const int m = t < len ? best[t] : -1;
       if (out != nullptr && t < len) out[t] = m;
       cnt[k] = 0;
+      if (CACHE)
+        tv[k] = cache != nullptr && t < len - 1
+                    ? __ldg(cache + type_window(ty, t, len, w, 2 * w))
+                    : 0;
       if (m >= 0) {
         const int4 id = __ldg(ids + m);
         first[k] = id.x;
         cnt[k] = id.y;
         p0[k] = t + pad_left + id.z;
       }
+    }
+    if (CACHE) {
+#pragma unroll
+      for (int k = 0; k < ADDS; ++k)
+        if (tv[k] != 0) atomicAdd(&sc[pad_left + t0 + 32 * k], tv[k]);
     }
 #pragma unroll
     for (int k0 = 0; k0 < ADDS; k0 += ADD_LOADS) {
@@ -527,7 +557,8 @@ __device__ __forceinline__ void add_matches(
 }
 
 // Type window scores of the in-line gaps t < len - 1, for a model without a
-// char side (walk_row and hash_row add them otherwise).
+// char side (walk_row, or add_matches after hash_row, adds them
+// otherwise).
 __device__ __forceinline__ void add_type_cache(
     const uint8_t* ty, int len, int lane, int* sc, int pad_left,
     const int32_t* __restrict__ cache, int w) {
@@ -578,23 +609,30 @@ __device__ __forceinline__ const void* staged_or(unsigned char* smem,
   return off >= 0 ? static_cast<const void*>(smem + off) : src;
 }
 
+// A hash side's tables as hash_row reads them. The length records are
+// always staged; the bucket records are staged with the hot tables, so
+// with STAGED both are built from the shared-memory base itself, and the
+// compiler reads them with shared-memory loads (a table that may be in
+// either space would take generic loads).
+template <bool STAGED>
 __device__ __forceinline__ HashSide char_hash(const Args& a,
                                               unsigned char* smem) {
-  return {a.c_hm_rows, staged_or(smem, a.sm_c_d, a.c_hm_d),
-          static_cast<int>(a.c_hm_d_bytes),
-          static_cast<const int*>(staged_or(smem, a.sm_c_slots,
-                                            a.c_hm_slots)),
-          static_cast<int>(a.c_hm_groups),
+  return {a.c_hm_rows,
+          STAGED ? static_cast<const void*>(smem + a.sm_c_rec) : a.c_hm_rec,
+          static_cast<int>(a.c_hm_rec_bytes),
+          reinterpret_cast<const int*>(smem + a.sm_c_meta),
+          static_cast<int>(a.c_hm_kmax),
           static_cast<uint32_t>(a.c_hm_base)};
 }
 
+template <bool STAGED>
 __device__ __forceinline__ HashSide type_hash(const Args& a,
                                               unsigned char* smem) {
-  return {a.t_hm_rows, staged_or(smem, a.sm_t_d, a.t_hm_d),
-          static_cast<int>(a.t_hm_d_bytes),
-          static_cast<const int*>(staged_or(smem, a.sm_t_slots,
-                                            a.t_hm_slots)),
-          static_cast<int>(a.t_hm_groups),
+  return {a.t_hm_rows,
+          STAGED ? static_cast<const void*>(smem + a.sm_t_rec) : a.t_hm_rec,
+          static_cast<int>(a.t_hm_rec_bytes),
+          reinterpret_cast<const int*>(smem + a.sm_t_meta),
+          static_cast<int>(a.t_hm_kmax),
           static_cast<uint32_t>(a.t_hm_base)};
 }
 
@@ -636,14 +674,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     rows += align16(8 * static_cast<int64_t>(P + R));
   }
   if (VARIANTS) {
-    // the displacements, the small type tables and the probe slots, each a
-    // multiple of 16 bytes, where the host placed them (-1: not staged)
-    stage_async(smem, a.sm_c_d, a.c_hm_d, a.c_hm_d_size);
-    stage_async(smem, a.sm_c_slots, a.c_hm_slots,
-                a.c_hm_groups * SLOTS * 32);
-    stage_async(smem, a.sm_t_d, a.t_hm_d, a.t_hm_d_size);
-    stage_async(smem, a.sm_t_slots, a.t_hm_slots,
-                a.t_hm_groups * SLOTS * 32);
+    // the bucket records, the small type tables and the length records,
+    // each a multiple of 16 bytes, where the host placed them (-1: not
+    // staged)
+    stage_async(smem, a.sm_c_rec, a.c_hm_rec, a.c_hm_rec_size);
+    stage_async(smem, a.sm_c_meta, a.c_hm_meta, a.c_hm_kmax * 32);
+    stage_async(smem, a.sm_t_rec, a.t_hm_rec, a.t_hm_rec_size);
+    stage_async(smem, a.sm_t_meta, a.t_hm_meta, a.t_hm_kmax * 32);
     stage_async(smem, a.sm_small, a.t_small, a.t_small_size);
     __pipeline_commit();
     rows = smem + a.sm_rows;
@@ -719,19 +756,23 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     // table ----------------------------------------------------------------
     // (t_cache is null unless the type table is the cache)
     if (char_side) {
-      if (VARIANTS && a.c_hm_rows)
-        hash_row(sym, best, len, lane, char_hash(a, smem), ty, a.t_cache,
-                 static_cast<int>(a.t_window), sc, pad_left);
-      else
+      if (VARIANTS && a.c_hm_rows) {
+        hash_row(sym, best, len, lane, char_hash<STAGED>(a, smem));
+        __syncwarp();
+        add_matches<true>(best, len, lane, sc, S, pad_left, a.c_ids, a.c_w8,
+                          a.char_match ? a.char_match + row0 : nullptr, ty,
+                          a.t_cache, static_cast<int>(a.t_window));
+      } else {
         walk_row<STAGED, true>(sym, best, len, lane, a.c_walk,
                                static_cast<int>(a.c_slots),
                                static_cast<int>(a.c_root_base),
                                static_cast<int>(a.c_max_len), root, ty,
                                a.t_cache, static_cast<int>(a.t_window), sc,
                                pad_left);
-      __syncwarp();
-      add_matches(best, len, lane, sc, S, pad_left, a.c_ids, a.c_w8,
-                  a.char_match ? a.char_match + row0 : nullptr);
+        __syncwarp();
+        add_matches<false>(best, len, lane, sc, S, pad_left, a.c_ids, a.c_w8,
+                           a.char_match ? a.char_match + row0 : nullptr);
+      }
     } else if (a.t_cache) {
       add_type_cache(ty, len, lane, sc, pad_left, a.t_cache,
                      static_cast<int>(a.t_window));
@@ -748,8 +789,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       }
       __syncwarp();
       if (VARIANTS && a.t_hm_rows)
-        hash_row(sym, best, len, lane, type_hash(a, smem), ty, nullptr, 0,
-                 sc, pad_left);
+        hash_row(sym, best, len, lane, type_hash<STAGED>(a, smem));
       else
         walk_row<STAGED, false>(sym, best, len, lane, a.t_walk,
                                 static_cast<int>(a.t_slots),
@@ -757,8 +797,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                                 static_cast<int>(a.t_max_len), nullptr, ty,
                                 nullptr, 0, sc, pad_left);
       __syncwarp();
-      add_matches(best, len, lane, sc, S, pad_left, a.t_ids, a.t_w8,
-                  a.type_match ? a.type_match + row0 : nullptr);
+      add_matches<false>(best, len, lane, sc, S, pad_left, a.t_ids, a.t_w8,
+                         a.type_match ? a.type_match + row0 : nullptr);
     }
     __syncwarp();
 

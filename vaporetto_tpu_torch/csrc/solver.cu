@@ -39,14 +39,18 @@
 //                 loaded, no delta, no state;
 //   (the host adds the shards' buffers in a fixed order, the same on
 //    every rank, into g)
-//   update      - a dense pass, a thread per (feature, class) strided
-//                 over the grid: the same update() of g, then the delta
-//                 and the stopping state exactly as cols ends an
-//                 iteration, so every shard and rank runs the same
+//   update      - a pass over the live prefix of w, z and g (the
+//                 features up to the largest id with an entry on some
+//                 shard), four (feature, class) elements a thread at a
+//                 time, strided over the grid: the same update() of g,
+//                 then the delta and the stopping state exactly as cols
+//                 ends an iteration, so every shard and rank runs the same
 //                 iterations with no collective for the stop.
 // Features with no entry keep w = z = 0 (their gradient is z, starting
 // at 0), so cols does not visit them; slot 0 (padding) has no entry. The
-// dense update leaves them at +0 with a delta of 0, the same bits. Padded
+// update of such a feature inside the prefix leaves it at +0 with a delta
+// of 0, the same bits; past the prefix (the power-of-two padding of n_dim)
+// nothing touches them. Padded
 // examples (rows n..N-1, which the JAX package masks out) are in no slice:
 // rows writes no dl for them and no feature's entries name them.
 //
@@ -167,6 +171,8 @@ struct VtSolverArgs {
                              // hinge, 3 Crammer-Singer
   int64_t l1, max_iter;
   double cost, step, thr, mu;  // thr = eps * step * 100 (float32)
+  int64_t n_prefix;          // update: the elements of w, z and g it
+                             // visits, (largest feature id + 1) C
 };
 
 namespace {
@@ -318,10 +324,27 @@ __device__ __forceinline__ Point point(const Args& a, int j, int c, int C) {
   return {a.z[k], a.w[k]};
 }
 
+// FISTA's step on one (feature, class) element from its sum g of val * dl
+// and its point: the new point (w in .w, the momentum point in .z); dmax
+// keeps the bits of the largest |w_new - w| (non-negative, so the bits
+// order as the values). cols (through update()) and the update kernel
+// both take it, so a split solve gives cols' bits.
+__device__ __forceinline__ Point fista_point(float g, Point p, bool l1,
+                                             float cost, float step,
+                                             float beta, unsigned& dmax) {
+  g = cost * g;
+  if (!l1) g += p.z;
+  float wn = p.z - step * g;
+  if (l1)
+    wn = (wn > 0.0f ? 1.0f : (wn < 0.0f ? -1.0f : 0.0f)) *
+         fmaxf(fabsf(wn) - step, 0.0f);
+  dmax = max(dmax, __float_as_uint(fabsf(wn - p.w)));
+  return {wn + beta * (wn - p.w), wn};
+}
+
 // The update of feature j, class c, from its sum g of val * dl (or, in
 // power mode and in cols<PART>, the sum itself stored into out) and its
-// loaded point; dmax keeps the bits of the largest |w_new - w|
-// (non-negative, so the bits order as the values).
+// loaded point.
 template <bool PART>
 __device__ __forceinline__ void update(const Args& a, int j, int c, int C,
                                        float g, Point p, float cost,
@@ -332,15 +355,9 @@ __device__ __forceinline__ void update(const Args& a, int j, int c, int C,
     a.out[k] = g;
     return;
   }
-  g = cost * g;
-  if (!a.l1) g += p.z;
-  float wn = p.z - step * g;
-  if (a.l1)
-    wn = (wn > 0.0f ? 1.0f : (wn < 0.0f ? -1.0f : 0.0f)) *
-         fmaxf(fabsf(wn) - step, 0.0f);
-  a.w[k] = wn;
-  a.z[k] = wn + beta * (wn - p.w);
-  dmax = max(dmax, __float_as_uint(fabsf(wn - p.w)));
+  const Point n = fista_point(g, p, a.l1 != 0, cost, step, beta, dmax);
+  a.w[k] = n.w;
+  a.z[k] = n.z;
 }
 
 struct Step {
@@ -491,27 +508,51 @@ __global__ void __launch_bounds__(WARPS * 32) cols_kernel(const Args a) {
   finish_iteration(a, dmax);
 }
 
-// A sharded solve's update: a thread per (feature, class), strided over
-// the grid, g the sums of every shard. The same update() as cols applies
-// (the order of the features does not matter: each is updated once, and
-// the max is exact in any order), then the iteration's end. A feature
-// with no entry on any shard has g = w = z = 0 and stays so.
+// A sharded solve's update, g the sums of every shard: fista_point on
+// each element, as cols' update() (the order of the
+// features does not matter: each is updated once, and the max is exact
+// in any order), then the iteration's end, whose warp and block maxima
+// take one atomicMax a block. Only the live prefix is visited, the first
+// n_prefix = (largest feature id + 1) C elements (feature-major,
+// k = j C + c): past it every shard's sums, w and z are 0 and stay so.
+// A thread takes four elements at a time with 16-byte loads and stores
+// (g streamed: it is read once; the host keeps w, z and g 16-byte
+// aligned), then the last n_prefix % 4 one at a time; 32-bit indices (the
+// host checks n_dim C < 2^31) and no division, since fista_point() needs
+// no feature index.
 __global__ void __launch_bounds__(WARPS * 32) update_kernel(const Args a) {
   if (!a.state[1]) return;
-  const int C = static_cast<int>(a.C);
   const int it = a.state[0];
   const float beta = (a.tseq[it] - 1.0f) / a.tseq[it + 1];
   const float cost = static_cast<float>(a.cost);
   const float step = static_cast<float>(a.step);
+  const bool l1 = a.l1 != 0;
   unsigned dmax = 0;
-  const int64_t total = a.n_dim * C;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       k < total; k += stride)
-    update<false>(a, static_cast<int>(k / C), static_cast<int>(k % C), C,
-                  __ldcs(a.g + k), Point{a.z[k], a.w[k]}, cost, step, beta,
-                  dmax);
+  const unsigned n = static_cast<unsigned>(a.n_prefix);
+  const unsigned first = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned stride = gridDim.x * blockDim.x;
+  const float4* g4 = reinterpret_cast<const float4*>(a.g);
+  float4* w4 = reinterpret_cast<float4*>(a.w);
+  float4* z4 = reinterpret_cast<float4*>(a.z);
+  for (unsigned i = first; i < n / 4; i += stride) {
+    const float4 g = __ldcs(g4 + i), z = z4[i], w = w4[i];
+    const Point x = fista_point(g.x, Point{z.x, w.x}, l1, cost, step, beta,
+                                dmax);
+    const Point y = fista_point(g.y, Point{z.y, w.y}, l1, cost, step, beta,
+                                dmax);
+    const Point u = fista_point(g.z, Point{z.z, w.z}, l1, cost, step, beta,
+                                dmax);
+    const Point v = fista_point(g.w, Point{z.w, w.w}, l1, cost, step, beta,
+                                dmax);
+    w4[i] = make_float4(x.w, y.w, u.w, v.w);
+    z4[i] = make_float4(x.z, y.z, u.z, v.z);
+  }
+  for (unsigned k = n / 4 * 4 + first; k < n; k += stride) {
+    const Point x = fista_point(__ldcs(a.g + k), Point{a.z[k], a.w[k]}, l1,
+                                cost, step, beta, dmax);
+    a.w[k] = x.w;
+    a.z[k] = x.z;
+  }
   finish_iteration(a, dmax);
 }
 
@@ -558,8 +599,8 @@ int vt_solver_cols(const VtSolverArgs* a, int blocks, void* stream,
   return launch(k, a, blocks, stream, device);
 }
 
-// update: any number of blocks (the grid strides over the features'
-// classes).
+// update: any number of blocks (the grid strides over the live prefix,
+// four elements a thread at a time).
 int vt_solver_update(const VtSolverArgs* a, int blocks, void* stream,
                      int device) {
   return launch(reinterpret_cast<const void*>(update_kernel), a, blocks,

@@ -30,8 +30,10 @@ This module builds the kernel's own table layouts beside the arrays the
 plain version reads (:class:`MatcherTables`): walk rows padded to 16 B,
 one 16-byte record per pattern (first weight row, row count, offset of
 its first row), and the root-child record per symbol; for the hash matcher
-(:class:`HashSide`) entry rows of 16 or 32 B with the pattern id in their
-last int, 1- or 2-byte displacements, and the probe slots. It also chooses
+(:class:`HashSide`) entry rows of 16, 32 or 48 B with the pattern id in
+their last int, a 2- or 4-byte record per bucket (its displacement and a
+fingerprint mask that filters the lengths worth a probe), and a record
+per length. It also chooses
 the launch geometry (:func:`launch_geometry`): warps per block from the
 shared memory a row needs, staged or global hot tables, a global scratch
 when a row does not fit.
@@ -65,7 +67,7 @@ from .score import (plan_chunk_offsets, shift_add_scores, type_cache_scores,
 __all__ = ["BoundaryTables", "boundary_tables", "boundary",
            "boundary_scores_plain", "serve_bits_plain", "gap_scores_of",
            "pack_gap_bits", "build", "launch_geometry", "Geometry",
-           "row_bytes", "HashSide", "hash_side_tables", "SLOTS"]
+           "row_bytes", "HashSide", "hash_side_tables"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "boundary.cu")
@@ -74,18 +76,23 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 #: below every output link, which is >= -1)
 NO_CHILD = -2
 #: the hot tables (the hash table, and the root-child records of the walk
-#: or each hash matcher side's displacements) are staged in each block's
+#: or each hash matcher side's bucket records) are staged in each block's
 #: shared memory when together they take at most this many bytes; a model
 #: with more reads them from global memory. The rest of the 227 KB holds
 #: the rows' working sets (3.4 KB per warp at L = 256).
 STAGE_BUDGET = 96 * 1024
+#: the same with a hash matcher side, whose bucket records are read at
+#: every length of every position (the 50k model's char side: 64 KB of
+#: hash table and 49 KB of records); the default walk keeps STAGE_BUDGET
+HASH_STAGE_BUDGET = 128 * 1024
 #: the per-offset or split type tables are staged when they take at most
 #: this many bytes (12 KB and 20 KB at window 3 with 3-grams), else read
-#: from global memory; the probe slots of the hash matcher are always
-#: staged (at most 2 KB a side)
+#: from global memory; the hash matcher's length records are always
+#: staged (32 B a length, at most 512 B a side)
 SMALL_STAGE_BUDGET = 32 * 1024
-#: probe slots the hash matcher loads together, a group (csrc SLOTS)
-SLOTS = 2
+#: the CHD bucket multiplier (csrc HASH_C1): a window's bucket is the top
+#: bits of its hash times it, and its fingerprint the bits below those
+_C1 = 0x9E3779B1
 #: type table modes (csrc t_mode)
 TYPE_NONE, TYPE_CACHE, TYPE_POS, TYPE_SPLIT = 0, 1, 2, 3
 
@@ -120,26 +127,83 @@ class HashSide:
     The kernel's entry rows hold a pattern's pairs, then -1, with its id in
     the last int: Q int4 a row, Q = ceil((ceil(k/2) + 1) / 4) (16 B up to
     length 6, 32 B up to 14, 48 B for 15 and 16), each length's region at
-    its own int4 offset. The probe slots (SLOTS a group, 8 int32 each: k
-    (0: unused), d_offset, d_shift, the region's int4 offset plus the
-    part q, slot_shift, mask, c2, Q | q << 8 | last << 16) list the lengths
-    ascending, a length's Q parts in consecutive slots."""
+    its own int4 offset. A bucket's record (2 bytes when every
+    displacement fits a byte, else 4) holds its displacement in the low
+    half and, in the high half, a fingerprint mask: bit f for every
+    pattern of the bucket whose hash h has fingerprint f, the
+    :func:`_fingerprint_bits` bits of h * C1 just below the bucket index. A
+    window whose fingerprint bit is clear matches no pattern of the
+    bucket, so the kernel skips its probe (:func:`_bucket_records`). The
+    length records (``meta``: (kmax, 8) int32, row k - 1 for length k):
+    the region's int4 offset, slot_shift, mask, c2, then the length's
+    first bucket (-1: no pattern of that length) and d_shift."""
 
     plain: HashMatchTables  # d and l2 as int32 tensors on the device
     rows: torch.Tensor  # (n, 4) int32 entry rows, Q int4 each
-    d: torch.Tensor  # uint8 or int16 displacements, padded to 16 B
-    d_bytes: int  # 1 or 2
-    slots: torch.Tensor  # (groups * SLOTS, 8) int32
-    groups: int
+    rec: torch.Tensor  # int16 or int32 bucket records, padded to 16 B
+    rec_bytes: int  # 2 or 4
+    meta: torch.Tensor  # (kmax, 8) int32
+    kmax: int
     base: int  # rolling-hash base, signed int32 form
+
+
+def _fingerprint_bits(rec_bytes: int) -> int:
+    """Bits of a window's fingerprint: 3 with 2-byte bucket records (an
+    8-bit mask beside a 1-byte displacement), 4 with 4-byte ones."""
+    return 3 if rec_bytes == 2 else 4
+
+
+def _pattern_hashes(l2_region: np.ndarray, k: int, base: int) -> np.ndarray:
+    """The rolling hash of every pattern in a length-k region of the JAX
+    entry rows (their symbols by distance from the end, two an int32)."""
+    M = np.uint64(0xFFFFFFFF)
+    h = np.zeros(len(l2_region), dtype=np.uint64)
+    p = np.uint64(1)
+    for e in range(k):
+        pair = l2_region[:, 1 + e // 2].astype(np.int64)
+        sy = (pair >> 16 if e % 2 else pair & 0xFFFF).astype(np.uint64)
+        h = (h + sy * p) & M
+        p = (p * np.uint64(base & 0xFFFFFFFF)) & M
+    return h
+
+
+def _bucket_records(hm: HashMatchTables):
+    """(records, record bytes): every bucket's displacement in the low half
+    of its record and, in the high half, the fingerprint mask of its
+    patterns (see :class:`HashSide`), from the same tables the plain
+    version reads. A window that equals a pattern has the pattern's hash,
+    hence its bucket and its fingerprint bit: the filter skips only probes
+    that cannot match."""
+    d = np.asarray(hm.d)[:, 0].astype(np.int64)
+    l2 = np.asarray(hm.l2)
+    rec_bytes = 2 if int(d.max(initial=0)) <= 255 else 4
+    fb = _fingerprint_bits(rec_bytes)
+    half = 4 * rec_bytes
+    fmask = np.zeros(len(d), dtype=np.int64)
+    M = np.uint64(0xFFFFFFFF)
+    for k, d_off, d_shift, l2_off, _, mask, _ in hm.metas:
+        region = l2[l2_off:l2_off + mask + 1]
+        region = region[region[:, 0] >= 0]
+        hc = (_pattern_hashes(region, k, hm.base) * np.uint64(_C1)) & M
+        b = d_off + (hc >> np.uint64(d_shift)).astype(np.int64)
+        f = ((hc >> np.uint64(d_shift - fb)) & np.uint64((1 << fb) - 1))
+        np.bitwise_or.at(fmask, b, 1 << f.astype(np.int64))
+    rec = d | (fmask << half)
+    dt = np.int16 if rec_bytes == 2 else np.int32
+    out = np.zeros(_a16(len(d) * rec_bytes) // rec_bytes, dtype=dt)
+    out[:len(d)] = (rec - ((rec >> (8 * rec_bytes - 1)) << (8 * rec_bytes))
+                    ).astype(dt)  # the same bits, signed
+    return out, rec_bytes
 
 
 def hash_side_tables(hm: HashMatchTables, device) -> HashSide:
     """The kernel's layout of :class:`HashMatchTables` (see
     :class:`HashSide`), uploaded to ``device``."""
     l2 = np.asarray(hm.l2)
-    parts, offs, qs, off = [], [], [], 0
-    for k, _, _, l2_off, _, mask, _ in hm.metas:
+    parts, off = [], 0
+    meta = np.zeros((hm.kmax, 8), dtype=np.int32)
+    meta[:, 4] = -1
+    for k, d_off, d_shift, l2_off, slot_shift, mask, c2 in hm.metas:
         n_pairs = (k + 1) // 2
         q_n = -(-(n_pairs + 1) // 4)
         sub = l2[l2_off:l2_off + mask + 1]
@@ -147,29 +211,15 @@ def hash_side_tables(hm: HashMatchTables, device) -> HashSide:
         r[:, :n_pairs] = sub[:, 1:1 + n_pairs]
         r[:, -1] = sub[:, 0]
         parts.append(r.reshape(-1, 4))
-        offs.append(off)
-        qs.append(q_n)
+        meta[k - 1] = (off, slot_shift, mask, c2, d_off, d_shift, 0, 0)
         off += (mask + 1) * q_n
-    probes = [(meta, r_off + q, q_n, q, q == q_n - 1)
-              for meta, r_off, q_n in zip(hm.metas, offs, qs)
-              for q in range(q_n)]
-    groups = -(-len(probes) // SLOTS)
-    slots = np.zeros((groups * SLOTS, 8), dtype=np.int32)
-    for i, ((k, d_off, d_shift, _, slot_shift, mask, c2), r_off, q_n, q,
-            last) in enumerate(probes):
-        slots[i] = (k, d_off, d_shift, r_off, slot_shift, mask, c2,
-                    q_n | q << 8 | int(last) << 16)
-    d = np.asarray(hm.d)[:, 0]
-    d_bytes = 1 if int(d.max(initial=0)) <= 255 else 2
-    d_dev = np.zeros(_a16(len(d) * d_bytes) // d_bytes,
-                     dtype=np.uint8 if d_bytes == 1 else np.int16)
-    d_dev[:len(d)] = d
+    rec, rec_bytes = _bucket_records(hm)
     return HashSide(
         plain=dataclasses.replace(hm, d=_up(hm.d, device),
                                   l2=_up(hm.l2, device)),
         rows=_up(np.concatenate(parts), device),
-        d=torch.from_numpy(d_dev).to(device), d_bytes=d_bytes,
-        slots=_up(slots, device), groups=groups, base=hm.base)
+        rec=torch.from_numpy(rec).to(device), rec_bytes=rec_bytes,
+        meta=_up(meta, device), kmax=hm.kmax, base=hm.base)
 
 
 @dataclasses.dataclass
@@ -230,40 +280,46 @@ class BoundaryTables:
                        m.ids, m.root]
         for h in (self.char_hm, self.type_hm):
             if h is not None:
-                ts += [h.plain.d, h.plain.l2, h.rows, h.d, h.slots]
+                ts += [h.plain.d, h.plain.l2, h.rows, h.rec, h.meta]
         return sum(t.nbytes for t in ts if t is not None)
 
     def stage_bytes(self) -> int:
         """Shared memory the hot tables take when staged: the hash table
         with the root-child records (walk) and each hash matcher side's
-        displacements (0: none)."""
+        bucket records (0: none)."""
         return self.smem_layout(True)["hot"]
+
+    def stage_budget(self) -> int:
+        """The most hot-table bytes staged: HASH_STAGE_BUDGET with a hash
+        matcher side, else STAGE_BUDGET."""
+        return (HASH_STAGE_BUDGET if self.char_hm is not None
+                or self.type_hm is not None else STAGE_BUDGET)
 
     def smem_layout(self, staged: bool) -> dict:
         """Byte offsets into the kernel's dynamic shared memory (csrc
         ``sm_*``; -1: read from global memory): with ``staged``, the hash
-        table and root-child records at 0 and the displacements of each
+        table and root-child records at 0 and the bucket records of each
         hash side after them; then the small type tables when they fit
-        SMALL_STAGE_BUDGET; then the probe slots of each hash side; then
-        the rows (``rows``). ``hot``: the bytes of the first group."""
+        SMALL_STAGE_BUDGET; then the length records of each hash side;
+        then the rows (``rows``). ``hot``: the bytes of the first group."""
         off = 0
         lay = {}
         if self.hash2 is not None:
             root = self.char.root.nbytes if self.char_hm is None else 0
             off = _a16(self.hash2.nbytes + root)
-        for name, h in (("c_d", self.char_hm), ("t_d", self.type_hm)):
+        for name, h in (("c_rec", self.char_hm), ("t_rec", self.type_hm)):
             lay[name] = off if h is not None else -1
-            off += _a16(h.d.nbytes) if h is not None else 0
+            off += _a16(h.rec.nbytes) if h is not None else 0
         lay["hot"] = off
         if not staged:
-            off, lay["c_d"], lay["t_d"] = 0, -1, -1
+            off, lay["c_rec"], lay["t_rec"] = 0, -1, -1
         small = self.type_small
         fits = small is not None and small.nbytes <= SMALL_STAGE_BUDGET
         lay["small"] = off if fits else -1
         off += small.nbytes if fits else 0
-        for name, h in (("c_slots", self.char_hm), ("t_slots", self.type_hm)):
+        for name, h in (("c_meta", self.char_hm), ("t_meta", self.type_hm)):
             lay[name] = off if h is not None else -1
-            off += h.slots.nbytes if h is not None else 0
+            off += h.meta.nbytes if h is not None else 0
         lay["rows"] = off
         return lay
 
@@ -508,15 +564,15 @@ class _Args(ctypes.Structure):
         ("bits", 1), ("W8", 0), ("ws_mask", 0),
         ("gap_scores", 1), ("gap_stride", 0),
         ("scratch", 1), ("row_bytes", 0), ("sched", 1),
-        ("c_hm_rows", 1), ("c_hm_d", 1), ("c_hm_d_bytes", 0),
-        ("c_hm_d_size", 0), ("c_hm_slots", 1), ("c_hm_groups", 0),
+        ("c_hm_rows", 1), ("c_hm_rec", 1), ("c_hm_rec_bytes", 0),
+        ("c_hm_rec_size", 0), ("c_hm_meta", 1), ("c_hm_kmax", 0),
         ("c_hm_base", 0),
-        ("t_hm_rows", 1), ("t_hm_d", 1), ("t_hm_d_bytes", 0),
-        ("t_hm_d_size", 0), ("t_hm_slots", 1), ("t_hm_groups", 0),
+        ("t_hm_rows", 1), ("t_hm_rec", 1), ("t_hm_rec_bytes", 0),
+        ("t_hm_rec_size", 0), ("t_hm_meta", 1), ("t_hm_kmax", 0),
         ("t_hm_base", 0),
         ("t_mode", 0), ("t_small", 1), ("t_small_size", 0), ("t_m", 0),
-        ("sm_c_d", 0), ("sm_t_d", 0), ("sm_small", 0), ("sm_c_slots", 0),
-        ("sm_t_slots", 0), ("sm_rows", 0),
+        ("sm_c_rec", 0), ("sm_t_rec", 0), ("sm_small", 0), ("sm_c_meta", 0),
+        ("sm_t_meta", 0), ("sm_rows", 0),
     )]
 
 
@@ -611,8 +667,9 @@ def launch_geometry(tabs: BoundaryTables, B: int, L: int,
                     cps_u16: bool = True, gap: bool = False) -> Geometry:
     """The kernel's launch for a (B, L) batch on ``tabs.device``.
 
-    The hot tables are staged when they fit STAGE_BUDGET, the small type
-    tables when they fit SMALL_STAGE_BUDGET, the probe slots always
+    The hot tables are staged when they fit their budget
+    (:meth:`BoundaryTables.stage_budget`), the small type tables when they
+    fit SMALL_STAGE_BUDGET, the hash matcher's length records always
     (:meth:`BoundaryTables.smem_layout`); a block then takes as many warps
     as the rest of the shared memory holds rows (at most the kernel's 32),
     but no more than it takes to spread the batch over every SM; rows wider
@@ -622,7 +679,7 @@ def launch_geometry(tabs: BoundaryTables, B: int, L: int,
     before makes no device queries. ``gap``: the instantiation that also
     writes gap scores; tables with a variant (:attr:`BoundaryTables.
     variants`) take the ``VARIANTS`` instantiations."""
-    staged = 0 < tabs.stage_bytes() <= STAGE_BUDGET
+    staged = 0 < tabs.stage_bytes() <= tabs.stage_budget()
     return _geometry(staged, tabs.smem_layout(staged)["rows"],
                      tabs.pad_left + tabs.pad_right, B, L, bool(cps_u16),
                      bool(gap), tabs.variants, tabs.device.index)
@@ -708,10 +765,11 @@ def _kernel_args(tabs: BoundaryTables, cps, cts, lengths, serve, ws_types,
     for side, h in (("c", tabs.char_hm), ("t", tabs.type_hm)):
         if h is not None:
             for name, v in (("rows", h.rows.data_ptr()),
-                            ("d", h.d.data_ptr()), ("d_bytes", h.d_bytes),
-                            ("d_size", h.d.nbytes),
-                            ("slots", h.slots.data_ptr()),
-                            ("groups", h.groups),
+                            ("rec", h.rec.data_ptr()),
+                            ("rec_bytes", h.rec_bytes),
+                            ("rec_size", h.rec.nbytes),
+                            ("meta", h.meta.data_ptr()),
+                            ("kmax", h.kmax),
                             ("base", h.base & 0xFFFFFFFF)):
                 setattr(a, f"{side}_hm_{name}", v)
     a.bias, a.pad_left, a.S = tabs.bias, tabs.pad_left, S

@@ -51,13 +51,13 @@ __all__ = ["HashMatchTables", "build_hash_match_tables", "extract_patterns",
 #: chars in the reference, char_scorer/boundary_scorer.rs:67-74)
 HASH_MATCH_MAX_LEN = 16
 #: the shortest ``max_len`` that takes the hash matcher by default, set from
-#: the crossover chip_smoke.py phase [10] (c) measures: on an NVIDIA H100
-#: 80GB HBM3 at a 700 W power limit, the boundary kernel's serve launch at
-#: (8192, 256) on the 50k model cut to each char max_len took, walk / hash,
-#: 0.0374 / 0.0515 ms at 2, 0.0482 / 0.1145 at 7, 0.0690 / 0.3024 at 16
-#: (PERF.md). The walk won at every length from 2 to 16, so 17 keeps it the
-#: default wherever the tables apply. (The JAX package's 5 is a TPU
-#: measurement.)
+#: the crossover chip_smoke.py phase [10] (c) measures: the boundary
+#: kernel's serve launch at (8192, 256) on the 50k model cut to each char
+#: max_len, walk against hash, on an NVIDIA H100 80GB HBM3 at a 700 W power
+#: limit. The walk won at every length from 2 to 16, with the first hash
+#: kernel and with the filtered one (PERF.md gives both curves), so 17
+#: keeps it the default wherever the tables apply. (The JAX package's 5 is
+#: a TPU measurement.)
 HASH_MATCH_MIN_LEN = 17
 #: symbol ids must fit 15 bits for the two-per-int32 pair packing
 HASH_MATCH_MAX_SYM = 32767

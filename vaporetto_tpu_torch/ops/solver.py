@@ -35,9 +35,9 @@ A solve split over shards (``Problem(shard=(r, n))``, driven by
 then ``cols`` with its ``PART`` instantiation, which stores each visited
 feature's sums into ``Problem.part_g`` and updates nothing), the host adds
 the shards' sums into each shard's ``Problem.gsum``, and
-:func:`fista_update` (the ``update`` kernel: a dense pass, a thread per
-feature and class) applies the update and advances the stopping state; their
-plain versions are :func:`fista_partial_plain` and
+:func:`fista_update` (the ``update`` kernel: a pass over the live prefix
+``Problem.n_prefix``, four elements a thread at a time) applies the update
+and advances the stopping state; their plain versions are :func:`fista_partial_plain` and
 :func:`fista_update_plain`. ``fista_partial.launches`` and
 ``fista_update.launches`` count their launches.
 """
@@ -98,8 +98,8 @@ COLS_BLOCKS_PER_SM = 8
 #: (``CLASS_BLOCK`` in csrc/solver.cu); more classes take a loop over
 #: blocks of this many
 CLASS_BLOCK = 8
-#: blocks of ``update`` on each SM (its threads stride over the
-#: features' classes)
+#: blocks of ``update`` on each SM (its threads stride over the live
+#: prefix, four elements at a time)
 UPDATE_BLOCKS_PER_SM = 8
 
 
@@ -208,7 +208,8 @@ class Problem:
     A shard keeps its features' entry counts (``col_count``, int32 (n_dim,))
     and a buffer ``part_g`` (n_dim C, zero where it has no entry) for
     ``cols``' sums; :meth:`set_gsum` gives it the buffer ``gsum`` that
-    ``update`` reads."""
+    ``update`` reads and the live prefix ``n_prefix`` (features) that it
+    visits."""
 
     def __init__(self, idx: np.ndarray, val: np.ndarray,
                  targets: np.ndarray, n_rows: int, n_dim: int, *, loss: int,
@@ -339,6 +340,9 @@ class Problem:
         self.part_g = (torch.zeros(n_dim * C, dtype=torch.float32,
                                    device=dev) if shard is not None else None)
         self.gsum = None
+        #: the features ``update`` visits: every id with an entry on some
+        #: shard is below it (:meth:`set_gsum`)
+        self.n_prefix = n_dim
         self.step = self.thr = None
         self.w = self.z = self.state = self.tseq = None
         self._args, self._blocks = {}, {}
@@ -354,14 +358,21 @@ class Problem:
         return sum(getattr(self, k).nbytes for k in self.LAYOUT) + (
             self.y if self.y is not None else self.labels).nbytes
 
-    def set_gsum(self, gsum: torch.Tensor) -> None:
+    def set_gsum(self, gsum: torch.Tensor,
+                 n_prefix: Optional[int] = None) -> None:
         """A shard's view of the whole solve: ``gsum``, the (n_dim C,)
         float32 buffer on this device that holds every shard's sums when
-        ``update`` runs."""
+        ``update`` runs, and ``n_prefix``, a bound on every shard's
+        feature ids (the largest plus one; None: n_dim). Past it the sums,
+        w and z stay 0, and ``update`` does not visit them."""
         if self.shard is None:
             raise ValueError("set_gsum is for a shard's problem")
-        self.gsum = gsum
+        n_prefix = self.n_dim if n_prefix is None else int(n_prefix)
+        if not 0 <= n_prefix <= self.n_dim:
+            raise ValueError(f"n_prefix {n_prefix} outside [0, {self.n_dim}]")
+        self.gsum, self.n_prefix = gsum, n_prefix
         self._args.pop("update", None)
+        self._blocks.pop("update", None)
 
     def coo(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(row, col, val): the live entries row-major, each row's in
@@ -606,6 +617,7 @@ class _Args(ctypes.Structure):
         ("seg_len", 0), ("seg_blocks", 0),
         ("power", 0), ("part", 0), ("loss", 0), ("l1", 0), ("max_iter", 0),
         ("cost", 2), ("step", 2), ("thr", 2), ("mu", 2),
+        ("n_prefix", 0),
     )]
 
 
@@ -671,7 +683,12 @@ def _args(p: Problem, power: bool, key: Optional[str] = None) -> _Args:
     if key == "part":
         a.part, a.out = 1, p.part_g.data_ptr()
     elif key == "update":
-        a.g = p.gsum.data_ptr()
+        # 16-byte loads and stores, 32-bit indices
+        if any(t.data_ptr() % 16 for t in (p.gsum, p.w, p.z)):
+            raise ValueError("update needs w, z and gsum 16-byte aligned")
+        if p.n_dim * p.C >= 2**31:
+            raise ValueError(f"n_dim C = {p.n_dim * p.C} exceeds int32")
+        a.g, a.n_prefix = p.gsum.data_ptr(), p.n_prefix * p.C
     p._args[key] = a
     return a
 
@@ -690,7 +707,7 @@ def _blocks(p: Problem, kernel: str) -> int:
         elif kernel == "update":
             sms = torch.cuda.get_device_properties(
                 p.device).multi_processor_count
-            n = max(1, min(-(-p.n_dim * p.C // (warps * 32)),
+            n = max(1, min(-(-p.n_prefix * p.C // (4 * warps * 32)),
                            UPDATE_BLOCKS_PER_SM * sms))
         else:
             sms = torch.cuda.get_device_properties(
@@ -771,8 +788,8 @@ def fista_partial(p: Problem) -> None:
 
 def fista_update(p: Problem) -> None:
     """The rest of the iteration on a shard, once ``p.gsum`` holds every
-    shard's sums: the ``update`` kernel over every feature, which also
-    advances the stopping state."""
+    shard's sums: the ``update`` kernel over the live prefix
+    (``p.n_prefix`` features), which also advances the stopping state."""
     if p.device.type == "cpu":
         return fista_update_plain(p)
     dev = _check_device(p)

@@ -30,8 +30,10 @@ mesh's shards, are split into contiguous blocks, a ``Problem`` a shard
 (:class:`Shards`). Each iteration runs ``rows`` and ``cols<PART>`` on every
 shard, adds the shards' sums in one fixed order, the same on every rank
 (this process's shards in shard order on the first shard's device, then
-``all_reduce`` over the processes, then a copy to each other device), and
-runs ``update`` on every shard: each shard keeps its own w, z and stopping
+``all_reduce`` over the processes, then a copy to each other device; only
+the live prefix, the features up to the largest id, since the power-of-two
+padding of n_dim past it holds zeros on every shard), and runs ``update``
+on every shard (over the same prefix): each shard keeps its own w, z and stopping
 state, and they stay bitwise equal, so every shard and rank stops at the
 same iteration. The power iteration reduces the same way. A mesh of one
 shard in one process solves as a single ``Problem`` on its device.
@@ -159,9 +161,12 @@ class Shards:
         p0 = self.parts[0]
         self.device, self.n_dim, self.C = p0.device, n_dim, p0.C
         self.max_iter = p0.max_iter
+        # the live prefix: every shard's (and every process's: each holds
+        # the whole idx) feature ids are below it
+        self.n_prefix = int(np.max(idx, initial=0)) + 1
         gsum = self._buffers(torch.float32, n_dim * self.C)
         for q in self.parts:
-            q.set_gsum(gsum[q.device])
+            q.set_gsum(gsum[q.device], self.n_prefix)
         self._power = self._buffers(torch.float32, n_dim)
         if mesh.process_count > 1:
             # across processes only the live features' sums travel (those
@@ -185,25 +190,29 @@ class Shards:
         shard order) in ``out``'s tensor on each local device: added in
         shard order on the first shard's device, summed over the processes
         by ``all_reduce`` (``live``: only the live features' entries, the
-        others being 0 everywhere), then copied to the other devices."""
+        others being 0 everywhere), then copied to the other devices. Only
+        the live prefix (:attr:`n_prefix` features) is added and copied:
+        past it every part is 0, and so is ``out``, which nothing else
+        writes."""
         from ..parallel.distributed import all_reduce_sum
 
         dev0 = parts[0].device
-        acc = out[dev0]
+        m = self.n_prefix * (len(out[dev0]) // self.n_dim)
+        acc = out[dev0][:m]
         if len(parts) == 1:
-            acc.copy_(parts[0])
+            acc.copy_(parts[0][:m])
         else:  # the first two in one pass
-            torch.add(parts[0], parts[1].to(dev0), out=acc)
+            torch.add(parts[0][:m], parts[1][:m].to(dev0), out=acc)
         for t in parts[2:]:
-            acc.add_(t.to(dev0))
+            acc.add_(t[:m].to(dev0))
         if self.mesh.process_count > 1 and live:
-            k = self._index[len(acc) // self.n_dim]
+            k = self._index[len(out[dev0]) // self.n_dim]
             acc[k] = all_reduce_sum(acc[k])
         elif self.mesh.process_count > 1:
             all_reduce_sum(acc)
         for d, t in out.items():
             if d != dev0:
-                t.copy_(acc)
+                t[:m].copy_(acc)
         return out
 
     def power_step(self, v: Dict[torch.device, torch.Tensor]):
