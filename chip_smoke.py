@@ -129,9 +129,12 @@ versions on the same inputs. Phases, each printed on its own line:
    model's type trie (``VAPORETTO_TPU_HASHMATCH_MIN`` lowered), the
    per-offset (``SMALL_TABLES=1``) and split (``TYPE_SPLIT=1``) type
    tables, each held to its plain version (tolerance 0) over both
-   epilogues with and without gap scores; (b) serve times of walk, hash,
-   pos and split at the three serve shapes with their plain times,
-   geometry and bound; (c) walk against hash on models whose char
+   epilogues with and without gap scores, the small tables also on the
+   type sides of :data:`TYPE_SIDES` (per-offset tables of M = 4 read from
+   global memory, windows 1 and 2); (b) serve times of walk, hash, pos
+   and split at the three serve shapes with their plain times, geometry
+   and bound, the small tables' cost over the cache, and the ptxas lines
+   of the ``VARIANTS`` instantiations; (c) walk against hash on models whose char
    ``max_len`` runs from 2 to 16 (:func:`length_model`), the crossover
    that sets ``HASH_MATCH_MIN_LEN``; (d) ``LeanServer`` over [4]'s and
    [4t]'s streams under each switch, bytes equal to [4]'s and [4t]'s;
@@ -3132,6 +3135,36 @@ VARIANTS = {
 }
 
 
+#: name -> (type window, type n-grams as type codes) of the small type
+#: tables' edge cases: per-offset tables of M = 4 (6 x 8^4 int32, 98 304 B:
+#: over SMALL_STAGE_BUDGET, read from global memory; no split, since maxn
+#: exceeds the window), window 1 (split with a crossing code of 0 symbols)
+#: and window 2 (both tables)
+TYPE_SIDES = {
+    "4-grams at window 3": (3, [(3,), (4,), (5,), (3, 5), (5, 5), (5, 3, 3),
+                                (3, 5, 5, 4)]),
+    "window 1": (1, [(3,), (4,), (5,), (6,)]),
+    "window 2": (2, [(3,), (4,), (5,), (3, 5), (5, 5), (4, 3)]),
+}
+
+
+def type_side_model(base, name: str, seed: int = 29):
+    """``base`` with :data:`TYPE_SIDES` ``name``'s type side in place of
+    its own: the type window and n-grams, weights seeded for every window
+    position an n-gram can take."""
+    import numpy as np
+
+    from vaporetto_tpu_torch.models.model import Model, NgramData
+
+    window, types = TYPE_SIDES[name]
+    rng = np.random.default_rng(seed)
+    type_ngram = [NgramData(bytes(t), [int(x) for x in rng.integers(
+        -200, 200, 2 * window - len(t) + 1)]) for t in types]
+    return Model(base.char_ngram_model, type_ngram, base.dict_model,
+                 bias=base.bias, char_window_size=base.char_window_size,
+                 type_window_size=window)
+
+
 class switches:
     """Sets the four ``VAPORETTO_TPU_*`` switches to ``kw`` (the others
     unset) inside the block, and restores them after it."""
@@ -3267,11 +3300,14 @@ def serve_bound_bytes(batches, B, L):
     return live * (2 + 1) + B * 4 + B * -(-(L - 1) // 8)
 
 
-def variants_phase(pred, words, sep, smi):
+def variants_phase(pred, words, sep, smi, ptxas=()):
     """Phase [10] (a)-(c): each variant held to its plain version
-    (tolerance 0), the serve A/B at the three shapes, and the crossover
-    of the walk and the hash matcher over char ``max_len`` 2-16. Returns
-    its results for the kernels line."""
+    (tolerance 0; the small type tables also on :data:`TYPE_SIDES`), the
+    serve A/B at the three shapes with the small tables' cost over the
+    cache and the ``VARIANTS`` instantiations' ``ptxas`` report lines
+    (``ptxas``: the boundary kernel's), and the crossover of the walk and
+    the hash matcher over char ``max_len`` 2-16. Returns its results for
+    the kernels line."""
     import numpy as np
     import torch
 
@@ -3319,6 +3355,30 @@ def variants_phase(pred, words, sep, smi):
             or "char walk" not in res["exact"][-3]:
         raise AssertionError("small models took unexpected matchers: "
                              f"{res['exact'][-4:]}")
+    # the small type tables' edge cases: M = 4 (from global memory), the
+    # windows 1 and 2
+    side_base = big_model(2000, 300)
+    side_words = [w.word for w in side_base.dict_model]
+    for side in TYPE_SIDES:
+        p = Predictor(type_side_model(side_base, side), device=dev)
+        for mode, kw in (("pos", {"SMALL_TABLES": "1"}),
+                         ("split", {"TYPE_SPLIT": "1"})):
+            t = variant_tables(p.compiled, dev, NO_HASHMATCH="1", **kw)
+            if mode == "split" and side.startswith("4-grams"):
+                mode = "cache"  # maxn 4 exceeds the window: no split
+            if variant_name(t) != f"char walk, type {mode}":
+                raise AssertionError(f"{side}: tables took "
+                                     f"{variant_name(t)}")
+            if mode == "cache":
+                continue
+            for c, ty, ln in (random_batch(64, 96, 44, side_words),
+                              random_batch(67, 256, 43, side_words,
+                                           np.resize(EDGE_LENGTHS, 67))):
+                compare_kernel(t, c, ty, ln, ((), KANJI_DIGIT))
+            staged = t.smem_layout(True)["small"] >= 0
+            res["exact"].append(
+                f"type side {side!r}, {mode} ({t.type_small.nbytes} B of "
+                f"tables{'' if staged else ', not staged'})")
     log("[10] (a) equal to plain (tolerance 0; full and serve epilogues, "
         "with and without gap scores, wsconst none and KANJI+DIGIT): "
         + "; ".join(res["exact"]))
@@ -3345,6 +3405,8 @@ def variants_phase(pred, words, sep, smi):
                 "warps": g.warps, "blocks_per_sm": g.blocks_per_sm,
                 "smem": g.smem, "staged": g.staged,
                 "staged_bytes": g.fixed}
+        for v in ("pos", "split"):  # the small tables over the cache
+            row[v]["over_cache_ms"] = row[v]["ms"] - row["walk"]["ms"]
         res["shapes"].append(row)
         log(f"[10] (b) serve ({B}, {L}){' packed' if packed else ''}: "
             + ", ".join(
@@ -3353,7 +3415,14 @@ def variants_phase(pred, words, sep, smi):
                 f"{row[v]['staged_bytes']} B of tables staged)"
                 for v in ("walk", "hash", "pos", "split"))
             + f", walk again {row['walk_again_ms']:.4f} ms; bound "
-            f"{row['bound_ms']:.5f} ms (bytes, the walk's), {smi}")
+            f"{row['bound_ms']:.5f} ms (bytes, the walk's); over the cache "
+            "(walk): " + ", ".join(
+                f"{v} {row[v]['over_cache_ms']:+.4f} ms "
+                f"({row[v]['over_cache_ms'] / row['walk']['ms']:+.1%})"
+                for v in ("pos", "split")) + f"; {smi}")
+    for ln in ptxas:
+        if variants_of(ln.split(":", 1)[0]):
+            log(f"[10] (b) ptxas VARIANTS {ln}")
     # (c) the crossover: walk against hash over char max_len 2-16
     base = big_model()
     for k in range(2, 17):
@@ -4330,7 +4399,7 @@ def main(argv) -> int:
     # ---- 10. the boundary kernel's variants ----------------------------
     t0 = time.perf_counter()
     n_before = (boundary.launches, tag_kernel.launches)
-    vr = variants_phase(pred, words, sep, smi)
+    vr = variants_phase(pred, words, sep, smi, ptxas["boundary"])
     boundary.launches, tag_kernel.launches = n_before
     vr["lean"] = lean_variants(pred, tpred, lines, tlines, want_bytes, twant)
     log(f"[10] phase seconds {time.perf_counter() - t0:.1f}")

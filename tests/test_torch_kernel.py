@@ -27,6 +27,7 @@ only on the card.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -164,7 +165,28 @@ VARIANT_CASES = {
               "char walk, type split"),
     "hash split": ({"HASHMATCH_MIN": "1", "TYPE_SPLIT": "1"},
                    "char hash, type split"),
+    # the small type tables' edge cases (chip_smoke.TYPE_SIDES: the mid
+    # model with another type side): per-offset tables of M = 4 over
+    # SMALL_STAGE_BUDGET, read from global memory; windows 1 and 2
+    "4-grams at window 3 pos": ({"NO_HASHMATCH": "1", "SMALL_TABLES": "1"},
+                                "char walk, type pos"),
+    "window 1 pos": ({"NO_HASHMATCH": "1", "SMALL_TABLES": "1"},
+                     "char walk, type pos"),
+    "window 1 split": ({"NO_HASHMATCH": "1", "TYPE_SPLIT": "1"},
+                       "char walk, type split"),
+    "window 2 pos": ({"NO_HASHMATCH": "1", "SMALL_TABLES": "1"},
+                     "char walk, type pos"),
+    "window 2 split": ({"NO_HASHMATCH": "1", "TYPE_SPLIT": "1"},
+                       "char walk, type split"),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _type_side_predictor(name):
+    """A predictor on the card of the mid model's generator with
+    ``chip_smoke.TYPE_SIDES`` ``name``'s type side."""
+    base = chip_smoke.big_model(5000, 500)
+    return Predictor(chip_smoke.type_side_model(base, name))
 
 
 @pytest.mark.cuda
@@ -174,13 +196,21 @@ VARIANT_CASES = {
 def test_variants_match_plain_on_card(variant, case, mid_predictor,
                                       mid_model):
     """The hash matcher and the per-offset and split type tables (runtime
-    arguments of the same kernel) against their plain versions."""
+    arguments of the same kernel) against their plain versions; the small
+    tables also at the type windows and n-gram lengths of
+    ``chip_smoke.TYPE_SIDES``."""
     _card()
     _, words, sep = mid_model
     pred = mid_predictor[0]
+    side = next((n for n in chip_smoke.TYPE_SIDES if variant.startswith(n)),
+                None)
+    if side is not None:
+        pred = _type_side_predictor(side)
     kw, want = VARIANT_CASES[variant]
     vt = chip_smoke.variant_tables(pred.compiled, pred.device, **kw)
     assert chip_smoke.variant_name(vt) == want
+    if side == "4-grams at window 3":  # 98 304 B: not staged
+        assert vt.type_pos_m == 4 and vt.smem_layout(True)["small"] < 0
     cps, cts, lengths = chip_smoke.geometry_batches(words, sep)[case]
     assert chip_smoke.compare_kernel(vt, cps, cts, lengths,
                                      ((), KANJI_DIGIT)) == 0

@@ -66,3 +66,15 @@ def test_solver_layout_constants_match_the_kernel(name, mirror):
     with open(os.path.join(_CSRC, "solver.cu")) as f:
         m = re.search(r"constexpr int %s = (\d+);" % name, f.read())
     assert m is not None and int(m.group(1)) == mirror
+
+
+def test_small_stage_budget_matches_the_kernel():
+    """The boundary kernel reads a small type table layout from shared
+    memory exactly when its bytes fit SMALL_STAGE_BUDGET, a constant it
+    compiles in, and the host stages exactly those tables: both budgets
+    are the same number."""
+    with open(os.path.join(_CSRC, "boundary.cu")) as f:
+        m = re.search(r"constexpr int64_t SMALL_STAGE_BUDGET = (\d+) \* "
+                      r"(\d+);", f.read())
+    assert m is not None
+    assert int(m.group(1)) * int(m.group(2)) == boundary.SMALL_STAGE_BUDGET

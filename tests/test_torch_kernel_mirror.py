@@ -23,15 +23,23 @@ the kernel's algorithm step for step:
   row is loaded, ``SLOTS`` lengths' loads before their compares, the
   entry row's first part compared with the window's and its other parts
   read only when that matches, the id from the row's last int, a later
-  (longer) match overwriting; and the type score from the cache, the
-  per-offset tables or the split tables, read from the kernel's flat
-  copy.
+  (longer) match overwriting; and the type score from the cache, gap by
+  gap, or from the per-offset or split tables (the kernel's flat copy)
+  in the row's bias store, before any match is added: each gap's window
+  types read at once, tested against the row's ends only near them, and
+  every lookup of a gap before its sum.
 
 It must equal the port's plain matcher and scores, and the JAX package's
 matcher, exactly (tolerance 0: every value is an int32), on the 50k-style
 model at a small width, the type-trie model, the 1000-char-word model and
-padding-heavy rows. That holds the redesign's logic without a card.
+padding-heavy rows, and the small type tables' edge cases
+(``chip_smoke.TYPE_SIDES``: per-offset tables of M = 4 read from global
+memory, windows 1 and 2); the small tables' rows also equal the JAX
+package's ``type_pos_scores`` and ``type_split_scores``. That holds the
+redesign's logic without a card.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,8 +50,14 @@ import chip_smoke
 from vaporetto_tpu.ops import match as jmatch
 from vaporetto_tpu_torch import Predictor
 from vaporetto_tpu.ops import hashmatch as jhm
-from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, TYPE_CACHE,
-                                              TYPE_POS, TYPE_SPLIT,
+from vaporetto_tpu.ops import score as jscore
+from vaporetto_tpu_torch.compile import compiler as pcomp
+from vaporetto_tpu_torch.ops import boundary as boundary_mod
+from vaporetto_tpu_torch.ops import score as pscore
+from vaporetto_tpu_torch.ops.boundary import (NO_CHILD, SMALL_SHAPES,
+                                              SMALL_STAGE_BUDGET,
+                                              TYPE_CACHE, TYPE_POS,
+                                              TYPE_SPLIT, _kernel_args,
                                               _pattern_records,
                                               boundary, boundary_scores_plain,
                                               _fingerprint_bits,
@@ -62,6 +76,9 @@ SPAN = 32 * 2
 #: the kernel's SLOTS: the hash lengths whose loads go out before their
 #: compares
 SLOTS = 2
+#: the kernel's SMALL_RUN: the adjacent columns a lane takes in the small
+#: type tables' bias store
+SMALL_RUN = 2
 
 
 def _np(t):
@@ -183,34 +200,74 @@ def _hash_probe(sym, n, hs, slots=SLOTS, stats=None):
     return best
 
 
-def _type_gap(ty, t, n, tabs):
-    """Gap t's type score as the kernel reads it (type_gap)."""
-    w, mode = tabs.type_window, tabs.type_mode
+def _cache_gap(ty, t, n, tabs):
+    """Gap t's type score from the 8^(2w) cache as the kernel reads it
+    (type_window, gathered in the walk)."""
+    w = tabs.type_window
+    v = 0
+    for i in range(2 * w):
+        j = t + i - (w - 1)
+        v = (v << 3) | (int(ty[j]) if 0 <= j < n else 0)
+    return int(_np(tabs.type_cache)[v])
 
-    def seq(count):
-        v = 0
-        for i in range(count):
-            j = t + i - (w - 1)
-            v = (v << 3) | (int(ty[j]) if 0 <= j < n else 0)
-        return v
 
-    if mode == TYPE_CACHE:
-        return int(_np(tabs.type_cache)[seq(2 * w)])
-    small = _np(tabs.type_small).astype(np.int64)
-    if mode == TYPE_POS:
-        m = tabs.type_pos_m
-        nn, nc = 2 * w + m - 1, 8 ** m
-        v = seq(nn)
-        return sum(int(small[j * nc + ((v >> (3 * (nn - j - m))) & (nc - 1))])
-                   for j in range(2 * w))
-    assert mode == TYPE_SPLIT
-    maxn = tabs.type_split_maxn
-    mid = 2 * maxn - 2
+def _window_code(ty, g, n, N, w):
+    """window_code: the N types from char g-w+1 on, 3 bits each, the
+    first highest, chars outside the row reading 0; only a run within N
+    chars of an end of the row tests its positions."""
+    interior = g >= w - 1 and g + N - w < n
+    seq = 0
+    for i in range(N):
+        j = g - (w - 1) + i
+        seq = (seq << 3) | (int(ty[j]) if interior or 0 <= j < n else 0)
+    return seq
+
+
+def _small_sum(seq, tabs, tab):
+    """small_sum: a gap code's score from the kernel's flat copy of the
+    small tables. Per-offset: table j at the code of the M types from
+    window position j on, every lookup before the sum; split: the left,
+    crossing and right codes."""
+    w = tabs.type_window
+    if tabs.type_mode == TYPE_POS:
+        mm = tabs.type_pos_m
+        N, nc = 2 * w + mm - 1, 8 ** mm
+        loads = [int(tab[j * nc + ((seq >> (3 * (N - mm - j))) & (nc - 1))])
+                 for j in range(2 * w)]
+        return sum(loads)
+    assert tabs.type_mode == TYPE_SPLIT
+    mm = tabs.type_split_maxn
+    mid = 2 * mm - 2
     n_side, n_mid = 8 ** w, 8 ** max(mid, 1)
-    v = seq(2 * w)
-    mid_code = (v >> (3 * (w - maxn + 1))) & ((1 << (3 * mid)) - 1)
-    return int(small[v >> (3 * w)] + small[n_side + mid_code]
-               + small[n_side + n_mid + (v & (n_side - 1))])
+    mid_code = (seq >> (3 * (w - mm + 1))) & ((1 << (3 * mid)) - 1)
+    return int(tab[seq >> (3 * w)] + tab[n_side + mid_code]
+               + tab[n_side + n_mid + (seq & (n_side - 1))])
+
+
+def _bias_small_row(ty, n, tabs, S, run=SMALL_RUN):
+    """bias_small_row: a row's bias store with each in-line gap's small
+    type table score in it, after the text pass and before any match is
+    added. Lane l takes the ``run`` adjacent columns from run * l on, 32
+    runs a step; one window of N + run - 1 types (N = 2w + M - 1, split
+    2w) gives the codes of every gap of the run. Staged or read from
+    global memory, the table is the same flat copy."""
+    w = tabs.type_window
+    N = (2 * w + tabs.type_pos_m - 1 if tabs.type_mode == TYPE_POS
+         else 2 * w)
+    tab = _np(tabs.type_small).astype(np.int64)
+    row = np.full(S, tabs.bias, dtype=np.int64)
+    for i0 in range(0, S, 32 * run):
+        for lane in range(32):
+            i = i0 + run * lane
+            g = i - tabs.pad_left
+            if i >= S or g + run - 1 < 0 or g >= n - 1:
+                continue
+            seq = _window_code(ty, g, n, N + run - 1, w)
+            for k in range(run):
+                code = (seq >> (3 * (run - 1 - k))) & ((1 << (3 * N)) - 1)
+                if 0 <= g + k < n - 1:
+                    row[i + k] += _small_sum(code, tabs, tab)
+    return row
 
 
 def _add_matches(sc, best, n, pad_left, ids, w8):
@@ -240,6 +297,8 @@ def kernel_mirror(tabs, cps, cts, lengths, span=SPAN):
         cp = cps[b].astype(np.int64)
         ty = np.zeros(L, dtype=np.int64)
         ty[:n] = cts[b, :n]
+        if tabs.type_mode in (TYPE_POS, TYPE_SPLIT):
+            scores[b] = _bias_small_row(ty, n, tabs, S)
         if tabs.char is not None:
             m = tabs.char
             slot = ((cp * (tabs.hash_mul & 0xFFFFFFFF)) & 0xFFFFFFFF) \
@@ -252,9 +311,9 @@ def kernel_mirror(tabs, cps, cts, lengths, span=SPAN):
                                 _np(m.root), span))
             _add_matches(scores[b], cm[b], n, tabs.pad_left, _np(m.ids),
                          _np(m.w8))
-        if tabs.type_mode:
+        if tabs.type_mode == TYPE_CACHE:
             for t in range(n - 1):
-                scores[b, tabs.pad_left + t] += _type_gap(ty, t, n, tabs)
+                scores[b, tabs.pad_left + t] += _cache_gap(ty, t, n, tabs)
         if tabs.type_trie is not None:
             m = tabs.type_trie
             tm[b] = (_hash_probe(ty, n, tabs.type_hm) if tabs.type_hm
@@ -294,6 +353,10 @@ def _model(name, **switches):
         words = [w.word for w in model.dict_model]
     elif name == "type trie":
         model, words = chip_smoke.small_model(3, 4)
+    elif name in chip_smoke.TYPE_SIDES:
+        base = chip_smoke.big_model(2000, 300)
+        model = chip_smoke.type_side_model(base, name)
+        words = [w.word for w in base.dict_model]
     elif name == "16-char words":
         model, words = chip_smoke.length_model(
             chip_smoke.big_model(2000, 300), 16)
@@ -322,7 +385,17 @@ CASES = {
                            {"HASHMATCH_MIN": "1"}),
     "50k-style pos": ("50k-style", 8, 96, None, {"SMALL_TABLES": "1"}),
     "50k-style split": ("50k-style", 8, 96, None, {"TYPE_SPLIT": "1"}),
+    "4-grams at window 3 pos": ("4-grams at window 3", 8, 96, None,
+                                {"SMALL_TABLES": "1"}),
+    "window 1 pos": ("window 1", 8, 96, None, {"SMALL_TABLES": "1"}),
+    "window 1 split": ("window 1", 8, 96, None, {"TYPE_SPLIT": "1"}),
+    "window 2 pos": ("window 2", 8, 96, PADDING_HEAVY[:8],
+                     {"SMALL_TABLES": "1"}),
+    "window 2 split": ("window 2", 8, 96, PADDING_HEAVY[:8],
+                       {"TYPE_SPLIT": "1"}),
 }
+#: the cases that take the per-offset or split type tables
+SMALL_CASES = sorted(k for k in CASES if k.endswith((" pos", " split")))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -392,6 +465,86 @@ def test_mirror_matches_plain_gap_scores(case):
         tabs, scores, cts, ln, (5, 1)))
     assert (want[np.arange(cps.shape[1] - 1)[None] >= ln[:, None] - 1]
             != 0).any()  # columns past a row's length are stored too
+
+
+@pytest.mark.parametrize("run", [1, SMALL_RUN, 4])
+@pytest.mark.parametrize("name", SMALL_CASES)
+def test_small_table_rows_equal_plain_and_jax(name, run):
+    """The mirror's bias rows with the small tables' scores in them equal
+    the port's plain ``type_pos_scores`` / ``type_split_scores`` and the
+    JAX package's on the same types (bias rows in, tolerance 0), whatever
+    the run of adjacent columns a lane takes (the kernel's SMALL_RUN is a
+    tuning constant); a table over SMALL_STAGE_BUDGET (per-offset at M =
+    4, 98 304 B) is not staged, so the kernel reads it from global
+    memory."""
+    model, B, L, lengths, switches = CASES[name]
+    tabs, words = _model(model, **switches)
+    _, cts, ln = chip_smoke.random_batch(B, L, 21, words, lengths)
+    S = tabs.pad_left + L - 1 + tabs.pad_right
+    got = np.stack([
+        _bias_small_row(np.where(np.arange(L) < n, cts[b], 0), int(n), tabs,
+                        S, run) for b, n in enumerate(ln.tolist())])
+    got = ((got + 2**31) % 2**32 - 2**31).astype(np.int32)
+    w, pad = tabs.type_window, tabs.pad_left
+    rows = np.full((B, S), tabs.bias, dtype=np.int32)
+    t_in = (torch.from_numpy(cts.astype(np.int32)), torch.from_numpy(ln))
+    j_in = (jnp.asarray(cts.astype(np.int32)), jnp.asarray(ln))
+    if tabs.type_mode == TYPE_POS:
+        m = tabs.type_pos_m
+        port = pscore.type_pos_scores(*t_in, tabs.type_pos, w, m,
+                                      torch.from_numpy(rows), pad)
+        jax = jscore.type_pos_scores(*j_in, jnp.asarray(tabs.type_pos.numpy()),
+                                     w, m, jnp.asarray(rows), pad)
+    else:
+        split = [t.numpy() for t in tabs.type_split]
+        m = tabs.type_split_maxn
+        port = pscore.type_split_scores(
+            *t_in, *(torch.from_numpy(x) for x in split), w, m,
+            torch.from_numpy(rows), pad)
+        jax = jscore.type_split_scores(*j_in, *map(jnp.asarray, split), w, m,
+                                       jnp.asarray(rows), pad)
+    np.testing.assert_array_equal(got, port.numpy())
+    np.testing.assert_array_equal(got, np.asarray(jax))
+    assert (got != tabs.bias).any()
+    staged = tabs.smem_layout(True)["small"] >= 0
+    assert staged == (tabs.type_small.nbytes <= SMALL_STAGE_BUDGET)
+    if name.startswith("4-grams"):
+        assert (m, tabs.type_small.nbytes, staged) == (4, 98_304, False)
+    if name == "window 1 split":
+        assert m == 1  # a crossing code of 0 symbols
+
+
+def test_small_run_is_the_kernels():
+    """The mirror takes the kernel's runs of adjacent columns."""
+    with open(boundary_mod._SRC) as f:
+        m = re.search(r"constexpr int SMALL_RUN = (\d+);", f.read())
+    assert m is not None and int(m.group(1)) == SMALL_RUN
+
+
+def test_small_shapes_are_every_layout_the_compiler_builds():
+    """SMALL_SHAPES, the small table layouts the kernel has code for,
+    holds exactly the (mode, window, M or maxn) that the table builders
+    return for every window the cache takes and type n-grams of 1-5
+    types; the wrapper's arguments refuse any other layout."""
+    built = set()
+    for w in range(1, pcomp.CACHE_MAX_WINDOW_SIZE + 1):
+        for n in range(1, 6):
+            ngrams = [((3,) * n, [1] * max(2 * w - n + 1, 1))]
+            pos = pcomp._build_type_pos_tables(ngrams, w)
+            split = pcomp._build_type_split_tables(ngrams, w)
+            if pos is not None:
+                built.add((TYPE_POS, w, pos[1]))
+            if split is not None:
+                built.add((TYPE_SPLIT, w, split[3]))
+    assert built == SMALL_SHAPES
+    tabs, words = _model("window 2", SMALL_TABLES="1")
+    batch = tuple(torch.from_numpy(x) for x in chip_smoke.random_batch(
+        2, 16, 3, words))
+    a, _ = _kernel_args(tabs, *batch, True, (), False)
+    assert (a.t_mode, a.t_window, a.t_m) == (TYPE_POS, 2, 2)
+    tabs.type_pos_m = 5
+    with pytest.raises(ValueError):
+        _kernel_args(tabs, *batch, True, (), False)
 
 
 @pytest.mark.parametrize("span", [32, 64, 1024])

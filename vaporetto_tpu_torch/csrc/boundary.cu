@@ -90,7 +90,7 @@
 //    host builds the tables (ops/boundary.py boundary_tables), run by the
 //    instantiations with VARIANTS; the others compile the walk and the type
 //    cache alone. (Compiled into every instantiation, the probes made all of
-//    them spill, and the small tables' pass, never run by the default
+//    them spill, and the small tables' code, never run by the default
 //    model, cost its walk 3-5%: see PERF.md.)
 //    - the CHD hash matcher (JAX ops/hashmatch.py) in place of the walk on
 //      a side whose tables build (hash_row). Each lane takes end
@@ -117,11 +117,24 @@
 //      add_matches.
 //    - the type window score from the 8^(2w) cache (global memory), from
 //      2w per-offset tables of 8^M entries, or from left, crossing and right
-//      tables (type_gap; the mode a warp-uniform runtime argument), the
-//      small tables staged when they fit. The cache is gathered inside the
-//      walk (or the probes), where its latency hides; the small tables, in
-//      shared memory, have their own pass over the row (add_type_small),
-//      which leaves the walk's registers as they were.
+//      tables (the mode a warp-uniform runtime argument). The cache is
+//      gathered inside the walk (or the probes), where its latency hides.
+//      The small tables are read in the row's bias store (bias_small),
+//      after the text pass and before any match is added: the store that
+//      writes the bias writes bias + type score, so they take no pass and
+//      no atomic of their own, and the walk's registers stay as they were.
+//      Each (mode, window, M or maxn) the compiler builds has its own code
+//      (bias_small_row), in which a gap's shifts, masks and table offsets
+//      are constants. A lane takes two adjacent gaps (SMALL_RUN), whose
+//      windows of 2w+M-1 (split: 2w) types share all but one: the run's
+//      types are loaded together, tested against the row's ends only
+//      within that many chars of them, and each gap's 2w (split: 3)
+//      lookups go out before any of them is added.
+//      Tables within the host's budget (SMALL_STAGE_BUDGET) are staged and
+//      read by shared-memory loads (a pointer built from the shared-memory
+//      base); larger ones (per-offset at M = 4: 98 KB) by __ldg. Staging
+//      costs the packed shape two or three warps of rows, and is still the
+//      faster of the two there (see PERF.md).
 //
 // Tensor cores, wgmma and TMA tiles have nothing to work on here: the
 // kernel multiplies no matrices and its reads are gathers, not tiles. What
@@ -259,42 +272,78 @@ __device__ __forceinline__ uint32_t type_window(const uint8_t* ty, int t,
   return seq;
 }
 
-// The small type tables: 2w per-offset tables or left | crossing | right.
-struct TypeTabs {
-  int mode;               // 2 per-offset, 3 split
-  const int32_t* small;   // shared or global memory (generic loads)
-  int w, m;               // window; M (per-offset) or maxn (split)
-};
+// The small type tables (t_mode 2 per-offset, 3 split), for a window W and
+// MM (per-offset: M, the types a table's code reads; split: maxn) fixed at
+// compile time: every shift, mask and table offset below is a constant,
+// and the loops unroll.
+constexpr int TYPE_POS = 2;
+constexpr int TYPE_SPLIT = 3;
 
-// Gap t's type window score from the small tables. Per-offset: window
-// start j's code
-// is the M types from window position j on (types past the window too; the
-// tables ignore them). Split: the left half, the crossing middle
-// (positions w-maxn+1 .. w+maxn-2) and the right half. Sums wrap.
-__device__ __forceinline__ int type_gap(const uint8_t* ty, int t, int len,
-                                        const TypeTabs& tt) {
-  const int w = tt.w;
-  if (tt.mode == 2) {
-    const int n = 2 * w + tt.m - 1;
-    const uint32_t seq = type_window(ty, t, len, w, n);
-    const int nc = 1 << (3 * tt.m);
-    uint32_t v = 0;
-    for (int j = 0; j < 2 * w; ++j)
-      v += static_cast<uint32_t>(
-          tt.small[j * nc + ((seq >> (3 * (n - j - tt.m))) & (nc - 1))]);
-    return static_cast<int>(v);
+// The types of a run of adjacent gaps from g on: the N types from char
+// g-W+1 on, 3 bits each, the first highest, chars outside the line reading
+// type 0 (for a run of K gaps whose windows hold N-K+1 types each, gap
+// g+k's window is the N-K+1 from the k-th on). The N loads go out
+// together; only a run within N chars of an end of the line tests them.
+template <int N, int W>
+__device__ __forceinline__ uint32_t window_code(const uint8_t* ty, int g,
+                                                int len) {
+  uint32_t v[N];
+  if (g >= W - 1 && g + N - W < len) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = ty[g - (W - 1) + i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int j = g - (W - 1) + i;
+      v[i] = static_cast<unsigned>(j) < static_cast<unsigned>(len) ? ty[j]
+                                                                   : 0u;
+    }
   }
-  const uint32_t seq = type_window(ty, t, len, w, 2 * w);
-  const int mid = 2 * tt.m - 2;
-  const int n_side = 1 << (3 * w);
-  const int n_mid = 1 << (3 * max(mid, 1));
-  const uint32_t mid_code =
-      (seq >> (3 * (w - tt.m + 1))) & ((1u << (3 * mid)) - 1);
-  const uint32_t v = static_cast<uint32_t>(tt.small[seq >> (3 * w)]) +
-                     static_cast<uint32_t>(tt.small[n_side + mid_code]) +
-                     static_cast<uint32_t>(
-                         tt.small[n_side + n_mid + (seq & (n_side - 1))]);
-  return static_cast<int>(v);
+  uint32_t seq = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) seq = (seq << 3) | v[i];
+  return seq;
+}
+
+// An entry of a small table: staged (a pointer built from the shared-
+// memory base, so a shared-memory load) or read through the read-only
+// path.
+template <bool SMEM>
+__device__ __forceinline__ uint32_t small_ld(const int32_t* t, uint32_t i) {
+  return static_cast<uint32_t>(SMEM ? t[i] : __ldg(t + i));
+}
+
+// Gap code seq's type window score from the small tables; the sum wraps.
+// Per-offset: table j (of 8^MM entries) at the code of the MM types from
+// window position j on (types past the window too; the tables ignore
+// them), the 2W lookups issued before any is added. Split: the left half
+// (8^W entries), the crossing middle (positions W-MM+1 .. W+MM-2; 8^(2MM-2)
+// entries, at least 8) and the right half.
+template <int MODE, int W, int MM, bool SMEM>
+__device__ __forceinline__ uint32_t small_sum(uint32_t seq,
+                                              const int32_t* tab) {
+  if constexpr (MODE == TYPE_POS) {
+    constexpr int N = 2 * W + MM - 1;
+    constexpr uint32_t NC = 1u << (3 * MM);
+    uint32_t v[2 * W];
+#pragma unroll
+    for (int j = 0; j < 2 * W; ++j)
+      v[j] = small_ld<SMEM>(tab + j * NC, (seq >> (3 * (N - MM - j))) &
+                                              (NC - 1));
+    uint32_t s = 0;
+#pragma unroll
+    for (int j = 0; j < 2 * W; ++j) s += v[j];
+    return s;
+  } else {
+    constexpr int MID = 2 * MM - 2;
+    constexpr uint32_t NS = 1u << (3 * W);
+    constexpr uint32_t NM = 1u << (3 * (MID > 0 ? MID : 1));
+    const uint32_t l = small_ld<SMEM>(tab, seq >> (3 * W));
+    const uint32_t m = small_ld<SMEM>(
+        tab + NS, (seq >> (3 * (W - MM + 1))) & ((1u << (3 * MID)) - 1));
+    const uint32_t r = small_ld<SMEM>(tab + NS + NM, seq & (NS - 1));
+    return l + m + r;
+  }
 }
 
 // The forward walks of one row: from every start s < len, advance through
@@ -578,15 +627,42 @@ __device__ __forceinline__ void add_type_cache(
   }
 }
 
-// The per-offset or split type tables' scores of the in-line gaps, in a pass
-// of their own, a gap at a time: their reads are mostly shared memory, so
-// there is no latency to hide, and the walk's registers stay as they are.
-__device__ __forceinline__ void add_type_small(const uint8_t* ty, int len,
-                                               int lane, int* sc,
-                                               int pad_left,
-                                               const TypeTabs& tt) {
-  for (int t = lane; t < len - 1; t += 32)
-    atomicAdd(&sc[pad_left + t], type_gap(ty, t, len, tt));
+// Adjacent columns a lane takes in the bias store of the small tables: a
+// run's gaps share all but one type of their windows, so one window of
+// SMALL_RUN - 1 more types gives every code of the run. (Runs of 4 spilled
+// at the 64-register cap and were slower: see PERF.md.)
+constexpr int SMALL_RUN = 2;
+
+// The bias row of a model with small type tables, each in-line gap's type
+// score added in the same store (after the text pass, before any match is
+// added): no atomic and no pass of its own. Lane l takes the SMALL_RUN
+// adjacent columns from SMALL_RUN * l on, 32 runs a step (a last run past
+// S writes into the padding of the 16-byte aligned score row).
+template <int MODE, int W, int MM, bool SMEM>
+__device__ __forceinline__ void bias_small_row(const uint8_t* ty, int len,
+                                               int lane, int* sc, int S,
+                                               int pad_left, uint32_t bias,
+                                               const int32_t* tab) {
+  constexpr int K = SMALL_RUN;
+  constexpr int N = MODE == TYPE_POS ? 2 * W + MM - 1 : 2 * W;
+  static_assert(3 * (N + K - 1) <= 32, "a run's window fits 32 bits");
+  for (int i = K * lane; i < S; i += 32 * K) {
+    const int g = i - pad_left;
+    uint32_t v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = bias;
+    if (g + K - 1 >= 0 && g < len - 1) {
+      const uint32_t seq = window_code<N + K - 1, W>(ty, g, len);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const uint32_t s = small_sum<MODE, W, MM, SMEM>(
+            (seq >> (3 * (K - 1 - k))) & ((1u << (3 * N)) - 1), tab);
+        if (g + k >= 0 && g + k < len - 1) v[k] += s;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) sc[i + k] = static_cast<int>(v[k]);
+  }
 }
 
 // Copies `bytes` (a multiple of 16) from src to smem + off (off < 0 or no
@@ -600,14 +676,9 @@ __device__ __forceinline__ void stage_async(unsigned char* smem, int64_t off,
                             16);
 }
 
-// A table staged at smem + off, else read from global memory at src. The
-// views below are built where they are used, from the kernel's parameters
-// (constant memory), so that no register holds them across the row loop.
-__device__ __forceinline__ const void* staged_or(unsigned char* smem,
-                                                 int64_t off,
-                                                 const void* src) {
-  return off >= 0 ? static_cast<const void*>(smem + off) : src;
-}
+// The views below are built where they are used, from the kernel's
+// parameters (constant memory), so that no register holds them across the
+// row loop.
 
 // A hash side's tables as hash_row reads them. The length records are
 // always staged; the bucket records are staged with the hot tables, so
@@ -636,11 +707,61 @@ __device__ __forceinline__ HashSide type_hash(const Args& a,
           static_cast<uint32_t>(a.t_hm_base)};
 }
 
-__device__ __forceinline__ TypeTabs type_tabs(const Args& a,
-                                              unsigned char* smem) {
-  return {static_cast<int>(a.t_mode),
-          static_cast<const int32_t*>(staged_or(smem, a.sm_small, a.t_small)),
-          static_cast<int>(a.t_window), static_cast<int>(a.t_m)};
+// The host stages the small tables when they take at most this many bytes
+// (ops/boundary.py SMALL_STAGE_BUDGET, the same number), so whether a
+// layout's tables are in shared memory follows from its shape.
+constexpr int64_t SMALL_STAGE_BUDGET = 32 * 1024;
+
+// The bytes of a layout's tables as the host uploads them (one flat int32
+// array, padded to 16 B): 2W tables of 8^MM entries, or 8^W + 8^(2MM-2)
+// (at least 8) + 8^W.
+template <int MODE, int W, int MM>
+__host__ __device__ constexpr int64_t small_bytes() {
+  return align16(4 * (MODE == TYPE_POS
+                          ? (int64_t{2 * W} << (3 * MM))
+                          : (int64_t{2} << (3 * W)) +
+                                (int64_t{1} << (3 * (MM > 1 ? 2 * MM - 2
+                                                            : 1)))));
+}
+
+// bias_small_row at the model's (t_mode, window, M or maxn), each
+// combination the host builds (ops/boundary.py SMALL_SHAPES): from shared
+// memory when the layout's tables fit the staging budget, else from global
+// memory.
+__device__ __forceinline__ void bias_small(const Args& a, unsigned char* smem,
+                                           const uint8_t* ty, int len,
+                                           int lane, int* sc, int S,
+                                           int pad_left) {
+  const uint32_t bias = static_cast<uint32_t>(a.bias);
+  const int32_t* sm = reinterpret_cast<const int32_t*>(smem + a.sm_small);
+#define VT_SMALL(MODE, W, MM)                                             \
+  case MODE * 100 + W * 10 + MM: {                                        \
+    constexpr bool SMEM = small_bytes<MODE, W, MM>() <= SMALL_STAGE_BUDGET; \
+    bias_small_row<MODE, W, MM, SMEM>(ty, len, lane, sc, S, pad_left, bias, \
+                                      SMEM ? sm : a.t_small);             \
+    return;                                                               \
+  }
+  switch (a.t_mode * 100 + a.t_window * 10 + a.t_m) {
+    VT_SMALL(TYPE_POS, 1, 1)
+    VT_SMALL(TYPE_POS, 1, 2)
+    VT_SMALL(TYPE_POS, 2, 1)
+    VT_SMALL(TYPE_POS, 2, 2)
+    VT_SMALL(TYPE_POS, 2, 3)
+    VT_SMALL(TYPE_POS, 2, 4)
+    VT_SMALL(TYPE_POS, 3, 1)
+    VT_SMALL(TYPE_POS, 3, 2)
+    VT_SMALL(TYPE_POS, 3, 3)
+    VT_SMALL(TYPE_POS, 3, 4)
+    VT_SMALL(TYPE_SPLIT, 1, 1)
+    VT_SMALL(TYPE_SPLIT, 2, 1)
+    VT_SMALL(TYPE_SPLIT, 2, 2)
+    VT_SMALL(TYPE_SPLIT, 3, 1)
+    VT_SMALL(TYPE_SPLIT, 3, 2)
+    VT_SMALL(TYPE_SPLIT, 3, 3)
+    default:  // none other is built (the host refuses it): the bias alone
+      for (int i = lane; i < S; i += 32) sc[i] = static_cast<int>(bias);
+  }
+#undef VT_SMALL
 }
 
 template <typename CP, bool STAGED, bool SCRATCH, bool GAP, bool VARIANTS>
@@ -721,7 +842,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const CP* cps = static_cast<const CP*>(a.cps) + row0;
 
     // ---- bias row; symbols, types and empty matches of live chars ------
-    for (int i = lane; i < S; i += 32) sc[i] = static_cast<int>(a.bias);
+    // (with small type tables, the bias row follows the text pass)
+    const bool small_tabs = VARIANTS && a.t_mode > 1;
+    if (!small_tabs)
+      for (int i = lane; i < S; i += 32) sc[i] = static_cast<int>(a.bias);
     for (int t0 = lane; t0 < len; t0 += 32 * TEXT) {
       uint32_t cp[TEXT];
       int c[TEXT];
@@ -751,6 +875,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       }
     }
     __syncwarp();
+    if (small_tabs) {
+      bias_small(a, smem, ty, len, lane, sc, S, pad_left);
+      __syncwarp();
+    }
 
     // ---- char side: walks or hash probes, then chunk adds; the type
     // table ----------------------------------------------------------------
@@ -777,8 +905,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       add_type_cache(ty, len, lane, sc, pad_left, a.t_cache,
                      static_cast<int>(a.t_window));
     }
-    if (VARIANTS && a.t_mode > 1)
-      add_type_small(ty, len, lane, sc, pad_left, type_tabs(a, smem));
 
     // ---- type trie side -----------------------------------------------
     if (a.t_walk) {

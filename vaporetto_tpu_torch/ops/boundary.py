@@ -87,7 +87,10 @@ STAGE_BUDGET = 96 * 1024
 HASH_STAGE_BUDGET = 128 * 1024
 #: the per-offset or split type tables are staged when they take at most
 #: this many bytes (12 KB and 20 KB at window 3 with 3-grams), else read
-#: from global memory; the hash matcher's length records are always
+#: from global memory (per-offset at M = 4: 64 KB at window 2, 96 KB at
+#: window 3). The kernel compiles the same number in (csrc
+#: SMALL_STAGE_BUDGET): its code for a layout reads shared or global memory
+#: by the layout's size. The hash matcher's length records are always
 #: staged (32 B a length, at most 512 B a side)
 SMALL_STAGE_BUDGET = 32 * 1024
 #: the CHD bucket multiplier (csrc HASH_C1): a window's bucket is the top
@@ -95,6 +98,13 @@ SMALL_STAGE_BUDGET = 32 * 1024
 _C1 = 0x9E3779B1
 #: type table modes (csrc t_mode)
 TYPE_NONE, TYPE_CACHE, TYPE_POS, TYPE_SPLIT = 0, 1, 2, 3
+#: (mode, type window, M or maxn) of every small type table layout the
+#: compiler builds (windows up to CACHE_MAX_WINDOW_SIZE 3; per-offset M <=
+#: min(4, 2w), split maxn <= w): the kernel has code for each (csrc
+#: bias_small, its shifts and offsets fixed at compile time)
+SMALL_SHAPES = frozenset(
+    [(TYPE_POS, w, m) for w in (1, 2, 3) for m in range(1, min(4, 2 * w) + 1)]
+    + [(TYPE_SPLIT, w, m) for w in (1, 2, 3) for m in range(1, w + 1)])
 
 
 @dataclasses.dataclass
@@ -757,6 +767,9 @@ def _kernel_args(tabs: BoundaryTables, cps, cts, lengths, serve, ws_types,
         a.t_small_size = tabs.type_small.nbytes
         a.t_m = (tabs.type_split_maxn if tabs.type_split is not None
                  else tabs.type_pos_m)
+        if (a.t_mode, a.t_window, a.t_m) not in SMALL_SHAPES:
+            raise ValueError(f"no kernel code for small type tables of mode "
+                             f"{a.t_mode}, window {a.t_window}, M {a.t_m}")
     if tabs.type_trie is not None:
         m = tabs.type_trie
         a.t_walk, a.t_slots = m.walk4.data_ptr(), m.walk4.shape[0]
