@@ -123,8 +123,10 @@ def test_shared_signatures(key):
     for qual, jf, path in _public(jm):
         full = f"{key}.{qual}" if key else qual
         pf = pm
-        for part in path:
+        for part in path:  # None where the port does not define it
             pf = getattr(pf, part, None)
+            if pf is None:
+                break
         if pf is None or any(full == e or full.startswith(e + ".")
                              for e in EXEMPT):
             continue

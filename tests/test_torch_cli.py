@@ -207,6 +207,19 @@ def test_profile_writes_a_trace(model_case, tmp_path, monkeypatch):
     with open(tmp_path / "tr" / "trace.json") as f:
         trace = json.load(f)
     assert trace["traceEvents"]
+    # the program's stage spans ride beside torch's events; the stream's
+    # astral line sends its whole group to the general path, so the lines
+    # without it show the writer too
+    bmp = [ln for ln in _lines(tokens) if max(map(ord, ln), default=0)
+           < 0x10000]
+    rc, _ = _run(predict.main, ["--model", path, "--profile",
+                                str(tmp_path / "bmp")],
+                 ("\n".join(bmp) + "\n").encode(), monkeypatch, device="cpu")
+    with open(tmp_path / "bmp" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    stages = {e["name"] for e in events
+              if e.get("cat") == "stage" and e.get("ph") == "X"}
+    assert rc == 0 and {"dispatch", "write"} <= stages
 
 
 #: flag sets that failed as not ported before multi-device runs were, and

@@ -12,6 +12,7 @@ the JAX lean path (a known reference fault, ROADMAP §C).
 """
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -208,3 +209,134 @@ class TestFuzzMixedLengthsPort:
         assert lean_path(tp, lines, batch_lines=16, stats=stats) == \
             general_path(jp, lines)
         assert stats["packed_dispatches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the program's stage spans and counters (utils/observe.py)
+
+from vaporetto_tpu_torch.serving import PACK_L  # noqa: E402
+from vaporetto_tpu_torch.utils import observe  # noqa: E402
+from vaporetto_tpu_torch.utils.batch import bucket_length  # noqa: E402
+
+#: one packed run (6 lines), one unpacked group (2 lines over 64 chars),
+#: a one-line packed run, and a long line with an astral codepoint that
+#: takes the general path
+_LONG = "まぁ社長は火星猫だ" * 8
+SPAN_LINES = (CORPUS[:6] + [_LONG, _LONG[:70]] + ["地球"]
+              + [_LONG[:66] + "\U0001F431"])
+
+
+@pytest.fixture(scope="module")
+def kanji_port():
+    return Predictor(compiled=port_compiled(JaxPredictor(_kanji_model())),
+                     device="cpu")
+
+
+def _serve(pred, lines, batch_lines=4):
+    sink = io.BytesIO()
+
+    def fallback(raw_lines):
+        sink.write(port_general_path(pred, [b.decode() for b in raw_lines]))
+
+    server = LeanServer(pred, batch_lines=batch_lines, fallback=fallback)
+    server.run(io.BytesIO(("\n".join(lines) + "\n").encode()), sink)
+    return server, sink.getvalue()
+
+
+def _recorded(pred, lines, **kw):
+    log = observe.record_spans()
+    try:
+        server, got = _serve(pred, lines, **kw)
+    finally:
+        assert observe.stop_spans() is log
+    return log, server, got
+
+
+def test_spans_off_record_nothing_and_the_bytes_stay(kanji_port):
+    assert observe.active_spans() is None and observe.call_spans() is None
+    server, want = _serve(kanji_port, SPAN_LINES)
+    for k in ("t_count_s", "t_tensorize_s", "t_launch_s"):
+        assert server.stats[k] == 0.0
+    log, _, got = _recorded(kanji_port, SPAN_LINES)
+    assert got == want and log.spans
+
+
+def test_span_labels_counts_and_nesting(kanji_port):
+    log, server, _ = _recorded(kanji_port, SPAN_LINES)
+    rep = log.report()
+    # the astral line's group is tried (count, tensorize) and falls back
+    assert {k: v["count"] for k, v in rep.items()} == {
+        "read": 2, "split": 1, "dispatch": 4, "count": 2, "tensorize": 4,
+        "launch": 3, "realize": 3, "wait": 3, "write": 3, "sink": 3,
+        "fallback": 1}
+    by_seq = {}
+    for label, seq, t0, t1 in log.spans:
+        assert t0 <= t1
+        by_seq.setdefault((seq, label), []).append((t0, t1))
+    # a dispatch's number is the one it takes if it launches: the
+    # fallback group's try has the next one
+    assert {seq for (seq, label) in by_seq if label == "dispatch"} == {
+        0, 1, 2, 3}
+    assert {seq for (seq, label) in by_seq if label == "realize"} == {
+        0, 1, 2}
+    assert [s for (s, lab) in by_seq if lab in ("read", "split",
+                                                "fallback")] == [-1] * 3
+    for (seq, label), spans in by_seq.items():
+        parent = {"count": "dispatch", "tensorize": "dispatch",
+                  "launch": "dispatch", "wait": "realize",
+                  "write": "realize", "sink": "realize"}.get(label)
+        if parent is None:
+            continue
+        outer = by_seq[(seq, parent)]
+        for t0, t1 in spans:
+            assert any(a <= t0 and t1 <= b for a, b in outer), (seq, label)
+    for label in ("dispatch", "realize"):
+        assert rep[label]["self_s"] <= rep[label]["total_s"]
+    st = server.stats
+    tot = log.totals()
+    for key, label in (("t_dispatch_s", "dispatch"), ("t_detok_s", "write"),
+                       ("t_readback_s", "wait"), ("t_fallback_s", "fallback"),
+                       ("t_count_s", "count"),
+                       ("t_tensorize_s", "tensorize"),
+                       ("t_launch_s", "launch")):
+        assert st[key] == pytest.approx(tot[label], abs=1e-6), key
+
+
+def test_counters_by_hand(kanji_port):
+    server, _ = _serve(kanji_port, SPAN_LINES)
+    st = server.stats
+    chars = [len(s) for s in SPAN_LINES]
+    # two packed dispatches of one row each (64 rows, the least), one
+    # unpacked group of batch_lines rows at the bucket of its longest line
+    L = bucket_length(max(chars[6:8]) + 1)
+    cells = 2 * 64 * PACK_L + 4 * L
+    assert (st["dispatches"], st["packed_dispatches"]) == (3, 2)
+    assert st["cells"] == cells
+    assert st["live_chars"] == sum(chars[:9])
+    assert st["upload_bytes"] == 3 * cells + 4 * (2 * 64 + 4)
+    assert st["fallback_lines"] == 1
+
+
+def _threads(n: int, min_rows: int) -> int:
+    """Worker threads ``vt::parallel_rows`` starts over ``n`` rows."""
+    nt = min(os.cpu_count() or 1, 16, n)
+    if nt <= 1 or n < min_rows:
+        return 0
+    per = -(-n // nt)
+    return -(-n // per)
+
+
+def test_no_native_threads_under_the_thresholds(kanji_port):
+    server, _ = _serve(kanji_port, SPAN_LINES * 20, batch_lines=64)
+    assert server.stats["native_threads"] == 0
+
+
+def test_native_threads_follow_parallel_rows(kanji_port):
+    """One chunk of 1 024 lines over 64 chars, one unpacked group: the
+    chunk's count, the group's count and tensorize (1 024-row threshold)
+    and the writer (256)."""
+    lines = [_LONG[:65 + i % 7] for i in range(1024)]
+    server, _ = _serve(kanji_port, lines, batch_lines=1024)
+    assert server.stats["dispatches"] == 1
+    assert server.stats["native_threads"] == (
+        3 * _threads(1024, 1024) + _threads(1024, 256))

@@ -94,7 +94,7 @@ def available() -> bool:
 
 def abi_version() -> int:
     """The library's ABI marker (5: ``vt_tensorize16*`` carry the types
-    output), or 0 under the switch."""
+    output; 6: :func:`threads_started_native`), or 0 under the switch."""
     return 0 if disabled() else int(_load().vt_abi_version())
 
 
@@ -181,6 +181,8 @@ def _load() -> ctypes.CDLL:
             ]
             lib.vt_abi_version.restype = ctypes.c_int
             lib.vt_abi_version.argtypes = []
+            lib.vt_threads_started.restype = ctypes.c_int64
+            lib.vt_threads_started.argtypes = []
             lib.vt_detok_scores.restype = ctypes.c_int64
             lib.vt_detok_scores.argtypes = [
                 U8P, I64P, I64P, ctypes.c_int64,
@@ -617,6 +619,13 @@ def find_newlines_native(blob: np.ndarray) -> np.ndarray:
             buf.ctypes.data_as(U8P), len(blob), out.ctypes.data_as(I64P),
         )
     return out
+
+
+def threads_started_native() -> int:
+    """Worker threads the library's batched calls have started in this
+    process (``vt::parallel_rows``: up to ``min(cores, 16)`` a call from
+    its row threshold; calls under it run inline and start none)."""
+    return int(_load().vt_threads_started())
 
 
 def count_chars_native(

@@ -2,6 +2,7 @@
 #ifndef VAPORETTO_NATIVE_COMMON_H_
 #define VAPORETTO_NATIVE_COMMON_H_
 
+#include <atomic>
 #include <cstdint>
 #include <thread>
 #include <vector>
@@ -29,6 +30,11 @@ inline uint8_t char_type(uint32_t c) {
   return 6;
 }
 
+// Worker threads parallel_rows has started in this process (one library,
+// one counter: an inline variable has one definition across the sources;
+// read through vt_threads_started).
+inline std::atomic<int64_t> threads_started{0};
+
 // Run fn(lo, hi) over [0, n) split across worker threads. n_threads <= 0
 // picks hardware concurrency; small inputs run inline. The one fan-out
 // loop every batched native entry point shares.
@@ -53,6 +59,8 @@ inline void parallel_rows(int64_t n, int32_t n_threads, int64_t min_rows,
     if (lo >= hi) break;
     threads.emplace_back(fn, lo, hi);
   }
+  threads_started.fetch_add(static_cast<int64_t>(threads.size()),
+                            std::memory_order_relaxed);
   for (auto& th : threads) th.join();
 }
 

@@ -23,8 +23,12 @@ inline uint8_t char_type(uint32_t c) { return vt::char_type(c); }
 
 extern "C" {
 
-// ABI version marker: vt_tensorize16* carry the uint8 types output.
-int vt_abi_version() { return 5; }
+// ABI version marker: vt_tensorize16* carry the uint8 types output (5),
+// vt_threads_started counts parallel_rows' workers (6).
+int vt_abi_version() { return 6; }
+
+// Worker threads vt::parallel_rows has started in this process.
+int64_t vt_threads_started() { return vt::threads_started.load(); }
 
 // The general path's int32 tensorizer (parallel/data.py batched_lines):
 // decode n_lines UTF-8 lines (byte ranges given by line_offsets, length

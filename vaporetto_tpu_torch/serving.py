@@ -77,11 +77,18 @@ from .native import (
     find_newlines_native,
     tensorize16_native,
     tensorize16_packed_native,
+    threads_started_native,
 )
+from .utils import observe
 from .utils.batch import bucket_length
 
 __all__ = ["LeanServer", "lean_path_supported", "lean_tags_supported",
            "pack_separator", "PACK_L", "PACK_MAX_LINE"]
+
+_ns = time.perf_counter_ns
+#: span labels whose seconds ``LeanServer.stats`` keeps, under these keys
+_SPAN_STATS = {"count": "t_count_s", "tensorize": "t_tensorize_s",
+               "launch": "t_launch_s"}
 
 #: wsconst flags the lean path takes: the char types fuse into the
 #: kernel, and G (grapheme clusters) is a host mask over the bits read
@@ -343,18 +350,33 @@ class LeanServer:
         self._n_launched = 0
         self.batch_lines = batch_lines
         self.fallback = fallback
-        #: per-run pipeline breakdown: dispatch counts; host seconds in
-        #: tensorize + launch, in waiting for the bits (device->host
-        #: readback included), in the native detokenizer and in the
-        #: general path; readback bytes, and of them the gap scores' and
-        #: the tag scores'; dispatches by device (with a mesh, each block's
-        #: device counts one)
+        #: the span log of the running call (None: no spans recorded)
+        self._log = None
+        self._n_realized = 0
+        #: pipeline breakdown over the server's life: dispatch counts;
+        #: host seconds in a dispatch (tensorize + launch), in waiting for
+        #: the bits (device->host readback included), in the native
+        #: detokenizer and in the general path (the spans ``dispatch``,
+        #: ``wait``, ``write`` and ``fallback`` share these readings);
+        #: readback bytes, and of them the gap scores' and the tag scores';
+        #: dispatches by device (with a mesh, each block's device counts
+        #: one). ``cells``: B x L of the dispatched input tensors;
+        #: ``live_chars``: chars of the real lines in them (no padding rows
+        #: or separators); ``upload_bytes``: bytes of the codepoints, types
+        #: and lengths handed to the device; ``native_threads``: worker
+        #: threads the native library started during ``run``. The seconds
+        #: of the ``count``, ``tensorize`` and ``launch`` spans, only while
+        #: spans are recorded (``utils.observe``; timing them costs clock
+        #: reads an untraced run does not pay): ``t_count_s``,
+        #: ``t_tensorize_s``, ``t_launch_s``.
         self.stats = {
             "dispatches": 0, "packed_dispatches": 0, "fallback_lines": 0,
             "readback_bytes": 0, "readback_gap_score_bytes": 0,
             "readback_tag_score_bytes": 0, "t_dispatch_s": 0.0,
             "t_readback_s": 0.0, "t_detok_s": 0.0, "t_fallback_s": 0.0,
-            "device_dispatches": {},
+            "device_dispatches": {}, "cells": 0, "live_chars": 0,
+            "upload_bytes": 0, "native_threads": 0,
+            **{k: 0.0 for k in _SPAN_STATS.values()},
         }
 
     # ------------------------------------------------------------------
@@ -369,6 +391,7 @@ class LeanServer:
         the host, the ready events: none on the CPU). The outputs are the
         bits, then on the tag path the tag kernel's word or tid and
         choice."""
+        self.stats["upload_bytes"] += cps.nbytes + cts.nbytes + lengths.nbytes
         if self.mesh is not None:
             return self._launch_mesh(slot, cps, cts, lengths)
         dev = self.device
@@ -414,10 +437,32 @@ class LeanServer:
                 ready.append(ev)
         return tuple(host), tuple(ready)
 
+    def _timed(self, dispatch, *args):
+        """One group's ``dispatch(*args)``, timed into ``t_dispatch_s``
+        and, from the same readings, its ``dispatch`` span."""
+        seq = self.stats["dispatches"]
+        t0 = _ns()
+        done = dispatch(*args)
+        t1 = _ns()
+        self.stats["t_dispatch_s"] += (t1 - t0) / 1e9
+        if self._log is not None:
+            self._log.add("dispatch", seq, t0, t1)
+        return done
+
+    def _counted(self, B: int, L: int, counts) -> None:
+        st = self.stats
+        st["dispatches"] += 1
+        st["cells"] += B * L
+        st["live_chars"] += int(counts.sum())
+
     def _dispatch(self, blob, starts, ends, n_valid):
         """Tensorize + dispatch one unpacked group; returns the pending
         tuple or None if the group needs the general path."""
-        counts = count_chars_native(blob, starts, ends)
+        log = self._log
+        seq = self.stats["dispatches"]
+        counts = (count_chars_native(blob, starts, ends) if log is None else
+                  log.call("count", seq, count_chars_native, blob, starts,
+                           ends))
         max_chars = int(counts.max(initial=0))
         if max_chars > self.predictor.LONG_SENTENCE_THRESHOLD:
             # very long lines go through the general path's halo-overlap
@@ -427,12 +472,15 @@ class LeanServer:
         L = bucket_length(max_chars + 1)
         B = len(starts)
         if self.host:
-            t16 = tensorize16_native(blob, starts, ends, L, self.norm_map)
+            t16 = (tensorize16_native(blob, starts, ends, L, self.norm_map)
+                   if log is None else
+                   log.call("tensorize", seq, tensorize16_native, blob,
+                            starts, ends, L, self.norm_map))
             if t16 is None:
                 return None
             cps, lengths, _ = t16
             res = self.fn(cps, lengths)
-            self.stats["dispatches"] += 1
+            self._counted(B, L, counts[:n_valid])
             self._count("host")
             return (((res if isinstance(res, tuple) else (res,)), ()),
                     blob, starts[:n_valid], ends[:n_valid], None,
@@ -441,13 +489,16 @@ class LeanServer:
         cps = slot.tensor("cps", (B, L), torch.uint16)
         lengths = slot.tensor("lengths", (B,), torch.int32)
         cts = slot.tensor("cts", (B, L), torch.uint8)
-        if tensorize16_native(
-            blob, starts, ends, L, self.norm_map,
-            out=(cps.numpy(), lengths.numpy(), cts.numpy()),
-        ) is None:
+        out = (cps.numpy(), lengths.numpy(), cts.numpy())
+        if (tensorize16_native(blob, starts, ends, L, self.norm_map, out=out)
+                if log is None else
+                log.call("tensorize", seq, tensorize16_native, blob, starts,
+                         ends, L, self.norm_map, out=out)) is None:
             return None
-        res = self._launch(slot, cps, cts, lengths)
-        self.stats["dispatches"] += 1
+        res = (self._launch(slot, cps, cts, lengths) if log is None else
+               log.call("launch", seq, self._launch, slot, cps, cts,
+                        lengths))
+        self._counted(B, L, counts[:n_valid])
         return (res, blob, starts[:n_valid], ends[:n_valid], None,
                 lengths.numpy()[:n_valid], (cps.numpy(), lengths.numpy()))
 
@@ -517,33 +568,68 @@ class LeanServer:
         slot = self._slots[self._n_launched % 2]
         cps = slot.tensor("cps", (B, PACK_L), torch.uint16)
         cts = slot.tensor("cts", (B, PACK_L), torch.uint8)
-        if tensorize16_packed_native(
-            blob, starts, ends, row, col, B, PACK_L, self.norm_map,
-            out=(cps.numpy(), cts.numpy()),
-        ) is None:
+        log = self._log
+        seq = self.stats["dispatches"]
+        args = (blob, starts, ends, row, col, B, PACK_L, self.norm_map)
+        out = (cps.numpy(), cts.numpy())
+        if (tensorize16_packed_native(*args, out=out) if log is None else
+                log.call("tensorize", seq, tensorize16_packed_native, *args,
+                         out=out)) is None:
             return None
         lengths = slot.tensor("lengths", (B,), torch.int32)
         lengths.fill_(PACK_L)
-        res = self._launch(slot, cps, cts, lengths)
-        self.stats["dispatches"] += 1
+        res = (self._launch(slot, cps, cts, lengths) if log is None else
+               log.call("launch", seq, self._launch, slot, cps, cts,
+                        lengths))
+        self._counted(B, PACK_L, counts[:n_valid])
         self.stats["packed_dispatches"] += 1
         packed = (row[:n_valid], col[:n_valid], max_chars)
         return (res, blob, starts[:n_valid], ends[:n_valid], packed,
                 counts[:n_valid], (cps.numpy(), lengths.numpy()))
 
+    def _complete(self, pending, out) -> None:
+        """:meth:`_realize` one dispatch, as the ``realize`` span (its
+        ``wait``, ``write`` and ``sink`` inside)."""
+        log = self._log
+        if log is None:
+            self._realize(pending, out)
+        else:
+            log.call("realize", self._n_realized, self._realize, pending,
+                     out)
+
     def _realize(self, pending, out) -> None:
+        """Wait for one dispatch's outputs and write its lines to
+        ``out``. Dispatches are realized in their order, once each, so
+        the count of realizes is the dispatch's number."""
+        seq = self._n_realized
+        self._n_realized += 1
+        log = self._log
         (outs, ready), blob, starts, ends, packed, counts, host = pending
+        if self.host:
+            data = self._realize_host(outs, blob, starts, ends, counts, host,
+                                      len(starts), log, seq)
+        else:
+            data = self._realize_device(outs, ready, blob, starts, ends,
+                                        packed, counts, host, log, seq)
+        if log is None:
+            out.write(data)
+        else:
+            log.call("sink", seq, out.write, data)
+
+    def _realize_device(self, outs, ready, blob, starts, ends, packed,
+                        counts, host, log, seq):
+        """The device's batch: wait for its outputs, then the native
+        writer. Returns the bytes."""
         n = len(starts)
         st = self.stats
-        if self.host:
-            self._realize_host(outs, blob, starts, ends, counts, host, n,
-                               out)
-            return
-        t0 = time.perf_counter()
+        t0 = _ns()
         for ev in ready:
             ev.synchronize()
         raw = [o.numpy() for o in outs]
-        st["t_readback_s"] += time.perf_counter() - t0
+        t1 = _ns()
+        st["t_readback_s"] += (t1 - t0) / 1e9
+        if log is not None:
+            log.add("wait", seq, t0, t1)
         st["readback_bytes"] += sum(r.nbytes for r in raw)
         # the score outputs come last: gap scores, then tag scores
         k = len(raw) - self.scores - self.tag_scores
@@ -557,7 +643,7 @@ class LeanServer:
         if self.grapheme:
             bits = self._grapheme_bits(
                 bits, host, bits.shape[0] if packed is not None else n)
-        t0 = time.perf_counter()
+        t0 = _ns()
         if self.tags:
             data = self._detok_tags(raw, blob, starts, ends, row, col,
                                     counts, host[0], gap_sc, tag_sc)
@@ -576,17 +662,25 @@ class LeanServer:
                 blob, starts, ends, bits[:n], bits.shape[1] * 8,
                 scratch=self._scratch,
             )
-        st["t_detok_s"] += time.perf_counter() - t0
-        out.write(data)
+        self._wrote(t0, log, seq)
+        return data
 
-    def _realize_host(self, outs, blob, starts, ends, counts, host, n,
-                      out) -> None:
+    def _wrote(self, t0: int, log, seq: int) -> None:
+        """Close the writer's time in ``t_detok_s`` and its ``write``
+        span, from the same readings."""
+        t1 = _ns()
+        self.stats["t_detok_s"] += (t1 - t0) / 1e9
+        if log is not None:
+            log.add("write", seq, t0, t1)
+
+    def _realize_host(self, outs, blob, starts, ends, counts, host, n, log,
+                      seq):
         """The host engine's batch: int8 gap labels, one byte a gap, to
         the byte writer; with scores or tags, packed into bits for the
-        same writers the device path uses."""
+        same writers the device path uses. Returns the bytes."""
         from .predictor import pack_gap_bits_np
 
-        t0 = time.perf_counter()
+        t0 = _ns()
         bnd = outs[0]
         if self.grapheme:
             bnd = np.array(bnd)  # the host mask writes into it
@@ -603,8 +697,8 @@ class LeanServer:
         else:
             data = detok_native(blob, starts, ends, bnd[:n],
                                 scratch=self._scratch)
-        self.stats["t_detok_s"] += time.perf_counter() - t0
-        out.write(data)
+        self._wrote(t0, log, seq)
+        return data
 
     def _grapheme_bits(self, bits: np.ndarray, host, n_rows: int):
         """The host grapheme mask over bit-packed gap rows: unpack, mask,
@@ -669,15 +763,57 @@ class LeanServer:
         """Stream ``infile`` (binary) to ``out`` (binary), line-delimited.
 
         Unpacked batches are exactly ``batch_lines`` rows (short tails
-        padded with empty lines); row length is bucketed per batch.
+        padded with empty lines); row length is bucketed per batch. Spans
+        go to ``utils.observe.call_spans()``, looked up once a call.
         """
+        log = self._log = observe.call_spans()
+        first = len(log.spans) if log is not None else 0
+        # a run starts with no dispatch in flight
+        self._n_realized = self.stats["dispatches"]
+        threads0 = threads_started_native()
+        try:
+            self._stream(infile, out, log)
+        finally:
+            self._log = None
+            st = self.stats
+            st["native_threads"] += threads_started_native() - threads0
+            if log is not None:
+                for label, sec in log.totals(first).items():
+                    if label in _SPAN_STATS:
+                        st[_SPAN_STATS[label]] += sec
+
+    def _split(self, data: bytes, synthetic_tail: bool):
+        """A chunk's lines as byte ranges (the trailing CR of each left
+        out) and, on the device path, their char counts; None where the
+        chunk holds no line."""
+        blob = np.frombuffer(data, dtype=np.uint8)
+        nl = find_newlines_native(blob)
+        if len(nl) == 0:
+            return None
+        starts = np.empty(len(nl), dtype=np.int64)
+        starts[0] = 0
+        starts[1:] = nl[:-1] + 1
+        ends = nl
+        # strip a trailing '\r' (CRLF input) from each line, matching
+        # the reference's BufRead::lines — which strips '\r' only when
+        # it precedes '\n', so the synthetic newline appended to an
+        # unterminated final line exempts that line's CR
+        has_cr = (ends > starts) & (blob[np.maximum(ends - 1, 0)] == 0x0D)
+        if synthetic_tail:
+            has_cr[-1] = False
+        ends = ends - has_cr.astype(np.int64)
+        counts = None if self.host else count_chars_native(blob, starts, ends)
+        return blob, starts, ends, counts
+
+    def _stream(self, infile, out, log) -> None:
         read_chunk = max(1 << 23, self.batch_lines * 512)
         pending = None
         carry = b""
         eof = False
         while not eof:
             synthetic_tail = False
-            data = infile.read(read_chunk)
+            data = (infile.read(read_chunk) if log is None else
+                    log.call("read", -1, infile.read, read_chunk))
             if not data:
                 eof = True
                 data = carry
@@ -695,39 +831,25 @@ class LeanServer:
                     continue
                 carry = data[cut + 1 :]
                 data = data[: cut + 1]
-            blob = np.frombuffer(data, dtype=np.uint8)
-            nl = find_newlines_native(blob)
-            if len(nl) == 0:
+            split = (self._split(data, synthetic_tail) if log is None else
+                     log.call("split", -1, self._split, data, synthetic_tail))
+            if split is None:
                 continue
-            starts = np.empty(len(nl), dtype=np.int64)
-            starts[0] = 0
-            starts[1:] = nl[:-1] + 1
-            ends = nl
-            # strip a trailing '\r' (CRLF input) from each line, matching
-            # the reference's BufRead::lines — which strips '\r' only when
-            # it precedes '\n', so the synthetic newline appended to an
-            # unterminated final line exempts that line's CR
-            has_cr = (ends > starts) & (blob[np.maximum(ends - 1, 0)] == 0x0D)
-            if synthetic_tail:
-                has_cr[-1] = False
-            ends = ends - has_cr.astype(np.int64)
+            blob, starts, ends, counts_all = split
+            n_lines = len(starts)
             B = self.batch_lines
             if self.host:  # the host engine runs lines unpacked
-                groups = ((g, min(g + B, len(nl)), False)
-                          for g in range(0, len(nl), B))
+                groups = ((g, min(g + B, n_lines), False)
+                          for g in range(0, n_lines, B))
             else:
-                counts_all = count_chars_native(blob, starts, ends)
                 groups = self._pack_groups(counts_all)
             for lo, hi, packed in groups:
                 sub = [(lo, hi)]
                 if packed:
-                    t0 = time.perf_counter()
-                    done = self._dispatch_packed(
-                        blob, starts[lo:hi], ends[lo:hi], hi - lo,
-                        counts_all[lo:hi],
-                        int(counts_all[lo:hi].max(initial=0)),
-                    )
-                    self.stats["t_dispatch_s"] += time.perf_counter() - t0
+                    done = self._timed(
+                        self._dispatch_packed, blob, starts[lo:hi],
+                        ends[lo:hi], hi - lo, counts_all[lo:hi],
+                        int(counts_all[lo:hi].max(initial=0)))
                     if done is None:
                         # NUL/astral inside the super-group: retry it in
                         # classic batch_lines-sized unpacked groups so
@@ -735,7 +857,7 @@ class LeanServer:
                         sub = [(g, min(g + B, hi)) for g in range(lo, hi, B)]
                     else:
                         if pending is not None:
-                            self._realize(pending, out)
+                            self._complete(pending, out)
                         pending = done
                         continue
                 for g, ghi in sub:
@@ -745,30 +867,31 @@ class LeanServer:
                         pad = np.zeros(B - (ghi - g), dtype=np.int64)
                         gs = np.concatenate((gs, pad))
                         ge = np.concatenate((ge, pad))
-                    t0 = time.perf_counter()
-                    done = self._dispatch(blob, gs, ge, ghi - g)
-                    self.stats["t_dispatch_s"] += time.perf_counter() - t0
+                    done = self._timed(self._dispatch, blob, gs, ge, ghi - g)
                     if done is None:
                         if pending is not None:
-                            self._realize(pending, out)
+                            self._complete(pending, out)
                             pending = None
                         self._run_fallback(
                             blob, starts[g:ghi], ends[g:ghi], out
                         )
                         continue
                     if pending is not None:
-                        self._realize(pending, out)
+                        self._complete(pending, out)
                     pending = done
         if pending is not None:
-            self._realize(pending, out)
+            self._complete(pending, out)
 
     def _run_fallback(self, blob, starts, ends, out) -> None:
         if self.fallback is None:
             raise RuntimeError("batch needs the general path; no fallback")
         self.stats["fallback_lines"] += len(starts)
-        t0 = time.perf_counter()
+        t0 = _ns()
         lines = [
             blob[s:e].tobytes() for s, e in zip(starts.tolist(), ends.tolist())
         ]
         self.fallback(lines)
-        self.stats["t_fallback_s"] += time.perf_counter() - t0
+        t1 = _ns()
+        self.stats["t_fallback_s"] += (t1 - t0) / 1e9
+        if self._log is not None:
+            self._log.add("fallback", -1, t0, t1)
