@@ -180,9 +180,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core peak (no int32 rate is published)
 B_FULL, L_FULL = 8192, 256
-#: the serve shapes LeanServer dispatches: unpacked lines of 65-256 chars,
-#: packed short lines (PACK_L = 512, at most PACK_TARGET_ROWS = 4096 rows),
-#: a group of short lines that cannot pack (bucket 128)
+#: the serve shapes the kernel table times: an unpacked batch of lines of
+#: 65-256 chars, packed rows (PACK_L = 512, at most PACK_TARGET_ROWS = 4096
+#: rows: LeanServer packs every line that fits such a row with its
+#: separators), an unpacked batch at bucket 128
 SERVE_SHAPES = ((8192, 256, False), (4096, 512, True), (8192, 128, False))
 #: wsconst on kanji and digits: the ``ws_types`` the comparisons also run
 KANJI_DIGIT = (5, 1)
@@ -622,12 +623,32 @@ def geometry_batches(words, sep):
     }
 
 
-def token_lines(seed, tokens, n_short=10_000, n_long=10_000):
+def wide_runs(rng, line, n_runs):
+    """``n_runs`` runs of 1-8 lines of 511-8 192 chars, too long for a
+    packed row (``LeanServer`` dispatches them unpacked, in groups padded
+    to a power of two of rows), each run followed by 1-4 lines of at most
+    64 chars; the second line of the first run of three or more carries an
+    astral char (the general path's, alone). ``line(n)`` makes a line of
+    about n chars from ``rng``."""
+    out, astral = [], False
+    for _ in range(n_runs):
+        run = [line(int(rng.integers(511, 8193)))
+               for _ in range(int(rng.integers(1, 9)))]
+        if not astral and len(run) >= 3:
+            run[1] = run[1][:10] + "\U0001F431" + run[1][10:]
+            astral = True
+        out += run + [line(int(rng.integers(0, 65)))
+                      for _ in range(int(rng.integers(1, 5)))]
+    return out
+
+
+def token_lines(seed, tokens, n_short=10_000, n_long=10_000, n_wide_runs=0):
     """Lines of tag tokens back to back, as :func:`token_batch` builds its
-    rows: ``n_short`` lines of at most 64 chars (the packed layout), then
-    ``n_long`` of 65-256 chars (unpacked (8192, 256) groups). Through the
-    tagged model, which splits its tag tokens out, nearly every span of
-    them is a token: text whose words the tag dictionary covers."""
+    rows: ``n_short`` lines of at most 64 chars, then :func:`wide_runs`'s
+    ``n_wide_runs`` runs, then ``n_long`` lines of 65-256 chars (all but
+    the wide ones fit a packed row). Through the tagged model, which
+    splits its tag tokens out, nearly every span of them is a token: text
+    whose words the tag dictionary covers."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -644,16 +665,19 @@ def token_lines(seed, tokens, n_short=10_000, n_long=10_000):
         return "".join(parts)
 
     # a long line stops at most 6 chars (a token) short of its n
-    return ([line(int(rng.integers(0, 65))) for _ in range(n_short)]
-            + [line(int(rng.integers(71, 257))) for _ in range(n_long)])
+    short = [line(int(rng.integers(0, 65))) for _ in range(n_short)]
+    wide = wide_runs(rng, line, n_wide_runs) if n_wide_runs else []
+    return short + wide + [line(int(rng.integers(71, 257)))
+                           for _ in range(n_long)]
 
 
 def stream_lines(seed, words):
-    """50 001 mixed lines in runs, as a corpus arrives: 20 000 short lines
-    (<= 64 chars: the packed layout), 20 000 lines of 65-256 chars
-    (unpacked (8192, 256) groups), 10 000 short lines of which three near
-    the end carry an astral char (their group takes the general path),
-    and one line of 9000 chars (the general path's chunking)."""
+    """Mixed lines in runs, as a corpus arrives: 20 000 short lines (<= 64
+    chars), 20 000 lines of 65-256 chars (these two fit a packed row),
+    :func:`wide_runs`'s 60 runs of lines of 511-8 192 chars (unpacked
+    groups), 10 000 short lines of which three near the end carry an
+    astral char, and one line of 9000 chars (the general path's chunking).
+    The four astral lines and the 9000-char one take the general path."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -669,10 +693,11 @@ def stream_lines(seed, words):
 
     short = [line(int(rng.integers(0, 65))) for _ in range(20_000)]
     long_ = [line(int(rng.integers(65, 257))) for _ in range(20_000)]
+    wide = wide_runs(rng, line, 60)
     tail = [line(int(rng.integers(0, 65))) for _ in range(10_000)]
     for i in (9_100, 9_500, 9_900):
         tail[i] = tail[i][:10] + "\U0001F431" + tail[i][10:]
-    return short + long_ + tail + [line(9000)]
+    return short + long_ + wide + tail + [line(9000)]
 
 
 # ----------------------------------------------------------------------
@@ -4188,7 +4213,7 @@ def main(argv) -> int:
     # ---- 4t. lean tag serving -----------------------------------------
     # the same stream, then lines of tag tokens (the tagged model splits
     # them out, so nearly every span there is a token that gets tags)
-    tlines = lines + token_lines(8, tokens)
+    tlines = lines + token_lines(8, tokens, n_wide_runs=20)
     tblob = ("\n".join(tlines) + "\n").encode("utf-8")
     tn_chars = sum(map(len, tlines))
     tsink = io.BytesIO()

@@ -409,7 +409,7 @@ assert m.char_ngram_model
 assert n._lib is None
 # the switch is read at each call: unset, the library loads
 del os.environ[SWITCH]
-assert n.available() and n.abi_version() == 6 and p._host() is not None
+assert n.available() and n.abi_version() == 7 and p._host() is not None
 os.environ[SWITCH] = "1"
 assert p._host() is None and not n.available()
 print("OK")

@@ -5,13 +5,14 @@ first use (see :mod:`vaporetto_tpu_torch._build`); a failed build raises.
 It holds the one-call matcher compiler (``compile_matcher.cc`` over
 ``trie_builder.cc``), the lean serving path's host stages
 (``tensorizer.cc``): the uint16 tensorizers (and the general path's int32
-one, for ``parallel.data``), the newline and char
-counters, the byte, bit-packed, scores and tag-aware detokenizers (the
-last two with the ``--scores`` / ``--tag-scores`` blocks), and the batched
-tag scorer of the general tag path (``tag_scorer.cc``), the native
-host engine (``host_predictor.cc``, :class:`NativeHostPredictor`) behind
-``--backend host``, and the trainer's boundary-feature extractor
-(``feature_extractor.cc``, :class:`NativeExtractor`).
+one, for ``parallel.data``), the packed layout's next-fit placement, the
+newline and char counters, the byte, bit-packed, scores and tag-aware
+detokenizers (the last two with the ``--scores`` / ``--tag-scores``
+blocks), and the batched tag scorer of the general tag path
+(``tag_scorer.cc``), the native host engine (``host_predictor.cc``,
+:class:`NativeHostPredictor`) behind ``--backend host``, and the
+trainer's boundary-feature extractor (``feature_extractor.cc``,
+:class:`NativeExtractor`).
 
 Wrappers that decode input return None when the batch needs the general
 path (invalid UTF-8, an astral codepoint, NUL, or a line longer than the
@@ -94,7 +95,8 @@ def available() -> bool:
 
 def abi_version() -> int:
     """The library's ABI marker (5: ``vt_tensorize16*`` carry the types
-    output; 6: :func:`threads_started_native`), or 0 under the switch."""
+    output; 6: :func:`threads_started_native`; 7: the tensorizers name the
+    first line they refuse), or 0 under the switch."""
     return 0 if disabled() else int(_load().vt_abi_version())
 
 
@@ -147,6 +149,7 @@ def _load() -> ctypes.CDLL:
                 U16P,  # map_bmp (nullable)
                 U16P, I32P, U8P,  # cps, lengths, types (nullable)
                 ctypes.c_int32,  # n_threads (<= 0 = auto)
+                I64P,  # first_bad (nullable)
             ]
             lib.vt_tensorize16_packed.restype = ctypes.c_int
             lib.vt_tensorize16_packed.argtypes = [
@@ -156,6 +159,13 @@ def _load() -> ctypes.CDLL:
                 U16P,  # map_bmp (nullable)
                 U16P, U8P,  # cps, types (nullable)
                 ctypes.c_int32,  # n_threads
+                I64P,  # first_bad (nullable)
+            ]
+            lib.vt_pack_next_fit.restype = ctypes.c_int64
+            lib.vt_pack_next_fit.argtypes = [
+                I32P, ctypes.c_int64,  # counts, n_lines
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # sep, L, rows
+                I32P, I32P,  # rows_of, cols_of
             ]
             lib.vt_find_newlines.restype = ctypes.c_int64
             lib.vt_find_newlines.argtypes = [U8P, ctypes.c_int64, I64P]
@@ -517,6 +527,7 @@ def tensorize16_native(
     norm_map: Optional[np.ndarray] = None,  # uint16[65536] codepoint map
     n_threads: int = 0,  # <= 0 picks hardware concurrency
     out: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    first_bad: Optional[np.ndarray] = None,
 ):
     """Lean uint16 tensorizer with fused normalization and char typing.
 
@@ -524,6 +535,9 @@ def tensorize16_native(
     padding 0), written into ``out`` when given (e.g. views of pinned
     host buffers), or None when the batch needs the general path
     (astral chars, NUL, lines longer than L, invalid UTF-8).
+    ``first_bad``: an int64 array of one element that receives the index
+    of the first line refused (``n`` where none is); the lines before it
+    are fine as they are.
     """
     if disabled():
         return None
@@ -550,6 +564,7 @@ def tensorize16_native(
         lengths.ctypes.data_as(I32P),
         types.ctypes.data_as(U8P),
         n_threads,
+        _first_bad(first_bad),
     )
     if rc != 0:
         return None
@@ -567,12 +582,14 @@ def tensorize16_packed_native(
     norm_map: Optional[np.ndarray] = None,
     n_threads: int = 0,
     out: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    first_bad: Optional[np.ndarray] = None,
 ):
     """Packed lean tensorizer: decodes line i at (rows_of[i], cols_of[i])
-    of a zeroed (B, L) uint16 batch — the short-line packing layout — with
-    the uint8 char types at the same placement (separators 0). Returns
-    (cps, types), written into ``out`` when given, or None when the batch
-    needs another path (astral/NUL/invalid UTF-8/overflow)."""
+    of a zeroed (B, L) uint16 batch — the packing layout — with the uint8
+    char types at the same placement (separators 0). Returns (cps, types),
+    written into ``out`` when given, or None when the batch needs another
+    path (astral/NUL/invalid UTF-8/overflow); ``first_bad`` as
+    :func:`tensorize16_native`'s."""
     if disabled():
         return None
     lib = _load()
@@ -600,10 +617,46 @@ def tensorize16_packed_native(
         cps.ctypes.data_as(U16P),
         types.ctypes.data_as(U8P),
         n_threads,
+        _first_bad(first_bad),
     )
     if rc != 0:
         return None
     return cps, types
+
+
+def _first_bad(a: Optional[np.ndarray]):
+    """``first_bad``'s pointer (None passes NULL)."""
+    if a is None:
+        return None
+    _check_out(a, (1,), np.int64)
+    return a.ctypes.data_as(I64P)
+
+
+def pack_next_fit_native(
+    counts: np.ndarray,  # int32 (n_lines,) chars of each line
+    sep: int,
+    L: int,
+    max_rows: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Next-fit (row, col) of each line in the packed layout (see native
+    ``vt_pack_next_fit``): lines in order, each followed by ``sep``
+    codepoint-0 cells, a new row when the next line and its separator do
+    not fit in ``L``, stopping before row ``max_rows``. Returns int32 rows
+    and cols of the lines placed, a prefix of ``counts``. Every count plus
+    ``sep`` must be at most ``L``."""
+    lib = _load()
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    n = len(counts)
+    if n and int(counts.max()) + sep > L:
+        raise ValueError(f"a line of {int(counts.max())} chars and {sep} "
+                         f"separators does not fit a row of {L}")
+    rows = np.empty(n, dtype=np.int32)
+    cols = np.empty(n, dtype=np.int32)
+    placed = lib.vt_pack_next_fit(
+        counts.ctypes.data_as(I32P), n, sep, L, max_rows,
+        rows.ctypes.data_as(I32P), cols.ctypes.data_as(I32P),
+    )
+    return rows[:placed], cols[:placed]
 
 
 def find_newlines_native(blob: np.ndarray) -> np.ndarray:

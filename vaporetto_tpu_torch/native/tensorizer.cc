@@ -7,9 +7,9 @@
 // Char-type classification matches the reference Unicode ranges
 // (sentence.rs:50-67) exactly.
 
-#include <atomic>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -19,13 +19,35 @@ namespace {
 
 inline uint8_t char_type(uint32_t c) { return vt::char_type(c); }
 
+// The first line a batch refuses, and why, where its lines are split
+// across threads: each chunk decodes its lines in order and stops at its
+// first refusal, so the lowest line any chunk reports is the batch's first.
+struct FirstRefusal {
+  std::mutex mu;
+  int rc = 0;
+  int64_t line = 0;
+  void note(int r, int64_t i) {
+    std::lock_guard<std::mutex> g(mu);
+    if (rc == 0 || i < line) {
+      rc = r;
+      line = i;
+    }
+  }
+  // rc (0: none refused); *first_bad (nullable) gets the line, or n_lines
+  int result(int64_t n_lines, int64_t* first_bad) const {
+    if (first_bad) *first_bad = rc ? line : n_lines;
+    return rc;
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 // ABI version marker: vt_tensorize16* carry the uint8 types output (5),
-// vt_threads_started counts parallel_rows' workers (6).
-int vt_abi_version() { return 6; }
+// vt_threads_started counts parallel_rows' workers (6), vt_tensorize16*
+// name the first line they refuse (7).
+int vt_abi_version() { return 7; }
 
 // Worker threads vt::parallel_rows has started in this process.
 int64_t vt_threads_started() { return vt::threads_started.load(); }
@@ -98,14 +120,20 @@ int vt_tensorize(const uint8_t* utf8, const int64_t* line_offsets,
 // be contiguous, so callers can point straight into a newline-delimited
 // input chunk without compaction.
 // Returns 0 ok; 1 invalid UTF-8; 2 astral codepoint present (caller falls
-// back to the int32 path); 3 a line exceeds L chars (caller falls back).
+// back to the int32 path); 3 a line exceeds L chars (caller falls back);
+// 4 NUL. first_bad (nullable) receives the first line refused (n_lines
+// where none is): a refusal is the line's own, so the lines before it
+// decode as they are.
 namespace {
 
+// Decodes rows [row_lo, row_hi) in order; on a refusal returns its code
+// with *bad = the row.
 int tensorize16_rows(const uint8_t* utf8, const int64_t* starts,
                      const int64_t* ends, int64_t row_lo, int64_t row_hi,
                      int32_t L, const uint16_t* map_bmp, uint16_t* cps,
-                     int32_t* lengths, uint8_t* types) {
+                     int32_t* lengths, uint8_t* types, int64_t* bad) {
   for (int64_t row = row_lo; row < row_hi; ++row) {
+    *bad = row;
     const uint8_t* p = utf8 + starts[row];
     const uint8_t* end = utf8 + ends[row];
     uint16_t* cp_row = cps + row * L;
@@ -153,16 +181,18 @@ int tensorize16_rows(const uint8_t* utf8, const int64_t* starts,
 }
 
 // Packed variant: line i is decoded at (rows[i], cols[i]) of a
-// PRE-ZEROED (B, L) batch — the short-line packing layout (many lines
-// per device row, separator gaps of codepoint 0 between them). The
-// caller guarantees cols[i] + chars(i) <= L; exceeding it returns 3.
+// PRE-ZEROED (B, L) batch — the packing layout (many lines per device
+// row, separator gaps of codepoint 0 between them). The caller
+// guarantees cols[i] + chars(i) <= L; exceeding it returns 3. On a
+// refusal *bad = the line.
 int tensorize16_packed_rows(const uint8_t* utf8, const int64_t* starts,
                             const int64_t* ends, const int32_t* rows_of,
                             const int32_t* cols_of, int64_t line_lo,
                             int64_t line_hi, int32_t L,
                             const uint16_t* map_bmp, uint16_t* cps,
-                            uint8_t* types) {
+                            uint8_t* types, int64_t* bad) {
   for (int64_t i = line_lo; i < line_hi; ++i) {
+    *bad = i;
     const uint8_t* p = utf8 + starts[i];
     const uint8_t* end = utf8 + ends[i];
     int64_t off = static_cast<int64_t>(rows_of[i]) * L + cols_of[i];
@@ -208,27 +238,51 @@ int tensorize16_packed_rows(const uint8_t* utf8, const int64_t* starts,
 // codepoints at the same placement (separators/padding 0), so the
 // serve kernels can take host-computed types instead of classifying
 // on device (the reference engine computes types inline on CPU too,
-// sentence.rs:264-283).
+// sentence.rs:264-283). Returns and first_bad as vt_tensorize16.
 int vt_tensorize16_packed(const uint8_t* utf8, const int64_t* starts,
                           const int64_t* ends, int64_t n_lines,
                           const int32_t* rows_of, const int32_t* cols_of,
                           int64_t B, int32_t L, const uint16_t* map_bmp,
                           uint16_t* cps, uint8_t* types,
-                          int32_t n_threads) {
+                          int32_t n_threads, int64_t* first_bad) {
   std::memset(cps, 0, sizeof(uint16_t) * B * L);
   if (types) std::memset(types, 0, B * L);
-  std::atomic<int> rc{0};
+  FirstRefusal refused;
   vt::parallel_rows(n_lines, n_threads, 1024,
                     [&](int64_t lo, int64_t hi) {
+                      int64_t bad;
                       int r = tensorize16_packed_rows(
                           utf8, starts, ends, rows_of, cols_of, lo, hi, L,
-                          map_bmp, cps, types);
-                      if (r != 0) {
-                        int expected = 0;
-                        rc.compare_exchange_strong(expected, r);
-                      }
+                          map_bmp, cps, types, &bad);
+                      if (r != 0) refused.note(r, bad);
                     });
-  return rc.load();
+  return refused.result(n_lines, first_bad);
+}
+
+// Next-fit placement of the packed layout, in line order: line i (counts[i]
+// chars) goes at the current column of the current row when
+// col + counts[i] + sep <= L, else at column 0 of the next row, and the
+// column moves past it and sep separator cells. So every line has at least
+// sep codepoint-0 cells on its right and, unless it starts a row, on its
+// left. Placement stops before the first line that would open row
+// max_rows; returns the number of lines placed (rows_of and cols_of filled
+// for them). The caller guarantees counts[i] + sep <= L for every line.
+int64_t vt_pack_next_fit(const int32_t* counts, int64_t n_lines,
+                         int32_t sep, int32_t L, int32_t max_rows,
+                         int32_t* rows_of, int32_t* cols_of) {
+  int32_t row = 0, col = 0;
+  for (int64_t i = 0; i < n_lines; ++i) {
+    int32_t w = counts[i] + sep;
+    if (col + w > L && col > 0) {
+      if (row + 1 >= max_rows) return i;
+      ++row;
+      col = 0;
+    }
+    rows_of[i] = row;
+    cols_of[i] = col;
+    col += w;
+  }
+  return n_lines;
 }
 
 // n_threads <= 0 picks hardware concurrency (vt::parallel_rows), giving
@@ -237,19 +291,18 @@ int vt_tensorize16_packed(const uint8_t* utf8, const int64_t* starts,
 int vt_tensorize16(const uint8_t* utf8, const int64_t* starts,
                    const int64_t* ends, int64_t n_lines, int32_t L,
                    const uint16_t* map_bmp, uint16_t* cps,
-                   int32_t* lengths, uint8_t* types, int32_t n_threads) {
-  std::atomic<int> rc{0};
+                   int32_t* lengths, uint8_t* types, int32_t n_threads,
+                   int64_t* first_bad) {
+  FirstRefusal refused;
   vt::parallel_rows(n_lines, n_threads, 1024,
                     [&](int64_t lo, int64_t hi) {
+                      int64_t bad;
                       int r = tensorize16_rows(utf8, starts, ends, lo, hi,
                                                L, map_bmp, cps, lengths,
-                                               types);
-                      if (r != 0) {
-                        int expected = 0;
-                        rc.compare_exchange_strong(expected, r);
-                      }
+                                               types, &bad);
+                      if (r != 0) refused.note(r, bad);
                     });
-  return rc.load();
+  return refused.result(n_lines, first_bad);
 }
 
 // Newline positions in a byte chunk via memchr (SIMD-optimized libc):

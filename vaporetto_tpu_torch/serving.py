@@ -5,8 +5,7 @@ over the per-line loop (predict/src/main.rs:124,183-185). This module is
 the port's bytes-to-bytes path, for boundaries and (``tags=True``) tags:
 
     bytes -> native uint16 tensorize (+ fused fullwidth normalization and
-             char typing; short-line runs PACKED many-per-row with
-             separator gaps)
+             char typing; lines PACKED many-per-row with separator gaps)
           -> boundary kernel, serve epilogue (uint16 cps + uint8 types in,
              BIT-PACKED gap mask out, wsconst fused)
           -> native detokenizer against the ORIGINAL bytes (consumes the
@@ -38,10 +37,13 @@ the bits read back; it does not compose with tags.
   into a pinned buffer whose event marks them ready; batch k+1 is launched
   before batch k is read back, overlapping the card with the host
   detokenizer. Two sets of host buffers alternate.
-* Short-line packing: contiguous runs of lines <= PACK_MAX_LINE chars
-  pack many-per-(B, PACK_L)-row with separator gaps computed exactly
-  from the compiled tables (score spill + type-window isolation), and
-  groups target a constant per-dispatch character volume.
+* Packing: every line that fits a PACK_L-wide row with its separator
+  (``count + sep <= PACK_L``) is packed many-per-(B, PACK_L)-row, next-fit
+  in line order across the whole read chunk, with separator gaps computed
+  exactly from the compiled tables (score spill + type-window isolation);
+  a packed group fills at most PACK_TARGET_ROWS rows. Only a line too
+  long for a row ends a packed group: runs of such lines go unpacked,
+  padded to the least power of two of rows that holds them.
 
 On a ``backend="host"`` predictor the same stream runs through the native
 host engine instead (``Predictor.serve_*_host_fn``): unpacked groups of
@@ -53,8 +55,9 @@ writers. No device is touched. The host engine serves plain boundaries,
 
 Lines the lean path cannot represent (astral-plane codepoints, NUL bytes,
 invalid UTF-8, lines over ``Predictor.LONG_SENTENCE_THRESHOLD`` chars) go
-to the caller-provided general path, preserving output order — that is
-the reference's semantics for such lines, not a device fallback.
+to the caller-provided general path, preserving output order — one by one
+on the device path, with their group on the host engine. That is the
+reference's semantics for such lines, not a device fallback.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ from .native import (
     detok_scores2_native,
     detok_tags2_native,
     find_newlines_native,
+    pack_next_fit_native,
     tensorize16_native,
     tensorize16_packed_native,
     threads_started_native,
@@ -83,12 +87,11 @@ from .utils import observe
 from .utils.batch import bucket_length
 
 __all__ = ["LeanServer", "lean_path_supported", "lean_tags_supported",
-           "pack_separator", "PACK_L", "PACK_MAX_LINE"]
+           "pack_separator", "PACK_L"]
 
 _ns = time.perf_counter_ns
 #: span labels whose seconds ``LeanServer.stats`` keeps, under these keys
-_SPAN_STATS = {"count": "t_count_s", "tensorize": "t_tensorize_s",
-               "launch": "t_launch_s"}
+_SPAN_STATS = {"tensorize": "t_tensorize_s", "launch": "t_launch_s"}
 
 #: wsconst flags the lean path takes: the char types fuse into the
 #: kernel, and G (grapheme clusters) is a host mask over the bits read
@@ -146,14 +149,13 @@ def lean_tags_supported(predictor) -> bool:
                         for c in slots))
     return predictor.device_tag_tables() is not None
 
-#: rows of this width hold the packed short-line layout
+#: rows of this width hold the packed layout
 PACK_L = 512
-#: lines at most this long are packed many-per-row
-PACK_MAX_LINE = 64
-#: packed super-groups target this many filled rows per dispatch (~2M
-#: chars — the same per-dispatch volume as the unpacked (8192, 256)
-#: long-line batches)
+#: a packed group fills at most this many rows (~2M chars — the
+#: per-dispatch volume of an unpacked (8192, 256) batch)
 PACK_TARGET_ROWS = 4096
+#: the routes of a chunk's lines (``LeanServer._groups``)
+_PACKED, _UNPACKED, _LONG = 0, 1, 2
 
 
 def pack_separator(compiled, *, tag_reach: int = 0) -> int:
@@ -161,7 +163,12 @@ def pack_separator(compiled, *, tag_reach: int = 0) -> int:
 
     Must cover (a) score spill: the rightmost gap any match's weights
     can reach past its end position — computed exactly from the packed
-    weight rows (off + last nonzero lane), and (b) type-window context
+    weight rows (off + last nonzero lane), (b) the same spill to the
+    left: a char n-gram's weights start ``char_window_size`` gaps left of
+    its last char, so a one-char match on a line's first char reaches
+    ``char_window_size - 1`` gaps into the separator before it (a word's
+    weights start at the gap before its first char; type patterns reach
+    ``type_window_size - 1``, below), and (c) type-window context
     isolation: a gap's window sees ``type_window_size - 1`` chars beyond
     the line end, which must all read as symbol 0 exactly like the
     reference's out-of-sentence positions
@@ -173,7 +180,8 @@ def pack_separator(compiled, *, tag_reach: int = 0) -> int:
     packed row must all be separators, as past a line's end in the
     general path.
     """
-    sep = max(1, compiled.type_window_size - 1, tag_reach)
+    sep = max(1, compiled.char_window_size - 1,
+              compiled.type_window_size - 1, tag_reach)
     for m in (compiled.char_matcher, compiled.type_matcher):
         if m is None or not len(m.w8):
             continue
@@ -347,6 +355,8 @@ class LeanServer:
                                              _HostSlot(self.device)]
         #: rows of a batch divide by this (the mesh size)
         self._mesh_div = mesh.size if mesh is not None else 1
+        #: the tensorizers' first refused line (``native.tensorize16_native``)
+        self._first_bad = np.zeros(1, dtype=np.int64)
         self._n_launched = 0
         self.batch_lines = batch_lines
         self.fallback = fallback
@@ -364,13 +374,15 @@ class LeanServer:
         #: ``live_chars``: chars of the real lines in them (no padding rows
         #: or separators); ``upload_bytes``: bytes of the codepoints, types
         #: and lengths handed to the device; ``native_threads``: worker
-        #: threads the native library started during ``run``. The seconds
-        #: of the ``count``, ``tensorize`` and ``launch`` spans, only while
-        #: spans are recorded (``utils.observe``; timing them costs clock
-        #: reads an untraced run does not pay): ``t_count_s``,
-        #: ``t_tensorize_s``, ``t_launch_s``.
+        #: threads the native library started during ``run``;
+        #: ``packed_lines``: lines placed in packed rows (beside
+        #: ``packed_dispatches``). The seconds of the ``tensorize`` and
+        #: ``launch`` spans, only while spans are recorded
+        #: (``utils.observe``; timing them costs clock reads an untraced
+        #: run does not pay): ``t_tensorize_s``, ``t_launch_s``.
         self.stats = {
-            "dispatches": 0, "packed_dispatches": 0, "fallback_lines": 0,
+            "dispatches": 0, "packed_dispatches": 0, "packed_lines": 0,
+            "fallback_lines": 0,
             "readback_bytes": 0, "readback_gap_score_bytes": 0,
             "readback_tag_score_bytes": 0, "t_dispatch_s": 0.0,
             "t_readback_s": 0.0, "t_detok_s": 0.0, "t_fallback_s": 0.0,
@@ -455,109 +467,101 @@ class LeanServer:
         st["cells"] += B * L
         st["live_chars"] += int(counts.sum())
 
-    def _dispatch(self, blob, starts, ends, n_valid):
-        """Tensorize + dispatch one unpacked group; returns the pending
-        tuple or None if the group needs the general path."""
+    def _dispatch(self, blob, starts, ends, counts, lo, hi):
+        """Tensorize + dispatch the unpacked group of the lines from
+        ``lo``, at most ``batch_lines`` of them and none from ``hi`` on.
+        Returns (the pending tuple, the group's end), or (None, the first
+        line the tensorizer refuses; ``lo`` on the host engine, whose
+        group goes whole). The rows are padded with empty lines to the
+        least power of two that holds them, a multiple of the mesh size,
+        at most ``batch_lines``; the row length is bucketed."""
         log = self._log
         seq = self.stats["dispatches"]
-        counts = (count_chars_native(blob, starts, ends) if log is None else
-                  log.call("count", seq, count_chars_native, blob, starts,
-                           ends))
-        max_chars = int(counts.max(initial=0))
-        if max_chars > self.predictor.LONG_SENTENCE_THRESHOLD:
-            # very long lines go through the general path's halo-overlap
-            # chunking (parallel/chunking.py) instead of inflating the
-            # device batch shape
-            return None
+        hi = min(hi, lo + self.batch_lines)
+        n = hi - lo
+        counts = counts[lo:hi]
+        max_chars = int(counts.max())
+        if self.host and max_chars > self.predictor.LONG_SENTENCE_THRESHOLD:
+            # the host engine's groups are cut by count alone (_groups):
+            # one with a very long line goes whole to the general path
+            return None, lo
         L = bucket_length(max_chars + 1)
-        B = len(starts)
+        B = 1 << (n - 1).bit_length()
+        B = min(-(-B // self._mesh_div) * self._mesh_div, self.batch_lines)
+        starts, ends = starts[lo:hi], ends[lo:hi]
+        if B > n:  # pad the group with empty lines
+            pad = np.zeros(B - n, dtype=np.int64)
+            starts = np.concatenate((starts, pad))
+            ends = np.concatenate((ends, pad))
         if self.host:
             t16 = (tensorize16_native(blob, starts, ends, L, self.norm_map)
                    if log is None else
                    log.call("tensorize", seq, tensorize16_native, blob,
                             starts, ends, L, self.norm_map))
             if t16 is None:
-                return None
+                return None, lo
             cps, lengths, _ = t16
             res = self.fn(cps, lengths)
-            self._counted(B, L, counts[:n_valid])
+            self._counted(B, L, counts)
             self._count("host")
             return (((res if isinstance(res, tuple) else (res,)), ()),
-                    blob, starts[:n_valid], ends[:n_valid], None,
-                    lengths[:n_valid], (cps, lengths))
+                    blob, starts[:n], ends[:n], None, lengths[:n],
+                    (cps, lengths)), hi
         slot = self._slots[self._n_launched % 2]
         cps = slot.tensor("cps", (B, L), torch.uint16)
         lengths = slot.tensor("lengths", (B,), torch.int32)
         cts = slot.tensor("cts", (B, L), torch.uint8)
         out = (cps.numpy(), lengths.numpy(), cts.numpy())
-        if (tensorize16_native(blob, starts, ends, L, self.norm_map, out=out)
+        bad = self._first_bad
+        if (tensorize16_native(blob, starts, ends, L, self.norm_map, out=out,
+                               first_bad=bad)
                 if log is None else
                 log.call("tensorize", seq, tensorize16_native, blob, starts,
-                         ends, L, self.norm_map, out=out)) is None:
-            return None
+                         ends, L, self.norm_map, out=out,
+                         first_bad=bad)) is None:
+            return None, lo + int(bad[0])
         res = (self._launch(slot, cps, cts, lengths) if log is None else
                log.call("launch", seq, self._launch, slot, cps, cts,
                         lengths))
-        self._counted(B, L, counts[:n_valid])
-        return (res, blob, starts[:n_valid], ends[:n_valid], None,
-                lengths.numpy()[:n_valid], (cps.numpy(), lengths.numpy()))
+        self._counted(B, L, counts)
+        return (res, blob, starts[:n], ends[:n], None, lengths.numpy()[:n],
+                (cps.numpy(), lengths.numpy())), hi
 
-    def _pack_groups(self, counts: np.ndarray):
-        """Split a chunk's lines into dispatch groups: contiguous runs
-        of short lines become PACKED super-groups sized by cumulative
-        character width (so every dispatch carries ~PACK_TARGET_ROWS
-        full rows regardless of line length), long lines fall into
-        classic ``batch_lines``-line groups. Yields (lo, hi, packed)."""
+    def _groups(self, counts: np.ndarray):
+        """Split a chunk's lines, in order, into runs of one route each.
+        Yields (lo, hi, route): ``_PACKED`` for consecutive lines that fit
+        a packed row with their separators (``count + sep <= PACK_L``),
+        whatever their lengths; ``_UNPACKED`` for consecutive lines that
+        do not, up to ``Predictor.LONG_SENTENCE_THRESHOLD`` chars; ``_LONG``
+        for longer lines, which go to the general path's chunking. The
+        dispatches cut a run into groups. The host engine keeps the JAX
+        package's groups: ``batch_lines`` lines each, unpacked, whatever
+        their lengths."""
         n = len(counts)
-        if n == 0:
+        if self.host:
+            for lo in range(0, n, self.batch_lines):
+                yield lo, min(lo + self.batch_lines, n), _UNPACKED
             return
-        B = self.batch_lines
-        sep = self._sep
-        cap = PACK_L - PACK_MAX_LINE - sep
-        target = cap * PACK_TARGET_ROWS
-        is_long = counts > PACK_MAX_LINE
-        # run boundaries: positions where long/short flips
-        flips = np.flatnonzero(np.diff(is_long.astype(np.int8))) + 1
-        run_edges = np.concatenate(([0], flips, [n]))
-        width = counts.astype(np.int64) + sep
-        for r in range(len(run_edges) - 1):
-            a, b = int(run_edges[r]), int(run_edges[r + 1])
-            if is_long[a]:
-                for lo in range(a, b, B):
-                    yield lo, min(lo + B, b), False
-            else:
-                cum = np.cumsum(width[a:b])
-                lo = a
-                while lo < b:
-                    base = cum[lo - a - 1] if lo > a else 0
-                    hi = a + int(
-                        np.searchsorted(cum, base + target, side="left")
-                    ) + 1
-                    hi = min(max(hi, lo + 1), b, lo + (1 << 17))
-                    yield lo, hi, True
-                    lo = hi
+        route = np.where(counts > self.predictor.LONG_SENTENCE_THRESHOLD,
+                         _LONG, _UNPACKED)
+        route[counts + self._sep <= PACK_L] = _PACKED
+        flips = np.flatnonzero(route[1:] != route[:-1]) + 1
+        edges = np.concatenate(([0], flips, [n])).tolist()
+        for a, b in zip(edges, edges[1:]):
+            yield a, b, int(route[a])
 
-    def _dispatch_packed(self, blob, starts, ends, n_valid, counts,
-                         max_chars):
-        """Short-line packing dispatch: place lines into (B, PACK_L)
-        rows at cumulative offsets with ``self._sep`` separator chars,
-        run the serve kernel on the packed rows, and let ``_realize``
-        unpack per-line gap slices. Returns the pending tuple or None to
-        fall through to the unpacked path."""
-        sep = self._sep
-        # vectorized placement: conceptual stream position -> (row, col)
-        # with capacity cap per row; a line starting before the cap
-        # boundary may extend up to max_chars + sep beyond it, hence the
-        # headroom. Utilization ~= cap / PACK_L.
-        cap = PACK_L - max_chars - sep
-        if cap < max(2 * max_chars, 16):
-            return None  # lines too long to pack profitably
-        width = counts.astype(np.int64) + sep
-        s_pos = np.zeros(len(width), dtype=np.int64)
-        np.cumsum(width[:-1], out=s_pos[1:])
-        row = (s_pos // cap).astype(np.int32)
-        col = (s_pos - row.astype(np.int64) * cap).astype(np.int32)
-        n_rows = int(row[-1]) + 1 if len(row) else 1
+    def _dispatch_packed(self, blob, starts, ends, counts, lo, hi):
+        """Packed dispatch of the lines from ``lo``: place them in order
+        into (B, PACK_L) rows, next-fit with ``self._sep`` separator cells
+        after each line (native ``vt_pack_next_fit``), up to
+        ``PACK_TARGET_ROWS`` rows and none from ``hi`` on, run the serve
+        kernel on the packed rows, and let ``_realize`` unpack per-line
+        gap slices. Returns as :meth:`_dispatch`."""
+        row, col = pack_next_fit_native(counts[lo:hi], self._sep, PACK_L,
+                                        PACK_TARGET_ROWS)
+        hi = lo + len(row)
+        starts, ends, counts = starts[lo:hi], ends[lo:hi], counts[lo:hi]
+        n_rows = int(row[-1]) + 1
         # row-count buckets: pow2 or 0.75*pow2 (e.g. 1536, 3072) — the
         # ragged last group of a chunk otherwise pays up to 2x padding
         # in device compute and readback
@@ -572,20 +576,23 @@ class LeanServer:
         seq = self.stats["dispatches"]
         args = (blob, starts, ends, row, col, B, PACK_L, self.norm_map)
         out = (cps.numpy(), cts.numpy())
-        if (tensorize16_packed_native(*args, out=out) if log is None else
+        bad = self._first_bad
+        if (tensorize16_packed_native(*args, out=out, first_bad=bad)
+                if log is None else
                 log.call("tensorize", seq, tensorize16_packed_native, *args,
-                         out=out)) is None:
-            return None
+                         out=out, first_bad=bad)) is None:
+            return None, lo + int(bad[0])
         lengths = slot.tensor("lengths", (B,), torch.int32)
         lengths.fill_(PACK_L)
         res = (self._launch(slot, cps, cts, lengths) if log is None else
                log.call("launch", seq, self._launch, slot, cps, cts,
                         lengths))
-        self._counted(B, PACK_L, counts[:n_valid])
+        self._counted(B, PACK_L, counts)
         self.stats["packed_dispatches"] += 1
-        packed = (row[:n_valid], col[:n_valid], max_chars)
-        return (res, blob, starts[:n_valid], ends[:n_valid], packed,
-                counts[:n_valid], (cps.numpy(), lengths.numpy()))
+        self.stats["packed_lines"] += hi - lo
+        packed = (row, col, int(counts.max()))
+        return (res, blob, starts, ends, packed, counts,
+                (cps.numpy(), lengths.numpy())), hi
 
     def _complete(self, pending, out) -> None:
         """:meth:`_realize` one dispatch, as the ``realize`` span (its
@@ -762,9 +769,12 @@ class LeanServer:
     def run(self, infile, out) -> None:
         """Stream ``infile`` (binary) to ``out`` (binary), line-delimited.
 
-        Unpacked batches are exactly ``batch_lines`` rows (short tails
-        padded with empty lines); row length is bucketed per batch. Spans
-        go to ``utils.observe.call_spans()``, looked up once a call.
+        Lines are packed, next-fit in order, into (B, PACK_L) rows; runs
+        of lines too long for a row go unpacked (on the host engine, every
+        line), at most ``batch_lines`` a group, padded with empty lines to
+        the least power of two of rows that holds them, row length
+        bucketed per group. Output is in input order. Spans go to
+        ``utils.observe.call_spans()``, looked up once a call.
         """
         log = self._log = observe.call_spans()
         first = len(log.spans) if log is not None else 0
@@ -784,8 +794,7 @@ class LeanServer:
 
     def _split(self, data: bytes, synthetic_tail: bool):
         """A chunk's lines as byte ranges (the trailing CR of each left
-        out) and, on the device path, their char counts; None where the
-        chunk holds no line."""
+        out) and their char counts; None where the chunk holds no line."""
         blob = np.frombuffer(data, dtype=np.uint8)
         nl = find_newlines_native(blob)
         if len(nl) == 0:
@@ -802,8 +811,7 @@ class LeanServer:
         if synthetic_tail:
             has_cr[-1] = False
         ends = ends - has_cr.astype(np.int64)
-        counts = None if self.host else count_chars_native(blob, starts, ends)
-        return blob, starts, ends, counts
+        return blob, starts, ends, count_chars_native(blob, starts, ends)
 
     def _stream(self, infile, out, log) -> None:
         read_chunk = max(1 << 23, self.batch_lines * 512)
@@ -835,50 +843,53 @@ class LeanServer:
                      log.call("split", -1, self._split, data, synthetic_tail))
             if split is None:
                 continue
-            blob, starts, ends, counts_all = split
-            n_lines = len(starts)
-            B = self.batch_lines
-            if self.host:  # the host engine runs lines unpacked
-                groups = ((g, min(g + B, n_lines), False)
-                          for g in range(0, n_lines, B))
+            blob, starts, ends, counts = split
+            for lo, hi, route in self._groups(counts):
+                if route == _LONG:
+                    self._flush(pending, out)
+                    pending = None
+                    self._run_fallback(blob, starts[lo:hi], ends[lo:hi], out)
+                else:
+                    pending = self._serve_run(blob, starts, ends, counts, lo,
+                                              hi, route == _PACKED, pending,
+                                              out)
+        self._flush(pending, out)
+
+    def _serve_run(self, blob, starts, ends, counts, lo, hi, packed,
+                   pending, out):
+        """Dispatch the lines [lo, hi) of one route in order, each
+        dispatch realizing the one before it; returns the last, still
+        pending. A dispatch takes what fits one group (``PACK_TARGET_ROWS``
+        packed rows, or ``batch_lines`` unpacked lines) and the rest
+        follows. Where the tensorizer refuses a line (NUL, astral plane,
+        invalid UTF-8), the lines before it are dispatched without it and
+        it alone goes to the general path; the host engine sends a group
+        it cannot serve whole, as the JAX package's ``LeanServer`` does."""
+        dispatch = self._dispatch_packed if packed else self._dispatch
+        a, stop = lo, hi
+        while a < hi:
+            if a == stop:  # the tensorizer refused line a
+                self._flush(pending, out)
+                pending = None
+                self._run_fallback(blob, starts[a:a + 1], ends[a:a + 1], out)
+                a, stop = a + 1, hi
+                continue
+            done, end = self._timed(dispatch, blob, starts, ends, counts, a,
+                                    stop)
+            if done is not None:
+                self._flush(pending, out)
+                pending, a = done, end
+            elif self.host:
+                self._flush(pending, out)
+                pending = None
+                self._run_fallback(blob, starts[a:hi], ends[a:hi], out)
+                a = hi
             else:
-                groups = self._pack_groups(counts_all)
-            for lo, hi, packed in groups:
-                sub = [(lo, hi)]
-                if packed:
-                    done = self._timed(
-                        self._dispatch_packed, blob, starts[lo:hi],
-                        ends[lo:hi], hi - lo, counts_all[lo:hi],
-                        int(counts_all[lo:hi].max(initial=0)))
-                    if done is None:
-                        # NUL/astral inside the super-group: retry it in
-                        # classic batch_lines-sized unpacked groups so
-                        # only the failing slice pays the general path
-                        sub = [(g, min(g + B, hi)) for g in range(lo, hi, B)]
-                    else:
-                        if pending is not None:
-                            self._complete(pending, out)
-                        pending = done
-                        continue
-                for g, ghi in sub:
-                    gs = starts[g:ghi]
-                    ge = ends[g:ghi]
-                    if ghi - g < B:  # pad the tail group with empty lines
-                        pad = np.zeros(B - (ghi - g), dtype=np.int64)
-                        gs = np.concatenate((gs, pad))
-                        ge = np.concatenate((ge, pad))
-                    done = self._timed(self._dispatch, blob, gs, ge, ghi - g)
-                    if done is None:
-                        if pending is not None:
-                            self._complete(pending, out)
-                            pending = None
-                        self._run_fallback(
-                            blob, starts[g:ghi], ends[g:ghi], out
-                        )
-                        continue
-                    if pending is not None:
-                        self._complete(pending, out)
-                    pending = done
+                stop = end
+        return pending
+
+    def _flush(self, pending, out) -> None:
+        """Realize ``pending`` (a dispatch, or None) into ``out``."""
         if pending is not None:
             self._complete(pending, out)
 
