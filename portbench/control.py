@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""The control of ``correct``: the plain reference in the program's place,
-with its boundary weights stored as int8 (``Reference(quantize=True)``),
-run through a whole run of the cell and judged by the run's own comparison.
+"""The control of ``correct``: the plain reference that the cell's
+configuration names, in the program's place, with its boundary weights
+stored as int8 (``Reference(quantize=True)``), run through a whole run of
+the cell and judged by the run's own comparison.
 
     python3 portbench/control.py --workload <cell> --seeds <n> [<n> ...] \\
         --seconds <s>
 
 For each seed it makes one run of the cell (``portbench.run.run_cell``) in
-which :class:`ControlSystem` serves the window's reader into the window's
-sink, and prints the result line, whose ``correct`` must come out false.
+which :class:`ControlSystem` (made by :func:`control_for`) serves the
+window's reader into the window's sink, and prints the result line, whose
+``correct`` must come out false.
 The benchmark's runs never run it.
 """
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -31,13 +34,12 @@ class _Server:
 
 
 class ControlSystem:
-    """The int8 reference with the system's interface: it reads its input
-    as the predict CLI does, a chunk at a time, and writes each line's
-    record, one write a chunk."""
+    """The int8 reference (``Reference``, a class of a ``reference``
+    module) with the system's interface: it reads its input as the predict
+    CLI does, a chunk at a time, and writes each line's record, one write a
+    chunk."""
 
-    def __init__(self, raw, device=None, batch_size=None):
-        from portbench.reference import Reference
-
+    def __init__(self, Reference, raw, device=None, batch_size=None):
         self.ref = Reference(raw, quantize=True)
         self.server = _Server()
 
@@ -59,6 +61,12 @@ class ControlSystem:
             out.write(self.ref.render(carry.decode()))
 
 
+def control_for(cell):
+    """``make_system`` for :func:`portbench.run.run_cell`: the control of
+    the reference that ``cell``'s configuration names."""
+    return functools.partial(ControlSystem, cell.module("reference").Reference)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
@@ -75,7 +83,7 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         t0 = time.perf_counter()
         result, _ = run_cell(cell, seed, args.seconds, False, t0=t0,
-                             device=device, make_system=ControlSystem)
+                             device=device, make_system=control_for(cell))
         result["seed"] = seed
         result["run_s"] = time.perf_counter() - t0
         print(json.dumps(result), flush=True)

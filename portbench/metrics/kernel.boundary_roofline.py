@@ -1,6 +1,7 @@
 """The boundary kernel's share of its roofline: the least bytes the
-window's lines need of it (``portbench/work.py``) at the card's peak rate,
-over the kernel's time in the device trace."""
+window's lines need of it (``ctx["kernel_bytes"]["boundary_kernel"]``,
+``portbench/work.py`` by default) at the card's peak rate, over the
+kernel's time in the device trace."""
 
 UNIT = "%"
 LAYER = "kernels"
@@ -9,9 +10,10 @@ MOVES = "mchar_s"
 
 def read(ctx):
     tr = ctx["trace"]
-    if tr is None:
+    need = ctx["kernel_bytes"].get("boundary_kernel")
+    if tr is None or need is None:
         return None
     t = sum(s for n, s in tr["op_s"].items() if "boundary_kernel" in n)
     if t <= 0:
         return None
-    return 100.0 * ctx["boundary_bytes"] / ctx["peak_bytes_per_s"] / t
+    return 100.0 * need / ctx["peak_bytes_per_s"] / t

@@ -7,15 +7,17 @@
 from the root of a checkout, on a machine with a CUDA card. Set-up (timed
 as ``setup_s``, from the process's start to the window's first read) builds
 or finds the program's host library and kernels in the checkout's build
-directory, draws the cell's model from the seed and builds the predict
-CLI's predictor on it, draws the cell's pool of lines from the seed, and
-warms the program on a short pass of the same traffic that also touches
-each of the cell's shape buckets. The window then runs the predict CLI's
-lean path (``portbench/system.py``) on a reader that serves the pool in a
-loop until ``--seconds`` have passed, into an in-memory sink; ``mchar_s``
-is every char of every line fed over the wall time from the first read to
-the last write. Once the window has closed and the device's peak is read,
-the program's state is freed and its output is held to the plain reference
+directory, draws the cell's model from the seed and builds the system
+under test on it, draws the cell's pool of lines from the seed, and warms
+the program on a short pass of the same traffic that also touches each of
+the cell's shape buckets. The window then runs the system (by default the
+predict CLI's lean path, ``portbench/system.py``) on a reader that serves
+the pool in a loop until ``--seconds`` have passed, into an in-memory sink;
+``mchar_s`` is every char of every line fed over the wall time from the
+first read to the last write. The cell's configuration names the modules
+of its generator, system, reference and yardstick (``portbench/spec.py``).
+Once the window has closed and the device's peak is read, the program's
+state is freed and its output is held to the plain reference
 (``portbench/check.py``); each number compared is printed with its limit
 as the last lines of standard error and under ``compared`` in the result,
 the last line of standard output. ``--trace 1`` reports the per-layer
@@ -93,11 +95,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
     import numpy as np
     import torch
 
-    from portbench import check, models, spec, stream, system, trace as tr
+    from portbench import check, spec, stream, trace as tr
     from portbench import traffic as traffic_gen
     from portbench import work
-    from portbench.reference import Reference
 
+    generator, system, reference, yardstick = (
+        cell.module(k) for k in ("generator", "system", "reference", "work"))
     config = dict(cell.config, **(config_overrides or {}))
     mix = dict(cell.traffic, **(traffic_overrides or {}))
     on_cuda = device is None or str(device).startswith("cuda")
@@ -105,7 +108,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
     if on_cuda:
         system.prebuild()
     marks["build"] = time.perf_counter()
-    raw = models.generate(config, seed)
+    raw = generator.generate(config, seed)
     marks["model"] = time.perf_counter()
     corpus = traffic_gen.generate(mix, raw, seed)
     marks["pool"] = time.perf_counter()
@@ -174,7 +177,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
         f"{(b - a) / step / 1e6:.4f}" for a, b in zip(edges, edges[1:])))
     # the comparison, on the host, once the window has closed
     t_check = time.perf_counter()
-    ref = Reference(raw)
+    ref = reference.Reference(raw)
     judged = check.judge(sink, corpus, lines, ref.render,
                          int(mix["sample_lines"]),
                          np.random.default_rng([int(seed), 0x63686B]))
@@ -196,10 +199,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
                 + json.dumps({k: v for k, v in (reduced or {}).items()
                               if k != "op_s"}))
         log(f"[spans] host s by stage: {json.dumps(spans.self_seconds())}")
-        gaps = chars - lines  # every line of the pool has a char
         ctx = {"window_s": window_s, "lines": lines, "chars": chars,
                "stats": stats, "trace": reduced,
-               "boundary_bytes": work.boundary_bytes(chars, lines, gaps),
+               "kernel_bytes": yardstick.kernel_bytes(config, raw, corpus,
+                                                      lines, chars),
                "peak_bytes_per_s": work.HBM_BYTES_PER_S}
         metrics = {}
         for m in cell.per_layer:

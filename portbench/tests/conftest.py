@@ -1,5 +1,6 @@
-"""Shared pieces of the benchmark's tests: small sizes of the cells'
-configurations and traffic, for runs on the CPU with the kernels' plain
+"""Shared pieces of the benchmark's tests: every cell of ``BENCHMARK.json``,
+and small sizes of the cells' configurations (each configuration's
+``small``) and traffic, for runs on the CPU with the kernels' plain
 versions.
 
 Run them with ``python -m pytest portbench/tests -q`` from the repository's
@@ -17,13 +18,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-#: a cell's configuration at a size a CPU test holds
-SMALL_CONFIG = {"dict_words": 2000, "char_ngrams": 3000}
 #: a traffic at a size a CPU test holds (lines of at most 300 chars, so the
 #: plain versions' padded groups stay small)
 SMALL_TRAFFIC = {"pool_lines": 600, "warm_lines": 50, "sample_lines": 150}
-#: (configuration, traffic) of every cell the tests run
-CELLS = [("50k", "corpus")]
+#: the directory of the configuration that the benchmark does not run and
+#: the tests do: it names modules of its own
+FIXTURES = os.path.join(ROOT, "portbench", "tests", "fixtures")
 #: lines a batch for CPU runs (the CLI's 8 192 padded rows would cost the
 #: plain versions minutes)
 SMALL_BATCH = 32
@@ -43,29 +43,32 @@ def pytest_configure(config):
     )
 
 
-def make_cell(config: str, traffic: str):
-    """The cell of a configuration and a traffic mix from their files,
-    with BENCHMARK.json's metrics, whether or not BENCHMARK.json lists
-    it."""
+def _bench() -> dict:
     import json
 
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        return json.load(f)
+
+
+#: every cell of BENCHMARK.json, by name
+CELLS = [w["name"] for w in _bench()["workloads"]]
+#: every configuration of BENCHMARK.json, by name, with its file
+CONFIGS = {c["name"]: c["file"] for c in _bench()["configs"]}
+
+
+def make_cell(name: str, bench=None):
+    """The cell ``name`` of ``bench`` (by default BENCHMARK.json)."""
     from portbench import spec
 
-    bench = spec.load()
-    name = f"{config}.{traffic}"
-    with open(os.path.join(ROOT, "portbench", "configs",
-                           config + ".json")) as f:
-        conf = json.load(f)
-    with open(os.path.join(ROOT, "portbench", "traffic",
-                           traffic + ".json")) as f:
-        mix = json.load(f)
-    return spec.Cell(
-        name=name, chips=1, config=conf, traffic=mix,
-        end_to_end=[m for m in bench["end_to_end"] if "workloads" not in m],
-        per_layer=[m for m in bench["per_layer"]
-                   if m.get("workloads") is None
-                   or any(w.split(".")[0] == config
-                          for w in m["workloads"])])
+    return spec.Cell.find(spec.load() if bench is None else bench, name)
+
+
+def config_cell(config: str, bench=None):
+    """A cell of the configuration ``config`` of ``bench``: its first
+    workload."""
+    bench = _bench() if bench is None else bench
+    return make_cell(next(w["name"] for w in bench["workloads"]
+                          if w["config"] == config), bench)
 
 
 def small_traffic(cell) -> dict:
@@ -74,7 +77,8 @@ def small_traffic(cell) -> dict:
 
 
 def small_config(cell) -> dict:
-    return dict(SMALL_CONFIG)
+    """The configuration's own ``small`` keys."""
+    return dict(cell.config.get("small", {}))
 
 
 @pytest.fixture

@@ -1,20 +1,20 @@
-"""A short run of each cell on the card, as the driver starts one: a traced
-run that is correct and reports every per-layer metric of its cell, and the
-control run in the program's place at the cell's own size, which is not
-correct. Skips without a card."""
+"""A short run of each cell of BENCHMARK.json on the card, as the driver
+starts one: a traced run that is correct and reports every per-layer metric
+of its cell, and the control run in the program's place at the cell's own
+size, which is not correct. Skips without a card."""
 
 import json
 import subprocess
 import sys
 
 import pytest
-from conftest import ROOT
+from conftest import CELLS, ROOT
 
 from portbench import spec
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["50k.corpus"])
+@pytest.mark.parametrize("name", CELLS)
 def test_traced_run_on_the_card(name, card):
     out = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload", name, "--seed",
@@ -34,7 +34,7 @@ def test_traced_run_on_the_card(name, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["50k.corpus"])
+@pytest.mark.parametrize("name", CELLS)
 def test_control_fails_at_the_cells_size(name, card):
     """The control in the program's place through a whole run of the cell
     at its own size: the run's comparison finds it not correct."""

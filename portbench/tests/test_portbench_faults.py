@@ -10,13 +10,14 @@ import pytest
 from conftest import (CELLS, SMALL_BATCH, SMALL_READ, make_cell,
                       small_config, small_traffic)
 
-from portbench import system
-from portbench.control import ControlSystem
+from portbench.control import control_for
 from portbench.run import run_cell
 
 
-def _run(pair, seed=2**31 + 11, make_system=None):
-    cell = make_cell(*pair)
+def _run(name, seed=2**31 + 11, make_system=None):
+    cell = make_cell(name)
+    if make_system is not None:
+        make_system = make_system(cell)
     return run_cell(cell, seed, 0.5, False, t0=time.perf_counter(),
                     device="cpu", batch_size=SMALL_BATCH,
                     read_bytes=SMALL_READ, make_system=make_system,
@@ -41,17 +42,22 @@ class _Flip:
         return res
 
 
-class FlippingSystem(system.System):
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        p = self.predictor
-        made = p.serve_boundaries_fn
-        p.serve_boundaries_fn = lambda *a, **k: _Flip(made(*a, **k))
+def flipping(cell):
+    """The cell's own system with :class:`_Flip` under its serve
+    function."""
+    class FlippingSystem(cell.module("system").System):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            p = self.predictor
+            made = p.serve_boundaries_fn
+            p.serve_boundaries_fn = lambda *a, **k: _Flip(made(*a, **k))
+
+    return FlippingSystem
 
 
-@pytest.mark.parametrize("pair", CELLS)
-def test_sound_run_is_correct(pair):
-    res, nums = _run(pair)
+@pytest.mark.parametrize("name", CELLS)
+def test_sound_run_is_correct(name):
+    res, nums = _run(name)
     assert res["correct"] and nums == {"mismatched_lines": 0,
                                        "repeat_mismatched_bytes": 0,
                                        "records_off": 0}
@@ -60,14 +66,14 @@ def test_sound_run_is_correct(pair):
     assert set(res["metrics"]) == {"mchar_s", "setup_s"}
 
 
-@pytest.mark.parametrize("pair", CELLS)
-def test_altered_answer_is_not_correct(pair):
-    res, nums = _run(pair, make_system=FlippingSystem)
+@pytest.mark.parametrize("name", CELLS)
+def test_altered_answer_is_not_correct(name):
+    res, nums = _run(name, make_system=flipping)
     assert not res["correct"] and nums["mismatched_lines"] > 0
 
 
-@pytest.mark.parametrize("pair", CELLS)
-def test_half_of_each_batch_left_out_is_not_correct(pair, monkeypatch):
+@pytest.mark.parametrize("name", CELLS)
+def test_half_of_each_batch_left_out_is_not_correct(name, monkeypatch):
     from vaporetto_tpu_torch import serving
 
     realize = serving.LeanServer._realize
@@ -81,52 +87,55 @@ def test_half_of_each_batch_left_out_is_not_correct(pair, monkeypatch):
                        host), out)
 
     monkeypatch.setattr(serving.LeanServer, "_realize", half)
-    res, nums = _run(pair)
+    res, nums = _run(name)
     assert not res["correct"] and nums["records_off"] > 0
 
 
-@pytest.mark.parametrize("pair", CELLS)
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("seed", [2**31 + 1, 2**31 + 2, 2**31 + 3])
-def test_control_fails_the_comparison(pair, seed):
+def test_control_fails_the_comparison(name, seed):
     """The control in the program's place, through the run's own reader,
     sink and comparison: the run is not correct."""
-    res, nums = _run(pair, seed, make_system=ControlSystem)
+    res, nums = _run(name, seed, make_system=control_for)
     assert res["attempted"] > 100
     assert not res["correct"] and nums["mismatched_lines"] > 0
     assert nums["records_off"] == 0 and nums["repeat_mismatched_bytes"] == 0
 
 
-class LateFlippingSystem(system.System):
-    """Flips an answer from the 20th launch on: only later passes over the
-    pool carry the fault."""
+def late_flipping(cell):
+    """The cell's own system, flipping an answer from the 20th launch on:
+    only later passes over the pool carry the fault."""
+    class LateFlippingSystem(cell.module("system").System):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            p = self.predictor
+            made = p.serve_boundaries_fn
+            calls = [0]
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        p = self.predictor
-        made = p.serve_boundaries_fn
-        calls = [0]
+            def fn(*a, **k):
+                inner = made(*a, **k)
 
-        def fn(*a, **k):
-            inner = made(*a, **k)
+                def call(*args):
+                    calls[0] += 1
+                    res = inner(*args)
+                    if calls[0] >= 20:
+                        res[0, 0] ^= 1
+                    return res
+                return call
 
-            def call(*args):
-                calls[0] += 1
-                res = inner(*args)
-                if calls[0] >= 20:
-                    res[0, 0] ^= 1
-                return res
-            return call
+            p.serve_boundaries_fn = fn
 
-        p.serve_boundaries_fn = fn
+    return LateFlippingSystem
 
 
 def _looping_run(make_system=None):
-    cell = make_cell("50k", "corpus")
+    cell = make_cell(CELLS[0])
     traffic = dict(small_traffic(cell), pool_lines=40, warm_lines=10,
                    length_median=16, length_max=64)
     return run_cell(cell, 2**31 + 12, 2.0, False, t0=time.perf_counter(),
                     device="cpu", batch_size=SMALL_BATCH,
-                    read_bytes=1024, make_system=make_system,
+                    read_bytes=1024,
+                    make_system=make_system and make_system(cell),
                     config_overrides=small_config(cell),
                     traffic_overrides=traffic)
 
@@ -138,6 +147,6 @@ def test_later_passes_repeat_the_first():
 
 
 def test_fault_in_a_later_pass_is_not_correct():
-    res, nums = _looping_run(LateFlippingSystem)
+    res, nums = _looping_run(late_flipping)
     assert res["attempted"] > 120
     assert not res["correct"] and nums["repeat_mismatched_bytes"] > 0

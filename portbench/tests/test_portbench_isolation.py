@@ -1,14 +1,18 @@
 """What a run imports: never ``jax``, ``jaxlib``, ``flax`` or the JAX
 package ``vaporetto_tpu`` (top-level names compared whole:
 ``vaporetto_tpu_torch`` is the port); and the reference, the generators and
-the comparison import nothing of the port."""
+the comparison import nothing of the port, nor does any module that a
+configuration (of BENCHMARK.json, or the tests' fixture) names as its
+``generator``, ``reference`` or ``work``: only a ``system`` imports the
+port."""
 
 import json
 import os
 import subprocess
 import sys
 
-from conftest import ROOT
+import pytest
+from conftest import CELLS, FIXTURES, ROOT
 
 from portbench import spec
 from portbench.run import FORBIDDEN
@@ -20,7 +24,7 @@ sys.path.insert(0, {tests!r})
 from conftest import (SMALL_BATCH, SMALL_READ, make_cell, small_config,
                       small_traffic)
 from portbench.run import run_cell
-cell = make_cell(*{cell!r})
+cell = make_cell({cell!r})
 res, _ = run_cell(cell, 2**31 + 3, 0.2, {trace}, t0=time.perf_counter(),
                   device="cpu", batch_size=SMALL_BATCH, read_bytes=SMALL_READ,
                   config_overrides=small_config(cell),
@@ -38,6 +42,16 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 
+NAMED_ONLY = """
+import json, sys
+sys.path.insert(0, {root!r})
+from portbench import spec
+for path, names in {named!r}:
+    spec.load_module(path, names)
+print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
+"""
+
+
 def _child(code: str):
     env = dict(os.environ, USE_FLAX="0")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -51,11 +65,11 @@ def test_forbidden_names_are_whole_top_level_names():
     assert "vaporetto_tpu_torch" not in FORBIDDEN
 
 
-def test_a_run_imports_neither_jax_nor_the_jax_package():
-    for cell, trace in ((("50k", "corpus"), False),
-                        (("50k", "corpus"), True)):
+@pytest.mark.parametrize("name", CELLS)
+def test_a_run_imports_neither_jax_nor_the_jax_package(name):
+    for trace in (False, True):
         got = _child(RUN_ON_CPU.format(
-            root=ROOT, tests=os.path.dirname(__file__), cell=cell,
+            root=ROOT, tests=os.path.dirname(__file__), cell=name,
             trace=trace))
         assert got["correct"]
         assert "vaporetto_tpu_torch" in got["top"]
@@ -64,6 +78,21 @@ def test_a_run_imports_neither_jax_nor_the_jax_package():
 
 def test_reference_and_generators_import_nothing_of_the_port():
     top = _child(HARNESS_ONLY.format(root=ROOT))
+    assert "vaporetto_tpu_torch" not in top
+    assert not set(top) & set(FORBIDDEN)
+
+
+def test_named_modules_but_systems_import_nothing_of_the_port():
+    configs = [os.path.join(ROOT, c["file"]) for c in spec.load()["configs"]]
+    configs.append(os.path.join(FIXTURES, "wrapped.json"))
+    named = set()
+    for path in configs:
+        with open(path) as f:
+            mods = spec.modules_of(json.load(f))
+        named |= {(mods[k], spec.DECLARES[k])
+                  for k in ("generator", "reference", "work")}
+    assert any(p.startswith(FIXTURES) for p, _ in named)
+    top = _child(NAMED_ONLY.format(root=ROOT, named=sorted(named)))
     assert "vaporetto_tpu_torch" not in top
     assert not set(top) & set(FORBIDDEN)
 

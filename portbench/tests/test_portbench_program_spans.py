@@ -11,7 +11,6 @@ NEW = {
     "orchestration.fill_share": 25.0,
     "upload.bytes_per_char": 3.0,
     "host.threads_per_dispatch": 4.0,
-    "host.count_ms_per_mchar": 50.0,
     "host.tensorize_ms_per_mchar": 100.0,
     "host.launch_ms_per_mchar": 20.0,
 }
@@ -20,7 +19,7 @@ NEW = {
 def _ctx(**stats):
     base = {"dispatches": 40, "t_dispatch_s": 1.0, "cells": 2_000_000,
             "live_chars": 500_000, "upload_bytes": 6_000_000,
-            "native_threads": 160, "t_count_s": 0.1, "t_tensorize_s": 0.2,
+            "native_threads": 160, "t_tensorize_s": 0.2,
             "t_launch_s": 0.04}
     base.update(stats)
     return {"window_s": 2.0, "lines": 100, "chars": 2_000_000,
@@ -37,7 +36,6 @@ def test_readers(name, want):
     ("orchestration.fill_share", "cells"),
     ("upload.bytes_per_char", "upload_bytes"),
     ("host.threads_per_dispatch", "native_threads"),
-    ("host.count_ms_per_mchar", "t_count_s"),
     ("host.tensorize_ms_per_mchar", "t_tensorize_s"),
     ("host.launch_ms_per_mchar", "t_launch_s"),
 ])

@@ -1,17 +1,17 @@
-"""The plain reference: hand-worked outputs of tiny models, and agreement
-with the port's predict CLI on its plain versions at a small size on the
-CPU (a comparison for the tests only: the reference itself imports nothing
-of the port)."""
+"""The plain reference: hand-worked outputs of tiny models, and, for each
+configuration, agreement of its reference with its system (the port's
+predict CLI by default) on the kernels' plain versions at a small size on
+the CPU (a comparison for the tests only: a reference imports nothing of
+the port)."""
 
 import io
-import json
-import os
 
 import numpy as np
 import pytest
-from conftest import ROOT, SMALL_BATCH, SMALL_CONFIG, SMALL_TRAFFIC
+from conftest import (CONFIGS, SMALL_BATCH, SMALL_TRAFFIC, config_cell,
+                      small_config)
 
-from portbench import models, stream, system, traffic
+from portbench import models, stream, traffic
 from portbench.reference import FULLWIDTH, Reference, char_type
 
 
@@ -75,18 +75,19 @@ def test_control_differs_from_the_reference():
     assert exact.gap_scores(t, ty) != ctrl.gap_scores(t, ty)
 
 
-def test_reference_agrees_with_the_port_on_the_cpu():
-    with open(os.path.join(ROOT, "portbench", "configs", "50k.json")) as f:
-        config = dict(json.load(f), **SMALL_CONFIG)
-    with open(os.path.join(ROOT, "portbench", "traffic", "corpus.json")) as f:
-        mix = dict(json.load(f), **SMALL_TRAFFIC, length_max=300)
-    raw = models.generate(config, 2**31 + 5)
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_reference_agrees_with_the_port_on_the_cpu(config):
+    cell = config_cell(config)
+    mix = dict(cell.traffic, **SMALL_TRAFFIC,
+               length_max=min(cell.traffic["length_max"], 300))
+    raw = cell.module("generator").generate(
+        dict(cell.config, **small_config(cell)), 2**31 + 5)
     pool = traffic.generate(dict(mix, pool_lines=300), raw, 2**31 + 5)
-    sut = system.System(raw, "cpu", SMALL_BATCH)
+    sut = cell.module("system").System(raw, "cpu", SMALL_BATCH)
     sink = stream.Sink()
     sut.run(io.BytesIO(pool.data), sink)
     got = sink.getvalue().split(b"\n")[:-1]
-    ref = Reference(raw)
+    ref = cell.module("reference").Reference(raw)
     want = [ref.render(pool.line(i))[:-1] for i in range(pool.n_lines)]
     assert len(got) == pool.n_lines
     assert got == want

@@ -38,7 +38,10 @@ def test_benchmark_keys_and_names(bench):
         assert c["file"].startswith("portbench/") and all(
             NAME.match(k) for k in c["reduced"])
         with open(os.path.join(ROOT, c["file"])) as f:
-            assert json.load(f)["reduced"] == c["reduced"]
+            conf = json.load(f)
+        assert conf["reduced"] == c["reduced"]
+        for key in set(conf) & set(spec.MODULES):
+            assert conf[key].startswith(tuple(p + "/" for p in bench["paths"]))
     for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] == 1 and len(w["why"]) <= 200
@@ -69,6 +72,23 @@ def test_every_cell_finds_its_pieces(bench):
         assert cell.per_layer
         for m in cell.per_layer:
             assert callable(spec.metric_reader(m))
+
+
+@pytest.mark.parametrize("key,path,error", [
+    ("system", "portbench/no_such_system.py", FileNotFoundError),
+    ("generator", "/etc/generator.py", ValueError),
+    ("reference", "portbench/../portbench/reference.py", ValueError),
+])
+def test_a_configuration_naming_no_module_file_is_refused(key, path, error):
+    with pytest.raises(error, match=key):
+        spec.modules_of({"name": "x", key: path})
+
+
+def test_a_named_module_must_define_what_its_key_needs(bench):
+    cell = spec.Cell.find(bench, bench["workloads"][0]["name"])
+    cell.modules["generator"] = cell.modules["work"]
+    with pytest.raises(AttributeError, match="generate"):
+        cell.module("generator")
 
 
 def test_a_metric_file_must_declare_what_its_entry_says(bench):

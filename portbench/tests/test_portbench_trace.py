@@ -3,10 +3,11 @@ synthetic events and counts."""
 
 import os
 import time
+import types
 
 import pytest
-from conftest import (SMALL_BATCH, SMALL_READ, make_cell, small_config,
-                      small_traffic)
+from conftest import (CELLS, SMALL_BATCH, SMALL_READ, make_cell,
+                      small_config, small_traffic)
 
 from portbench import spec, trace, work
 from portbench.run import run_cell
@@ -36,6 +37,34 @@ def test_busy_time_is_the_union_and_idle_time_goes_to_the_innermost_span():
     assert trace.reduce([("k", 50 * ms, 60 * ms)], (0, 30 * ms), {}) is None
 
 
+class _Server:
+    """The stages a traced run wraps, as methods of a server's class."""
+
+    def _dispatch(self):
+        pass
+
+    _dispatch_packed = _launch = _realize = _run_fallback = _dispatch
+
+
+@pytest.mark.parametrize("writer", ["detok_bits_native", "detok_native",
+                                    "detok_tags2_native"])
+def test_every_native_writer_is_a_write_span(writer, monkeypatch):
+    """The boundary writers and the tag writer count as ``write``, not as
+    the ``wait`` around them; uninstalling restores each."""
+    from vaporetto_tpu_torch import serving
+
+    monkeypatch.setattr(serving, writer, lambda *a, **k: b"x\n")
+    fake = getattr(serving, writer)
+    spans = trace.Spans()
+    spans.install(_Server(), types.SimpleNamespace(read=lambda n: b""),
+                  types.SimpleNamespace(write=len))
+    assert getattr(serving, writer)(1, 2) == b"x\n"
+    spans.uninstall()
+    assert getattr(serving, writer) is fake
+    assert len(spans.spans["write"]) == 1
+    assert not spans.spans["wait"]
+
+
 def _ctx(**over):
     ctx = {"window_s": 2.0, "lines": 100, "chars": 5_000_000,
            "stats": {"dispatches": 40, "t_dispatch_s": 1.0,
@@ -45,7 +74,7 @@ def _ctx(**over):
                      "op_s": {"boundary_kernel<a>": 0.01,
                               "Memcpy DtoH (Device -> Pinned)": 0.2,
                               "Memcpy HtoD (Pinned -> Device)": 0.1}},
-           "boundary_bytes": 3.35e9,
+           "kernel_bytes": {"boundary_kernel": 3.35e9},
            "peak_bytes_per_s": work.HBM_BYTES_PER_S}
     ctx.update(over)
     return ctx
@@ -99,22 +128,42 @@ def test_a_kernel_that_did_not_run_has_no_roofline():
                  _ctx(stats={"dispatches": 0})) is None
 
 
+def test_window_mfu_sums_every_kernel_the_yardstick_counts():
+    two = {"boundary_kernel": 3.35e9, "tag_kernel": 6.7e9}
+    assert _read("device.window_mfu", _ctx(kernel_bytes=two)) == \
+        pytest.approx(0.15)
+    assert _read("kernel.boundary_roofline",
+                 _ctx(kernel_bytes=two)) == pytest.approx(10.0)
+    assert _read("kernel.boundary_roofline",
+                 _ctx(kernel_bytes={"tag_kernel": 1.0})) is None
+
+
 def test_least_bytes():
     assert work.boundary_bytes(100, 10, 90) == 300 + 40 + 90 / 8
+    assert work.kernel_bytes({}, None, None, 10, 100) == {
+        "boundary_kernel": work.boundary_bytes(100, 10, 90)}
 
 
-def test_traced_run_on_the_cpu_reports_its_counters_only():
+@pytest.mark.parametrize("name", CELLS)
+def test_traced_run_on_the_cpu_reports_its_counters_only(name):
     """No device trace on the CPU: the readers of the trace give nothing,
-    the program's counters and spans give their metrics."""
-    cell = make_cell("50k", "corpus")
-    res, _ = run_cell(cell, 2**31 + 21, 0.2, True, t0=time.perf_counter(),
-                      device="cpu", batch_size=SMALL_BATCH,
-                      read_bytes=SMALL_READ,
-                      config_overrides=small_config(cell),
-                      traffic_overrides=small_traffic(cell))
+    the program's counters and spans give their metrics. The program
+    records its spans while ``torch.profiler`` records, as in a traced run
+    on the card; here its span log is turned on in its place."""
+    from vaporetto_tpu_torch.utils import observe
+
+    cell = make_cell(name)
+    observe.record_spans()
+    try:
+        res, _ = run_cell(cell, 2**31 + 21, 0.2, True,
+                          t0=time.perf_counter(), device="cpu",
+                          batch_size=SMALL_BATCH, read_bytes=SMALL_READ,
+                          config_overrides=small_config(cell),
+                          traffic_overrides=small_traffic(cell))
+    finally:
+        observe.stop_spans()
     assert res["correct"]
     assert set(res["metrics"]) == {
-        "orchestration.lines_per_dispatch", "host.dispatch_ms_per_mchar",
-        "host.detok_ms_per_mchar", "readback.bytes_per_char",
-        "readback.wait_ms_per_mchar"}
+        m["name"] for m in cell.per_layer
+        if m["source"] in ("program_counter", "program_span")}
     assert "breakdown" not in res and "busy_s" not in res["device"]

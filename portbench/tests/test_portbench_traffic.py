@@ -1,23 +1,23 @@
-"""The traffic generator and the model generator: each repeats exactly per
-seed and meets the parameters of its file."""
+"""The traffic generator and each configuration's model generator: each
+repeats exactly per seed and meets the parameters of its file."""
 
 import json
 import os
 
 import numpy as np
 import pytest
-from conftest import ROOT, SMALL_CONFIG
+from conftest import CONFIGS, ROOT, config_cell, small_config
 
-from portbench import models, traffic
+from portbench import traffic
 
 SEED = 2**31 + 99
 
 
-def _config(name, **over):
-    with open(os.path.join(ROOT, "portbench", "configs", name)) as f:
-        c = json.load(f)
-    c.update(over)
-    return c
+def _small(config):
+    """(the configuration at its small size, its generator)."""
+    cell = config_cell(config)
+    return (dict(cell.config, **small_config(cell)),
+            cell.module("generator").generate)
 
 
 @pytest.fixture(scope="module")
@@ -26,15 +26,17 @@ def corpus_mix():
         return json.load(f)
 
 
-@pytest.fixture(scope="module")
-def small_model():
-    return models.generate(_config("50k.json", **SMALL_CONFIG), SEED)
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def small_model(request):
+    c, generate = _small(request.param)
+    return generate(c, SEED)
 
 
-def test_model_repeats_per_seed_and_meets_its_sizes():
-    c = _config("50k.json", **SMALL_CONFIG)
-    a, b = models.generate(c, SEED), models.generate(c, SEED)
-    other = models.generate(c, SEED + 1)
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_model_repeats_per_seed_and_meets_its_sizes(config):
+    c, generate = _small(config)
+    a, b = generate(c, SEED), generate(c, SEED)
+    other = generate(c, SEED + 1)
     assert a.words == b.words and a.ngrams == b.ngrams
     assert all((x == y).all() for x, y in zip(a.word_w, b.word_w))
     assert a.words != other.words
@@ -47,9 +49,10 @@ def test_model_repeats_per_seed_and_meets_its_sizes():
     assert all(len(w) == len(x) + 1 for x, w in zip(a.words, a.word_w))
 
 
-def test_type_ngrams_are_every_one_and_the_same_for_every_seed():
-    c = _config("50k.json", **SMALL_CONFIG)
-    a, other = models.generate(c, SEED), models.generate(c, SEED + 1)
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_type_ngrams_are_every_one_and_the_same_for_every_seed(config):
+    c, generate = _small(config)
+    a, other = generate(c, SEED), generate(c, SEED + 1)
     assert len(set(a.type_ngrams)) == 6 + 36 + 216
     assert a.type_ngrams == other.type_ngrams
     assert all((x == y).all() for x, y in zip(a.type_w, other.type_w))

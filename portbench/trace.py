@@ -63,7 +63,8 @@ class Spans:
         self._patch(server, "_launch", "launch")
         self._patch(server, "_realize", "wait")
         self._patch(server, "_run_fallback", "fallback")
-        for attr in ("detok_bits_native", "detok_native"):
+        for attr in ("detok_bits_native", "detok_native",
+                     "detok_tags2_native"):
             self._patch(serving, attr, "write")
         self._patch(reader, "read", "read")
         self._patch(sink, "write", "sink")

@@ -15,7 +15,7 @@ lower bound of the kernel's own.
 
 from __future__ import annotations
 
-__all__ = ["HBM_BYTES_PER_S", "boundary_bytes"]
+__all__ = ["HBM_BYTES_PER_S", "boundary_bytes", "kernel_bytes"]
 
 #: NVIDIA H100 SXM device memory rate (NVIDIA's data sheet), at the full
 #: 700 W power limit
@@ -24,3 +24,12 @@ HBM_BYTES_PER_S = 3.35e12
 
 def boundary_bytes(chars: int, lines: int, gaps: int) -> float:
     return 3.0 * chars + 4.0 * lines + gaps / 8.0
+
+
+def kernel_bytes(config: dict, raw, corpus, lines_fed: int,
+                 chars_fed: int) -> dict:
+    """The least bytes of the window's work by kernel (a substring of its
+    name in the device trace): a boundary-only configuration runs the
+    boundary kernel alone."""
+    gaps = chars_fed - lines_fed  # every line of the pool has a char
+    return {"boundary_kernel": boundary_bytes(chars_fed, lines_fed, gaps)}
